@@ -1,0 +1,76 @@
+"""Carry scene state from the JAX package into the port's tensors.
+
+The JAX package (``commonroad_rp_tpu``) keeps its scene state in NamedTuples
+of arrays.  These helpers take ``np.asarray`` of every leaf and build the
+port's NamedTuple of the same name on a given device, so that both packages
+can score identical inputs: a test then separates kernel differences from
+host-side differences.  This module imports no JAX; it only reads the
+leaves' array protocol.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from commonroad_rp_tpu_torch.ops.collision import (CorridorArrays,
+                                                   ObstacleArrays)
+from commonroad_rp_tpu_torch.ops.cycle import CostParams
+from commonroad_rp_tpu_torch.ops.frenet import RefPathTables
+from commonroad_rp_tpu_torch.ops.kinematics import VehicleArrays
+
+
+def tensor(leaf, device="cpu", dtype: Optional[torch.dtype] = None):
+    """One leaf as a tensor on ``device``: floating leaves in ``dtype``
+    (their own precision when None), bool and integer leaves as they are;
+    None stays None."""
+    if leaf is None:
+        return None
+    arr = np.asarray(leaf)
+    if np.issubdtype(arr.dtype, np.floating) and dtype is not None:
+        return torch.as_tensor(arr.copy(), dtype=dtype, device=device)
+    return torch.as_tensor(arr.copy(), device=device)
+
+
+def _convert(obj, cls, device, dtype):
+    return cls(*(tensor(getattr(obj, name), device, dtype)
+                 for name in cls._fields))
+
+
+def ref_tables(ref, device="cpu", dtype=None) -> RefPathTables:
+    return _convert(ref, RefPathTables, device, dtype)
+
+
+def obstacles(obs, device="cpu", dtype=None) -> ObstacleArrays:
+    return _convert(obs, ObstacleArrays, device, dtype)
+
+
+def corridor(cor, device="cpu", dtype=None) -> CorridorArrays:
+    return _convert(cor, CorridorArrays, device, dtype)
+
+
+def vehicle(veh) -> VehicleArrays:
+    """Vehicle scalars as Python floats (the values the JAX arrays hold)."""
+    return VehicleArrays(*(float(np.asarray(getattr(veh, name)))
+                           for name in VehicleArrays._fields))
+
+
+def cost_params(params) -> CostParams:
+    """Cost parameters as Python floats."""
+    return CostParams(*(float(np.asarray(getattr(params, name)))
+                        for name in CostParams._fields))
+
+
+def candidates(coeffs_lon, coeffs_lat, traj_len, goal_valid,
+               level_ids=None, device="cpu"):
+    """Candidate arrays: float32 coefficient rows [K, 6], int32 lengths,
+    bool goal mask and (optionally) int32 level ids."""
+    out = (tensor(coeffs_lon, device, torch.float32),
+           tensor(coeffs_lat, device, torch.float32),
+           tensor(np.asarray(traj_len).astype(np.int32), device),
+           tensor(np.asarray(goal_valid).astype(bool), device))
+    if level_ids is not None:
+        out = out + (tensor(np.asarray(level_ids).astype(np.int32), device),)
+    return out

@@ -1,0 +1,710 @@
+"""ReactivePlanner facade: the reference planner API over the fused scorer.
+
+Counterpart of ``commonroad_rp_tpu/models/planner.py`` (reference:
+commonroad_rp/reactive_planner.py:52-1159) for the main path.  The host
+compiles the scene, generates every sampling level's candidate grid, and
+assembles the output; one ``ops.cycle.evaluate_levels_fast`` call per cycle
+scores the union of the levels in one kernel launch on the planner's device,
+selects the winner with the reference's escalation semantics, and re-rolls
+it.  Only this fused float32 path is ported: configurations that need
+another scoring path raise ``NotImplementedError`` naming the ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+import weakref
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from commonroad_rp_tpu_torch.models.cost_functions import (
+    CostFunction, DefaultCostFunction)
+from commonroad_rp_tpu_torch.models.sampling import (CandidateBatch,
+                                                     PositionSampling,
+                                                     SamplingSpace,
+                                                     TimeSampling,
+                                                     VelocitySampling,
+                                                     sampling_space_factory)
+from commonroad_rp_tpu_torch.models.state import (InputState,
+                                                  ReactivePlannerState,
+                                                  TraceState)
+from commonroad_rp_tpu_torch.models.trajectories import (OptimalTrajectory,
+                                                         Trajectory)
+from commonroad_rp_tpu_torch.ops import collision as collision_ops
+from commonroad_rp_tpu_torch.ops import cycle as cycle_ops
+from commonroad_rp_tpu_torch.ops import kinematics as kin_ops
+from commonroad_rp_tpu_torch.utils.config import ReactivePlannerConfiguration
+from commonroad_rp_tpu_torch.utils.coordinate_system import CoordinateSystem
+from commonroad_rp_tpu_torch.utils.general import (
+    retrieve_desired_velocity_from_pp, shift_orientation_states)
+from commonroad_rp_tpu_torch.utils.geometry import interpolate_angle
+from commonroad_rp_tpu_torch.utils.profiling import StageTimers
+from commonroad_rp_tpu_torch.utils.scenario import Scenario
+
+logger = logging.getLogger("RP_LOGGER")
+
+_CONSTRAINT_ORDER = ("velocity", "acceleration", "kappa", "kappa_dot",
+                     "yaw_rate")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``cuda`` when a card is present and no device is named, else ``cpu``;
+    a named CUDA device without a card raises."""
+    if device is None:
+        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but "
+                           "torch.cuda.is_available() is false")
+    return device
+
+
+def check_fast_scope(config: ReactivePlannerConfiguration):
+    """Raise NotImplementedError for configurations that need a scoring path
+    the port does not have yet (resolves the 'auto'/None defaults to the
+    fused float32 path)."""
+    debug = config.debug
+    if debug.kernel_dtype == "auto":
+        debug.kernel_dtype = "float32"
+    if debug.fast_scoring is None:
+        debug.fast_scoring = True
+    if not debug.fast_scoring or debug.kernel_dtype != "float32":
+        raise NotImplementedError(
+            "only the fused float32 scorer is ported (fast_scoring: True, "
+            "kernel_dtype: float32); the float64 conformance path is ROADMAP "
+            "queue 1 item 3")
+    if config.planning.boundary_mode not in ("corridor", "segments"):
+        raise ValueError(f"unknown boundary_mode "
+                         f"{config.planning.boundary_mode!r}")
+    if config.planning.boundary_mode == "segments" \
+            or config.planning.continuous_collision_check:
+        raise NotImplementedError(
+            "boundary_mode: segments and continuous_collision_check need the "
+            "lazy winner refinement, ROADMAP queue 1 item 3")
+    if debug.draw_traj_set and (debug.show_plots or debug.save_plots):
+        raise NotImplementedError(
+            "draw_traj_set (trajectory-set capture) is ROADMAP queue 1 item 9")
+
+
+class CollisionChecker:
+    """Compiled scene: road boundary, per-reference-path corridors, and
+    per-window obstacle tables, all on the planner's device
+    (reactive_planner.py:218-256; reused across cycles via reset())."""
+
+    def __init__(self, scenario: Scenario, device: torch.device,
+                 dtype=torch.float32):
+        self.scenario = scenario
+        self.device = device
+        self.dtype = dtype
+        self.boundary = collision_ops.compile_road_boundary(
+            scenario, dtype=dtype, device=device)
+        self._window_cache: Dict[Tuple[int, int, int],
+                                 collision_ops.ObstacleArrays] = {}
+        self._corridor_cache = weakref.WeakKeyDictionary()
+
+    def corridor_for(self, coordinate_system) -> collision_ops.CorridorArrays:
+        """Drivable d-band tables for a reference path (cached per CoSys)."""
+        if coordinate_system not in self._corridor_cache:
+            self._corridor_cache[coordinate_system] = \
+                collision_ops.compile_corridor(
+                    self.boundary, coordinate_system.tables,
+                    dtype=self.dtype, device=self.device)
+        return self._corridor_cache[coordinate_system]
+
+    def obstacles_for_window(self, t_start: int, horizon_steps: int,
+                             factor: int) -> collision_ops.ObstacleArrays:
+        key = (t_start, horizon_steps, factor)
+        if key not in self._window_cache:
+            self._window_cache[key] = collision_ops.compile_obstacles(
+                self.scenario, t_start, horizon_steps, factor,
+                dtype=self.dtype, device=self.device)
+        return self._window_cache[key]
+
+
+class ReactivePlanner:
+    """Sampling-based reactive trajectory planner on the fused scorer.
+
+    ``device`` defaults to ``cuda`` when a card is present and ``cpu``
+    otherwise; on the CPU the scorer runs its plain PyTorch version.
+    """
+
+    def __init__(self, config: ReactivePlannerConfiguration, device=None):
+        self.device = resolve_device(device)
+        check_fast_scope(config)
+        self._dtype = torch.float32
+
+        self.dt: float = config.planning.dt
+        self.N: int = config.planning.time_steps_computation
+        self.horizon: float = config.planning.dt * \
+            config.planning.time_steps_computation
+        self.vehicle_params = config.vehicle
+
+        self.x_0: Optional[ReactivePlannerState] = None
+        self.x_0_cl: Optional[Tuple[List, List]] = None
+        self._co: Optional[CoordinateSystem] = None
+        self._cc: Optional[CollisionChecker] = None
+
+        # statistics (reactive_planner.py:79-88)
+        self._infeasible_count_collision: int = 0
+        self._infeasible_count_kinematics: int = 0
+        self._infeasible_reason_dict: Dict[str, int] = {}
+        self._optimal_cost: float = 0.0
+        self._planning_times_list: List[float] = []
+        self.stage_timers = StageTimers()
+        self._record_state_list: List[ReactivePlannerState] = []
+        self._record_input_list: List[InputState] = []
+
+        self._desired_speed: Optional[float] = None
+        self._desired_lon_position: Optional[float] = None
+        self._low_vel_mode = False
+
+        self.config: Optional[ReactivePlannerConfiguration] = None
+        self.reset(config)
+
+        self.sampling_space: Optional[SamplingSpace] = None
+        self.set_sampling_space()
+        self.sampling_level = config.sampling.num_sampling_levels
+
+        self.cost_function: Optional[CostFunction] = None
+        self.set_cost_function()
+
+        self._standstill_lookahead = config.planning.standstill_lookahead
+
+    # ------------------------------------------------------------------
+    # properties (reactive_planner.py:115-160)
+    # ------------------------------------------------------------------
+
+    @property
+    def collision_checker(self) -> CollisionChecker:
+        return self._cc
+
+    @property
+    def coordinate_system(self) -> CoordinateSystem:
+        return self._co
+
+    @property
+    def reference_path(self) -> np.ndarray:
+        return self._co.reference
+
+    @property
+    def infeasible_count_collision(self) -> int:
+        return self._infeasible_count_collision
+
+    @property
+    def infeasible_count_kinematics(self) -> int:
+        return self._infeasible_count_kinematics
+
+    @property
+    def infeasible_reason_dict(self) -> dict:
+        self._materialize_reason_stats()
+        return self._infeasible_reason_dict
+
+    @property
+    def optimal_cost(self) -> float:
+        return self._optimal_cost
+
+    @property
+    def planning_times(self) -> List[float]:
+        return self._planning_times_list
+
+    @property
+    def record_state_list(self) -> List[ReactivePlannerState]:
+        return self._record_state_list
+
+    @property
+    def record_input_list(self) -> List[InputState]:
+        return self._record_input_list
+
+    # ------------------------------------------------------------------
+    # setup / reset
+    # ------------------------------------------------------------------
+
+    def goal_reached(self) -> bool:
+        """Initial state within the goal region (reactive_planner.py:162-170)."""
+        x_0_shifted = self.x_0.shift_positions_to_center(
+            self.vehicle_params.wb_rear_axle)
+        if self.config.planning_problem.goal.is_reached(x_0_shifted):
+            logger.info("Goal of planning problem reached")
+            return True
+        return False
+
+    def reset(self, config: ReactivePlannerConfiguration = None,
+              initial_state_cart: ReactivePlannerState = None,
+              initial_state_curv: Tuple[List, List] = None,
+              collision_checker: CollisionChecker = None,
+              coordinate_system: CoordinateSystem = None):
+        """Re-initialize for replanning (reactive_planner.py:172-216)."""
+        if config is not None:
+            self.config = config
+        else:
+            assert self.config is not None, \
+                "<ReactivePlanner.reset(). No Configuration object provided>"
+
+        self._reset_statistics()
+
+        if collision_checker is None:
+            self.set_collision_checker(scenario=self.config.scenario)
+        else:
+            self.set_collision_checker(collision_checker=collision_checker)
+
+        if coordinate_system is not None:
+            self.set_reference_path(coordinate_system=coordinate_system)
+
+        if self.x_0 is None and initial_state_cart is None:
+            if self.config.planning_problem:
+                self.x_0 = ReactivePlannerState.create_from_initial_state(
+                    self.config.planning_problem.initial_state,
+                    self.vehicle_params.wheelbase,
+                    self.vehicle_params.wb_rear_axle)
+            else:
+                self.x_0 = None
+        else:
+            self.x_0 = initial_state_cart if initial_state_cart is not None \
+                else self.x_0
+
+        self.x_0_cl = initial_state_curv if initial_state_curv is not None \
+            else self._compute_initial_states(self.x_0)
+
+    def set_collision_checker(self, scenario: Scenario = None,
+                              collision_checker: CollisionChecker = None):
+        """Compile or adopt the scene (reactive_planner.py:218-256)."""
+        if collision_checker is None:
+            assert scenario is not None, \
+                "<ReactivePlanner.set_collision_checker>: provide a scenario OR a checker"
+            self._cc = CollisionChecker(scenario, self.device, self._dtype)
+        else:
+            assert scenario is None, \
+                "<ReactivePlanner.set_collision_checker>: provide a scenario OR a checker"
+            self._cc = collision_checker
+
+    def set_reference_path(self, reference_path: np.ndarray = None,
+                           coordinate_system: CoordinateSystem = None):
+        """Build or adopt the curvilinear frame (reactive_planner.py:258-272)."""
+        if coordinate_system is None:
+            assert reference_path is not None, \
+                "<set reference path>: provide a reference path OR a CoordinateSystem"
+            self._co = CoordinateSystem(reference_path, dtype=self._dtype,
+                                        device=self.device)
+        else:
+            assert reference_path is None, \
+                "<set reference path>: provide a reference path OR a CoordinateSystem"
+            self._co = coordinate_system
+
+    # sampling-parameter setters (reactive_planner.py:274-307)
+
+    def set_t_sampling_parameters(self, t_min):
+        self.sampling_space.samples_t = TimeSampling(
+            t_min, self.horizon, self.sampling_level, self.dt)
+
+    def set_d_sampling_parameters(self, delta_d_min, delta_d_max):
+        self.sampling_space.samples_d = PositionSampling(
+            delta_d_min, delta_d_max, self.sampling_level)
+
+    def set_v_sampling_parameters(self, v_min, v_max):
+        self.sampling_space.samples_v = VelocitySampling(
+            v_min, v_max, self.sampling_level)
+
+    def set_s_sampling_parameters(self, s_min, s_max):
+        self.sampling_space.samples_s = PositionSampling(
+            s_min, s_max, self.sampling_level)
+
+    def set_desired_velocity(self, desired_velocity: float = None,
+                             current_speed: float = None,
+                             stopping: bool = False):
+        """Velocity target + sampled interval (reactive_planner.py:309-347)."""
+        self._desired_lon_position = None
+        if desired_velocity is None and self._desired_speed is None:
+            self._desired_speed = retrieve_desired_velocity_from_pp(
+                self.config.planning_problem)
+        else:
+            self._desired_speed = desired_velocity \
+                if desired_velocity is not None else self._desired_speed
+        assert self._desired_speed >= 0.0, \
+            f"<ReactivePlanner.set_desired_velocity(): desired speed has to " \
+            f"be positive. Provided speed{self._desired_speed}>"
+
+        if not stopping:
+            reference_speed = current_speed if current_speed is not None \
+                else self._desired_speed
+            min_v = max(0, reference_speed - (0.125 * self.horizon *
+                                              self.vehicle_params.a_max))
+            max_v = max(min_v + 5.0, reference_speed + 2)
+            self.set_v_sampling_parameters(min_v, max_v)
+        else:
+            self.set_v_sampling_parameters(self._desired_speed,
+                                           self._desired_speed)
+
+        if hasattr(self.cost_function, "desired_speed"):
+            self.cost_function.desired_speed = self._desired_speed
+        if hasattr(self.cost_function, "w_a"):
+            self.cost_function.w_a = 5
+        if hasattr(self.cost_function, "desired_s"):
+            self.cost_function.desired_s = self._desired_lon_position
+
+    def set_desired_lon_position(self, lon_position: float,
+                                 delta_s_min: Optional[float] = None,
+                                 delta_s_max: Optional[float] = None):
+        """Stop-position target (reactive_planner.py:349-376)."""
+        self._desired_lon_position = lon_position
+        self._desired_speed = 0.0
+        if delta_s_min is None and delta_s_max is None:
+            delta_s_min = self.config.sampling.s_min
+            delta_s_max = self.config.sampling.s_max
+        self.set_s_sampling_parameters(lon_position + delta_s_min,
+                                       lon_position + delta_s_max)
+        if hasattr(self.cost_function, "desired_s"):
+            self.cost_function.desired_s = self._desired_lon_position
+        if hasattr(self.cost_function, "desired_speed"):
+            self.cost_function.desired_speed = self._desired_speed
+        if hasattr(self.cost_function, "w_a"):
+            self.cost_function.w_a = 1
+
+    def set_cost_function(self, cost_function: CostFunction = None):
+        """Default or fail-safe cost; any other cost function needs the
+        conformance path (ROADMAP queue 1 item 5) and raises."""
+        if cost_function:
+            structure = getattr(cost_function, "structure", None)
+            if not structure or structure[0] not in ("default", "fail_safe"):
+                raise NotImplementedError(
+                    f"custom cost function {type(cost_function).__name__}: "
+                    "only DefaultCostFunction and DefaultCostFunctionFailSafe "
+                    "run on the fused scorer; the conformance path for other "
+                    "cost functions is ROADMAP queue 1 item 5")
+            self.cost_function = cost_function
+        else:
+            self.cost_function = DefaultCostFunction(
+                self._desired_speed, desired_d=0.0,
+                desired_s=self._desired_lon_position)
+
+    def set_sampling_space(self, sampling_space: SamplingSpace = None):
+        if sampling_space:
+            self.sampling_space = sampling_space
+        else:
+            self.sampling_space = sampling_space_factory(self.config)
+
+    def record_state_and_input(self, state: ReactivePlannerState):
+        """Append state + derived control input (reactive_planner.py:391-408)."""
+        self._record_state_list.append(state)
+        if len(self._record_state_list) > 1:
+            steering_angle_speed = (
+                state.steering_angle -
+                self._record_state_list[-2].steering_angle) / self.dt
+        else:
+            steering_angle_speed = 0.0
+        self._record_input_list.append(InputState(
+            time_step=state.time_step, acceleration=state.acceleration,
+            steering_angle_speed=steering_angle_speed))
+
+    def _reset_statistics(self):
+        """(reactive_planner.py:410-419)"""
+        self._optimal_cost = 0
+        self._infeasible_count_kinematics = 0
+        self._infeasible_count_collision = 0
+        self._pending_reason_stats = None
+        for constraint in self.config.planning.constraints_to_check:
+            self._infeasible_reason_dict[constraint] = 0
+
+    def _materialize_reason_stats(self):
+        """Deferred device->host readback of the per-constraint counters from
+        the scorer's reason row (paid only when the statistics are read)."""
+        pending = self._pending_reason_stats
+        if pending is None:
+            return
+        self._pending_reason_stats = None
+        reasons_dev, kin_dev, goal_valid = pending
+        reasons = reasons_dev.cpu().numpy()
+        feasible = np.isfinite(kin_dev.cpu().numpy())
+        for code, name in kin_ops.REASON_NAMES.items():
+            if name in self._infeasible_reason_dict:
+                self._infeasible_reason_dict[name] += int(
+                    np.sum((reasons == code) & goal_valid & ~feasible))
+
+    def _create_trajectory_bundle(self, x_0_lon, x_0_lat,
+                                  samp_level: int) -> CandidateBatch:
+        """Candidate grid of one level (reactive_planner.py:421-444)."""
+        return self.sampling_space.generate_trajectories_at_level(
+            samp_level, np.asarray(x_0_lon), np.asarray(x_0_lat),
+            self.config.sampling.longitudinal_mode, self._low_vel_mode)
+
+    def _compute_initial_states(self, x_0: ReactivePlannerState):
+        """Cartesian -> curvilinear initial state (Werling Eqs. A.3/A.5)."""
+        if not self._co:
+            return None
+        try:
+            return self._co.compute_initial_curvilinear_states(
+                x_0.position, x_0.orientation, x_0.velocity,
+                x_0.acceleration, x_0.steering_angle,
+                self.vehicle_params.wheelbase, self._low_vel_mode)
+        except ValueError:
+            logger.critical("Initial state could not be transformed.")
+            raise ValueError("Initial state could not be transformed.")
+
+    # ------------------------------------------------------------------
+    # planning cycle (reactive_planner.py:570-665)
+    # ------------------------------------------------------------------
+
+    def begin_cycle(self):
+        """Checks and initial curvilinear state of a planning cycle; sets the
+        low-velocity mode.  Returns (x_0_lon, x_0_lat)."""
+        check_fast_scope(self.config)
+        assert self.x_0 is not None, \
+            "<ReactivePlanner.plan(): Planner Cartesian initial state is empty!>"
+        assert self._co is not None, \
+            "<ReactivePlanner.plan(): No coordinate system given. Call set_reference_path()>"
+        if not self.x_0_cl:
+            self.x_0_cl = self._compute_initial_states(self.x_0)
+        assert self.x_0_cl is not None, \
+            "<ReactivePlanner.plan(): Planner curvilinear initial state is empty!>"
+        self._low_vel_mode = \
+            self.x_0.velocity < self.config.planning.low_vel_mode_threshold
+        return self.x_0_cl
+
+    def plan(self, current_sampling_level: int = None) -> Optional[tuple]:
+        """Plan an optimal trajectory; returns (cartesian Trajectory,
+        curvilinear Trajectory, lon list, lat list), or None."""
+        planning_start_time = time.time()
+        x_0_lon, x_0_lat = self.begin_cycle()
+        logger.info("=== Starting Planning Cycle (time_step=%s, v=%.3f) ===",
+                    self.x_0.time_step, self.x_0.velocity)
+
+        optimal_trajectory: Optional[OptimalTrajectory] = None
+        if current_sampling_level is None:
+            # every level scored in one kernel launch
+            if self.sampling_level > 1:
+                optimal_trajectory = self._plan_all_levels_fast(
+                    x_0_lon, x_0_lat, 1)
+        elif current_sampling_level < self.sampling_level:
+            with self.stage_timers.stage("grid_generation"):
+                batch = self._create_trajectory_bundle(
+                    x_0_lon, x_0_lat, current_sampling_level)
+            logger.info("Sampling level %d/%d: %d candidates",
+                        current_sampling_level + 1, self.sampling_level,
+                        batch.size)
+            optimal_trajectory = self._get_optimal_trajectory_fast(batch)
+
+        # standstill fallback (reactive_planner.py:638-653)
+        if ((optimal_trajectory is None or
+             optimal_trajectory.cartesian.v[self._standstill_lookahead]
+             <= 0.05) and self.x_0.velocity <= 0.05):
+            logger.info("Planning standstill for the current scenario")
+            optimal_trajectory = self._compute_standstill_trajectory()
+
+        if optimal_trajectory is not None:
+            self._optimal_cost = optimal_trajectory.cost
+
+        planning_result = self._compute_trajectory_pair(optimal_trajectory) \
+            if optimal_trajectory is not None else None
+
+        self._planning_times_list.append(time.time() - planning_start_time)
+        logger.info("Total planning time: %.7f", self._planning_times_list[-1])
+        if planning_result is None:
+            logger.warning("Planner failed to find an optimal trajectory "
+                           "with given sampling configuration!")
+        return planning_result
+
+    def _goal_valid_mask(self, batch: CandidateBatch) -> np.ndarray:
+        """filter_goals_behind in stopping mode (:1076-1077)."""
+        if self.config.sampling.longitudinal_mode == "stopping":
+            return np.where(np.isnan(batch.lon_xd_pos), True,
+                            batch.lon_x0_pos < batch.lon_xd_pos)
+        return np.ones(batch.size, dtype=bool)
+
+    def _scene_context(self):
+        """Per-cycle scene pack: vehicle scalars, obstacle window, corridor,
+        constraint flags and cost parameters."""
+        veh = self._vehicle_arrays()
+        obstacles = self._cc.obstacles_for_window(
+            self.x_0.time_step, self.N, self.config.planning.factor)
+        corridor = None
+        if self._cc.boundary.segments.shape[0] > 0:
+            corridor = self._cc.corridor_for(self._co)
+        corridor = self._corridor_or_unbounded(corridor)
+        constraints = self.config.planning.constraints_to_check
+        flags = tuple(c in constraints for c in _CONSTRAINT_ORDER)
+
+        cf = self.cost_function
+        # fail-safe cost = the default formula at w_a=1, desired_d=0 without
+        # the velocity and stopping terms (cost_function.py:74-92)
+        fail_safe = cf.structure[0] == "fail_safe"
+        f32 = lambda x: float(np.float32(x))
+        cost_params = cycle_ops.CostParams(
+            w_a=f32(1.0 if fail_safe else getattr(cf, "w_a", 0.0)),
+            desired_d=f32(0.0 if fail_safe
+                          else getattr(cf, "desired_d", 0.0)),
+            desired_speed=f32(getattr(cf, "desired_speed", None) or 0.0),
+            desired_s=f32(getattr(cf, "desired_s", None) or 0.0))
+        return dict(veh=veh, obstacles=obstacles, corridor=corridor,
+                    flags=flags, cost_params=cost_params)
+
+    def _corridor_or_unbounded(self, corridor):
+        """Without a road boundary the bands are unbounded (+-BAND_CLAMP,
+        which never binds under the 19.9 m lateral domain cap)."""
+        if corridor is not None:
+            return corridor
+        P = int(self._co.tables.s.shape[0])
+        full = lambda v: torch.full((P,), v, dtype=torch.float32,
+                                    device=self.device)
+        return collision_ops.CorridorArrays(
+            d_lo=full(-collision_ops.BAND_CLAMP),
+            d_hi=full(collision_ops.BAND_CLAMP))
+
+    def cycle_inputs(self, batches: List[CandidateBatch]) -> dict:
+        """Keyword arguments of ``ops.cycle.evaluate_levels_fast`` for the
+        union of ``batches`` (tensors on the planner's device)."""
+        ctx = self._scene_context()
+        dev = lambda parts, dtype: torch.as_tensor(
+            np.concatenate(parts), dtype=dtype, device=self.device)
+        return dict(
+            coeffs_lon=dev([b.coeffs_lon for b in batches], torch.float32),
+            coeffs_lat=dev([b.coeffs_lat for b in batches], torch.float32),
+            traj_len=dev([b.traj_len for b in batches], torch.int32),
+            goal_valid=dev([self._goal_valid_mask(b) for b in batches],
+                           torch.bool),
+            level_ids=dev([np.full(b.size, j, np.int32)
+                           for j, b in enumerate(batches)], torch.int32),
+            ref=self._co.tables, veh=ctx["veh"], obstacles=ctx["obstacles"],
+            corridor=ctx["corridor"],
+            x0_orientation=float(np.float32(self.x_0.orientation)),
+            cost_params=ctx["cost_params"], dt=self.dt, n_steps=self.N,
+            low_vel_mode=self._low_vel_mode,
+            cost_structure=self.cost_function.structure,
+            constraint_flags=ctx["flags"], n_levels=len(batches))
+
+    def _evaluate(self, batches: List[CandidateBatch]):
+        """Score the union of ``batches`` in one launch and read back the
+        winner (one device->host transfer)."""
+        goal_valid = np.concatenate([self._goal_valid_mask(b)
+                                     for b in batches])
+        level_ids = np.concatenate([np.full(b.size, j, np.int32)
+                                    for j, b in enumerate(batches)])
+        self._reset_statistics()
+        t0 = time.time()
+        result = cycle_ops.evaluate_levels_fast(**self.cycle_inputs(batches))
+        packed = torch.cat([result.scalars,
+                            result.optimal.reshape(-1)]).cpu()
+        scalars = packed[:6].numpy()
+        optimal_packed = packed[6:].reshape(14, -1).numpy()
+        found = bool(np.isfinite(scalars[1]))
+        self.stage_timers.record("device_cycle", time.time() - t0)
+
+        self._infeasible_count_kinematics = int(scalars[2])
+        self._infeasible_count_collision = int(scalars[3])
+        if found and scalars[4] < 0.5:
+            logger.warning("fused scorer: the selected winner fails the "
+                           "exact feasibility re-check (a boundary-tight "
+                           "verdict flipped)")
+        level_mask = level_ids == int(scalars[5])
+        self._pending_reason_stats = (result.reasons, result.kin_costs,
+                                      goal_valid & level_mask)
+        logger.info("Selected sampling level %d (%d candidates)",
+                    int(scalars[5]), int(level_mask.sum()))
+        logger.info("Rejected %d kinematically infeasible, %d colliding",
+                    self._infeasible_count_kinematics,
+                    self._infeasible_count_collision)
+        if not found:
+            return None
+        arrays = cycle_ops.unpack_candidate(optimal_packed)
+        optimal = OptimalTrajectory(arrays=arrays, cost=float(scalars[1]),
+                                    dt=self.dt, horizon=self.horizon)
+        logger.debug("Selected candidate %d with cost %.3f", int(scalars[0]),
+                     optimal.cost)
+        return optimal
+
+    def _plan_all_levels_fast(self, x_0_lon, x_0_lat, start_level: int):
+        """Fused level escalation: every remaining sampling level's bundle in
+        ONE kernel launch; the winner comes from the first level with a
+        feasible candidate (reactive_planner.py:616-636)."""
+        levels = list(range(start_level, self.sampling_level))
+        with self.stage_timers.stage("grid_generation"):
+            batches = [self._create_trajectory_bundle(x_0_lon, x_0_lat, lv)
+                       for lv in levels]
+        logger.info("Fused levels %d..%d: %d candidates, one launch",
+                    start_level + 1, self.sampling_level,
+                    sum(b.size for b in batches))
+        return self._evaluate(batches)
+
+    def _get_optimal_trajectory_fast(self, batch: CandidateBatch):
+        """One sampling level on the fused scorer (the ``plan(level)``
+        path)."""
+        return self._evaluate([batch])
+
+    def _vehicle_arrays(self) -> kin_ops.VehicleArrays:
+        v = self.vehicle_params
+        f32 = lambda x: float(np.float32(x))
+        return kin_ops.VehicleArrays(
+            wheelbase=f32(v.wheelbase), wb_rear_axle=f32(v.wb_rear_axle),
+            a_max=f32(v.a_max), v_switch=f32(v.v_switch),
+            kappa_max=f32(np.tan(v.delta_max) / v.wheelbase),
+            v_delta_max=f32(v.v_delta_max), half_length=f32(0.5 * v.length),
+            half_width=f32(0.5 * v.width))
+
+    # ------------------------------------------------------------------
+    # standstill fallback (reactive_planner.py:667-713)
+    # ------------------------------------------------------------------
+
+    def _compute_standstill_trajectory(self) -> OptimalTrajectory:
+        x_0 = self.x_0
+        x_0_lon, x_0_lat = self.x_0_cl
+        N = self.N
+
+        kappa_0 = np.tan(x_0.steering_angle) / self.vehicle_params.wheelbase
+
+        a = np.repeat(0.0, N)
+        a[1] = -self.x_0.velocity / self.dt
+
+        ref_pos = self._co.ref_pos
+        s_idx = int(np.argmax(ref_pos > x_0_lon[0])) - 1
+        ref_theta = np.unwrap(self._co.ref_theta)
+        theta_cl = x_0.orientation - interpolate_angle(
+            x_0_lon[0], ref_pos[s_idx], ref_pos[s_idx + 1],
+            ref_theta[s_idx], ref_theta[s_idx + 1])
+
+        rep = lambda val: np.repeat(float(val), N)
+        arrays = dict(
+            x=rep(x_0.position[0]), y=rep(x_0.position[1]),
+            theta_gl=rep(x_0.orientation), v=rep(0.0), a=a,
+            kappa_gl=rep(kappa_0), kappa_dot=rep(0.0),
+            s=rep(x_0_lon[0]), s_dot=rep(x_0_lon[1]), s_ddot=rep(x_0_lon[2]),
+            d=rep(x_0_lat[0]), d_dot=rep(x_0_lat[1]), d_ddot=rep(x_0_lat[2]),
+            theta_cl=rep(theta_cl))
+        return OptimalTrajectory(arrays=arrays, cost=0.0, dt=self.dt,
+                                 horizon=self.horizon)
+
+    # ------------------------------------------------------------------
+    # output assembly (reactive_planner.py:514-568)
+    # ------------------------------------------------------------------
+
+    def _compute_trajectory_pair(self, trajectory: OptimalTrajectory
+                                 ) -> Tuple[Trajectory, Trajectory, List, List]:
+        arr = trajectory.arrays
+        cart_list, cl_list, lon_list, lat_list = [], [], [], []
+        scaling_factor = self.config.planning.factor
+        length = len(arr["x"])
+        for i in range(length):
+            yaw_rate = (arr["theta_gl"][i] - arr["theta_gl"][i - 1]) / self.dt \
+                if i > 0 else self.x_0.yaw_rate
+            cart_list.append(ReactivePlannerState(
+                time_step=self.x_0.time_step + scaling_factor * i,
+                position=np.array([arr["x"][i], arr["y"][i]]),
+                orientation=arr["theta_gl"][i], velocity=arr["v"][i],
+                acceleration=arr["a"][i], yaw_rate=yaw_rate,
+                steering_angle=np.arctan2(
+                    self.vehicle_params.wheelbase * arr["kappa_gl"][i], 1.0)))
+            cl_list.append(TraceState(
+                time_step=self.x_0.time_step + scaling_factor * i,
+                position=np.array([arr["s"][i], arr["d"][i]]),
+                velocity=arr["v"][i], acceleration=arr["a"][i],
+                orientation=arr["theta_gl"][i], yaw_rate=arr["kappa_gl"][i]))
+            lon_list.append([arr["s"][i], arr["s_dot"][i], arr["s_ddot"][i]])
+            lat_list.append([arr["d"][i], arr["d_dot"][i], arr["d_ddot"][i]])
+
+        cart_traj = Trajectory(self.x_0.time_step, cart_list)
+        cl_traj = Trajectory(self.x_0.time_step, cl_list)
+        # wrap output orientations around x_0 (reactive_planner.py:565-566)
+        shift_orientation_states(cart_traj.state_list,
+                                 interval_start=self.x_0.orientation - np.pi,
+                                 interval_end=self.x_0.orientation + np.pi)
+        return cart_traj, cl_traj, lon_list, lat_list

@@ -1,0 +1,124 @@
+"""Curvilinear (Frenet) frame as dense tensors + batched transforms.
+
+Counterpart of ``commonroad_rp_tpu/ops/frenet.py``.  The reference path is
+compiled once on the host into fixed-size tables (``from_polyline``, numpy
+float64) and moved to the planner's device; conversion is a binary search
+(``torch.searchsorted``) plus a gather over the whole [K, T] batch.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from commonroad_rp_tpu_torch.utils import geometry
+
+
+class RefPathTables(NamedTuple):
+    """Dense reference-path state tables (on the planner's device)."""
+
+    points: torch.Tensor     # [P, 2] vertices
+    s: torch.Tensor          # [P] arclength at each vertex (ref_pos)
+    theta: torch.Tensor      # [P] unwrapped orientation (ref_theta)
+    curv: torch.Tensor       # [P] curvature (ref_curv)
+    curv_d: torch.Tensor     # [P] curvature rate (ref_curv_d)
+    curv_dd: torch.Tensor    # [P] curvature rate change (ref_curv_dd)
+    tangent: torch.Tensor    # [P, 2] unit tangent of segment i (last repeats)
+    normal: torch.Tensor     # [P, 2] unit left normal of segment i
+
+
+def from_polyline(polyline: np.ndarray, dtype=torch.float64,
+                  device="cpu") -> RefPathTables:
+    """Build the Frenet tables from an [P, 2] (already smoothed) reference
+    polyline: host float64 math, then one cast + copy to ``device``."""
+    polyline = np.asarray(polyline, dtype=np.float64)
+    s = geometry.compute_pathlength(polyline)
+    theta = np.unwrap(geometry.compute_orientation(polyline))
+    curv = geometry.compute_curvature(polyline)
+    curv_d = np.gradient(curv, s)
+    curv_dd = np.gradient(curv_d, s)
+
+    seg = np.diff(polyline, axis=0)
+    seg_len = np.linalg.norm(seg, axis=1, keepdims=True)
+    tangent_seg = seg / seg_len
+    tangent = np.concatenate((tangent_seg, tangent_seg[-1:]), axis=0)
+    normal = np.stack((-tangent[:, 1], tangent[:, 0]), axis=1)
+
+    as_dev = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return RefPathTables(points=as_dev(polyline), s=as_dev(s),
+                         theta=as_dev(theta), curv=as_dev(curv),
+                         curv_d=as_dev(curv_d), curv_dd=as_dev(curv_dd),
+                         tangent=as_dev(tangent), normal=as_dev(normal))
+
+
+def searchsorted_right(table: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """count(table <= s) for a sorted 1-D table, any query shape."""
+    flat = s.reshape(-1).contiguous()
+    return torch.searchsorted(table.contiguous(), flat,
+                              right=True).reshape(s.shape)
+
+
+def interp_index(ref: RefPathTables, s: torch.Tensor) -> torch.Tensor:
+    """``np.argmax(ref_pos > s) - 1`` (reactive_planner.py:464, :835): the
+    last vertex with s_vertex <= s, EXCEPT beyond the final vertex, where the
+    reference's argmax over an all-False mask gives -1 (wrapping to the last
+    vertex; use ``gather_wrap``)."""
+    idx = searchsorted_right(ref.s, s) - 1
+    return torch.where(s >= ref.s[-1], torch.full_like(idx, -1), idx)
+
+
+def gather_wrap(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[idx] with numpy negative-index wrapping."""
+    return table[torch.remainder(idx, table.shape[0])]
+
+
+class InterpValues(NamedTuple):
+    """Per-point reference-table values at idx and idx+1 (wrapped)."""
+
+    s_lo: torch.Tensor
+    s_hi: torch.Tensor
+    theta_lo: torch.Tensor
+    theta_hi: torch.Tensor
+    curv_lo: torch.Tensor
+    curv_hi: torch.Tensor
+    curv_d_lo: torch.Tensor
+    curv_d_hi: torch.Tensor
+
+
+def lookup_interp_values(ref: RefPathTables,
+                         idx: torch.Tensor) -> InterpValues:
+    """All interpolation-table values at idx and idx+1 (numpy wrapping)."""
+    P = ref.s.shape[0]
+    lo_i = torch.remainder(idx, P)
+    hi_i = torch.remainder(lo_i + 1, P)
+    packed = torch.stack([ref.s, ref.theta, ref.curv, ref.curv_d], dim=1)
+    lo = packed[lo_i]
+    hi = packed[hi_i]
+    return InterpValues(s_lo=lo[..., 0], s_hi=hi[..., 0],
+                        theta_lo=lo[..., 1], theta_hi=hi[..., 1],
+                        curv_lo=lo[..., 2], curv_hi=hi[..., 2],
+                        curv_d_lo=lo[..., 3], curv_d_hi=hi[..., 3])
+
+
+def wrap_two_pi(angle: torch.Tensor) -> torch.Tensor:
+    """Wrap into [-2*pi, 2*pi] (make_valid_orientation semantics)."""
+    two_pi = 2.0 * np.pi
+    return angle - two_pi * torch.trunc(angle / two_pi)
+
+
+def to_cartesian(ref: RefPathTables, s: torch.Tensor, d: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(s, d) -> (x, y, in_domain) over the segment containing s, with the
+    segment index clipped to [0, P-2] (the CLCS linear-segment model)."""
+    P = ref.s.shape[0]
+    seg = torch.clamp(searchsorted_right(ref.s, s) - 1, 0, P - 2)
+    geometry_rows = torch.cat([ref.points, ref.tangent, ref.normal,
+                               ref.s[:, None]], dim=1)              # [P, 7]
+    rows = geometry_rows[seg]
+    ds = s - rows[..., 6]
+    x = rows[..., 0] + ds * rows[..., 2] + d * rows[..., 4]
+    y = rows[..., 1] + ds * rows[..., 3] + d * rows[..., 5]
+    in_domain = (s >= ref.s[0]) & (s <= ref.s[-1])
+    return x, y, in_domain

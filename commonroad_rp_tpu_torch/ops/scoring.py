@@ -1,0 +1,698 @@
+"""Fused candidate scorer: the counterpart of ``commonroad_rp_tpu/ops/pallas_cycle.py``.
+
+One call scores a whole candidate bundle and returns three [K] float32 rows:
+the masked selection cost (+inf where kinematically infeasible, out of the
+projection domain, goal-filtered or colliding), the kinematic-feasible cost
+(collision not applied: the statistics row) and the first-failure reason code
+(``ops.kinematics.REASON_*``, -1 = feasible).  Per candidate and step it
+computes what the TPU kernel ``pallas_cycle._scoring_body`` computes:
+quartic/quintic rollout of s and d, reference-table lookup and interpolation,
+Frenet->Cartesian, the Werling transform with the Cephes arctangent and the
+standstill heading hold, the five kinematic checks plus the prefilter, the
+domain and goal masks, the constant-acceleration extension of short
+candidates, the DefaultCostFunction terms, the three-probe corridor band
+check, OBB/disc SAT against the obstacle table and convex-polygon SAT.
+
+``score_candidates`` is the public wrapper, with the argument order and
+layout of ``pallas_cycle._score_candidates_pallas``.  For CUDA tensors it
+launches the hand-written kernel ``csrc/scoring.cu`` (built with nvcc on
+first use, bound through ctypes); for CPU tensors it runs
+``score_candidates_reference``, the plain PyTorch version of the kernel.
+
+Packed reference-table columns (``pack_ref_tables``):
+    0: s      1: theta   2: curv   3: curv_d   4: d_lo   5: d_hi
+    6: px     7: py      8: tx     9: ty      10: nx    11: ny
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from commonroad_rp_tpu_torch.ops import frenet as frenet_ops
+from commonroad_rp_tpu_torch.ops.collision import (CorridorArrays,
+                                                   ObstacleArrays)
+from commonroad_rp_tpu_torch.ops.kinematics import VehicleArrays, _EPS
+
+_NUM_COLS = 12
+_OBS_COLS = 7   # x, y, theta, half_len, half_wid, valid, radius
+# sentinel arclength offset of the successor row past the path end
+_SENTINEL_DS = 1e7
+
+# scalar-parameter slots
+_NUM_SCALARS = 17
+(_S_WHEELBASE, _S_WB_REAR, _S_A_MAX, _S_V_SWITCH, _S_KAPPA_MAX,
+ _S_V_DELTA_MAX, _S_HALF_LEN, _S_HALF_WID, _S_X0_THETA, _S_DT, _S_LOW_VEL,
+ _S_DESIRED_V, _S_DESIRED_D, _S_W_A, _S_REF_S_LAST, _S_DESIRED_S,
+ _S_TABLE_S0) = range(_NUM_SCALARS)
+
+# kernel flag bits: the five constraint checks in _CONSTRAINT_ORDER
+# (velocity, acceleration, kappa, kappa_dot, yaw_rate), then the cost terms
+_F_VELOCITY, _F_ACCELERATION, _F_KAPPA, _F_KAPPA_DOT, _F_YAW_RATE = \
+    (1 << i for i in range(5))
+_F_HAS_DESIRED_S = 1 << 5
+_F_HAS_DESIRED_V = 1 << 6
+
+_PI_2 = float(np.float32(np.pi / 2))
+_PI_4 = float(np.float32(np.pi / 4))
+_TWO_PI = float(np.float32(2.0 * np.pi))
+
+
+def pack_ref_tables(ref: frenet_ops.RefPathTables,
+                    corridor: CorridorArrays) -> torch.Tensor:
+    """[P + 1, 12] float32 interpolation + corridor + geometry table.
+
+    The extra final row is a successor sentinel: a copy of the last row with
+    its arclength pushed ``1e7`` past the path end, so the interpolation at
+    the final vertex has a next row.  Use ``true_path_length`` for the domain
+    bound, not the packed table's last arclength.
+    """
+    packed = torch.cat([
+        torch.stack([ref.s, ref.theta, ref.curv, ref.curv_d,
+                     corridor.d_lo, corridor.d_hi], dim=1),
+        ref.points, ref.tangent, ref.normal], dim=1).to(torch.float32)
+    sentinel = packed[-1:].clone()
+    sentinel[:, 0] += _SENTINEL_DS
+    return torch.cat([packed, sentinel], dim=0).contiguous()
+
+
+def true_path_length(ref: frenet_ops.RefPathTables) -> torch.Tensor:
+    """The real final arclength (float32 0-d tensor)."""
+    return ref.s[-1].to(torch.float32)
+
+
+def atan_cephes(x: torch.Tensor) -> torch.Tensor:
+    """float32 arctan, the Cephes atanf construction of the TPU kernel
+    (``pallas_cycle._atan``) term for term; ``csrc/scoring.cu`` computes the
+    same expression."""
+    sign = torch.sign(x)
+    ax = torch.abs(x)
+    hi = ax > 2.414213562373095
+    mid = ax > 0.4142135623730950
+    x_hi = -1.0 / torch.where(hi, ax, torch.ones_like(ax))
+    x_mid = (ax - 1.0) / (ax + 1.0)
+    xr = torch.where(hi, x_hi, torch.where(mid, x_mid, ax))
+    y0 = torch.where(hi, torch.full_like(ax, _PI_2),
+                     torch.where(mid, torch.full_like(ax, _PI_4),
+                                 torch.zeros_like(ax)))
+    z = xr * xr
+    poly = (((8.05374449538e-2 * z - 1.38776856032e-1) * z
+             + 1.99777106478e-1) * z - 3.33329491539e-1) * z * xr + xr
+    return sign * (y0 + poly)
+
+
+class ScorerInputs(NamedTuple):
+    """Kernel operands, all float32, contiguous, on one device."""
+
+    coeffs_lon: torch.Tensor   # [K, 6]
+    coeffs_lat: torch.Tensor   # [K, 6]
+    traj_len: torch.Tensor     # [K] valid steps
+    goal_valid: torch.Tensor   # [K] 1.0 / 0.0
+    table: torch.Tensor        # [P, 12] (pack_ref_tables)
+    obs: torch.Tensor          # [M, T, 7]
+    poly: torch.Tensor         # [Mp, T, 2V + 1] vertices (x, y)*V + valid
+    scalars: torch.Tensor      # [17]
+    n_steps: int
+    n_poly_verts: int
+    flags: int
+
+
+def _float_operand(name, t, device, ndim, last=None):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"score_candidates: {name} must be a tensor")
+    if t.device != device:
+        raise ValueError(f"score_candidates: {name} is on {t.device}, "
+                         f"the candidates on {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"score_candidates: {name} must be float32, "
+                        f"got {t.dtype}")
+    if t.dim() != ndim or (last is not None and t.shape[-1] != last):
+        raise ValueError(f"score_candidates: {name} has shape "
+                         f"{tuple(t.shape)}")
+    return t.contiguous()
+
+
+def _as_f32(name, t, device, shape):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"score_candidates: {name} must be a tensor")
+    if t.device != device:
+        raise ValueError(f"score_candidates: {name} is on {t.device}, "
+                         f"the candidates on {device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"score_candidates: {name} has shape "
+                         f"{tuple(t.shape)}, expected {tuple(shape)}")
+    return t.to(torch.float32).contiguous()
+
+
+def _scalar_row(values, device) -> torch.Tensor:
+    """[17] float32 scalars: one host->device copy of the Python numbers,
+    then the values that already live on the device copied in place (no
+    synchronisation)."""
+    row = torch.tensor([0.0 if isinstance(v, torch.Tensor) else float(v)
+                        for v in values], dtype=torch.float32, device=device)
+    for slot, v in enumerate(values):
+        if isinstance(v, torch.Tensor):
+            row[slot] = v.to(device=device, dtype=torch.float32).reshape(())
+    return row
+
+
+def prepare_inputs(coeffs_lon, coeffs_lat, traj_len, goal_valid,
+                   packed_table, obstacles: ObstacleArrays,
+                   veh: VehicleArrays, x0_orientation, dt, low_vel,
+                   desired_speed, desired_d, w_a, ref_s_last=None,
+                   desired_s=None, *, n_steps: int,
+                   check_flags: tuple = (True,) * 5,
+                   has_desired_v: bool = True) -> ScorerInputs:
+    """Validate and lay out the scorer's operands (shared by the kernel and
+    the plain version, so both see identical inputs)."""
+    device = coeffs_lon.device
+    T = n_steps + 1
+    cl = _float_operand("coeffs_lon", coeffs_lon, device, 2, 6)
+    K = cl.shape[0]
+    ca = _float_operand("coeffs_lat", coeffs_lat, device, 2, 6)
+    if ca.shape[0] != K:
+        raise ValueError("score_candidates: coeffs_lat/coeffs_lon disagree")
+    tl = _as_f32("traj_len", traj_len, device, (K,))
+    gv = _as_f32("goal_valid", goal_valid, device, (K,))
+    table = _float_operand("packed_table", packed_table, device, 2, _NUM_COLS)
+    if table.shape[0] < 2:
+        raise ValueError("score_candidates: the packed table needs >= 2 rows")
+
+    M = obstacles.pose.shape[0]
+    if M > 0:
+        if tuple(obstacles.pose.shape) != (M, T, 3):
+            raise ValueError(f"score_candidates: obstacle pose has shape "
+                             f"{tuple(obstacles.pose.shape)}, horizon T={T}")
+        radius = obstacles.radius if obstacles.radius is not None \
+            else torch.zeros((M,), dtype=torch.float32, device=device)
+        obs = torch.cat([
+            _as_f32("obstacles.pose", obstacles.pose, device, (M, T, 3)),
+            _as_f32("obstacles.half_ext", obstacles.half_ext, device,
+                    (M, 2))[:, None, :].expand(M, T, 2),
+            _as_f32("obstacles.valid", obstacles.valid, device,
+                    (M, T))[..., None],
+            _as_f32("obstacles.radius", radius, device,
+                    (M,))[:, None, None].expand(M, T, 1)], dim=-1)
+    else:
+        obs = torch.zeros((0, T, _OBS_COLS), dtype=torch.float32,
+                          device=device)
+    if obstacles.poly_verts is not None:
+        Mp, Tp, V = obstacles.poly_verts.shape[:3]
+        if Tp != T:
+            raise ValueError("score_candidates: polygon table horizon differs")
+        poly = torch.cat([
+            _as_f32("obstacles.poly_verts", obstacles.poly_verts, device,
+                    (Mp, T, V, 2)).reshape(Mp, T, 2 * V),
+            _as_f32("obstacles.poly_valid", obstacles.poly_valid, device,
+                    (Mp, T))[..., None]], dim=-1)
+    else:
+        V = 1
+        poly = torch.zeros((0, T, 3), dtype=torch.float32, device=device)
+
+    if ref_s_last is None:
+        # largest non-sentinel arclength
+        s_col = table[:, 0]
+        ref_s_last = torch.max(torch.where(s_col < s_col[0] + 9e6, s_col,
+                                           torch.full_like(s_col, -np.inf)))
+    values = [0.0] * _NUM_SCALARS
+    for slot, value in (
+            (_S_WHEELBASE, veh.wheelbase), (_S_WB_REAR, veh.wb_rear_axle),
+            (_S_A_MAX, veh.a_max), (_S_V_SWITCH, veh.v_switch),
+            (_S_KAPPA_MAX, veh.kappa_max), (_S_V_DELTA_MAX, veh.v_delta_max),
+            (_S_HALF_LEN, veh.half_length), (_S_HALF_WID, veh.half_width),
+            (_S_X0_THETA, x0_orientation), (_S_DT, dt),
+            (_S_LOW_VEL, low_vel), (_S_DESIRED_V, desired_speed),
+            (_S_DESIRED_D, desired_d), (_S_W_A, w_a),
+            (_S_REF_S_LAST, ref_s_last),
+            (_S_DESIRED_S, 0.0 if desired_s is None else desired_s),
+            (_S_TABLE_S0, table[0, 0])):
+        if isinstance(value, torch.Tensor) and value.device.type == "cpu":
+            value = float(value)
+        elif isinstance(value, (bool, np.bool_)):
+            value = float(value)
+        values[slot] = value
+    scalars = _scalar_row(values, device)
+
+    flags = 0
+    for bit, on in zip((_F_VELOCITY, _F_ACCELERATION, _F_KAPPA,
+                        _F_KAPPA_DOT, _F_YAW_RATE), check_flags):
+        flags |= bit if on else 0
+    flags |= _F_HAS_DESIRED_S if desired_s is not None else 0
+    flags |= _F_HAS_DESIRED_V if has_desired_v else 0
+    return ScorerInputs(coeffs_lon=cl, coeffs_lat=ca, traj_len=tl,
+                        goal_valid=gv, table=table, obs=obs.contiguous(),
+                        poly=poly.contiguous(), scalars=scalars,
+                        n_steps=n_steps, n_poly_verts=V, flags=flags)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch version of the kernel: vectorized over [T, K]
+# ---------------------------------------------------------------------------
+
+def _score_plain(inp: ScorerInputs):
+    f32 = torch.float32
+    cl, ca, table, sc = inp.coeffs_lon, inp.coeffs_lat, inp.table, inp.scalars
+    device = cl.device
+    T = inp.n_steps + 1
+    K = cl.shape[0]
+    P = table.shape[0]
+    flags = inp.flags
+    zero = torch.zeros((), dtype=f32, device=device)
+    one = torch.ones((), dtype=f32, device=device)
+    inf = torch.full((), np.inf, dtype=f32, device=device)
+
+    dt = sc[_S_DT]
+    low_vel = sc[_S_LOW_VEL] > 0.5
+    wheelbase = sc[_S_WHEELBASE]
+    a_max = sc[_S_A_MAX]
+    v_switch = sc[_S_V_SWITCH]
+    kappa_max = sc[_S_KAPPA_MAX]
+    v_delta_max = sc[_S_V_DELTA_MAX]
+    x0_theta = sc[_S_X0_THETA]
+    ref_s_last = sc[_S_REF_S_LAST]
+
+    traj_len = inp.traj_len[None, :]                         # [1, K]
+    step = torch.arange(T, dtype=f32, device=device)[:, None]  # [T, 1]
+    active = step < traj_len                                 # [T, K]
+    t = step * dt
+
+    def poly_eval(c, tau):
+        tau2 = tau * tau
+        tau3 = tau2 * tau
+        tau4 = tau2 * tau2
+        tau5 = tau4 * tau
+        c = [c[:, i][None, :] for i in range(6)]
+        p = (c[0] + c[1] * tau + c[2] * tau2 + c[3] * tau3 + c[4] * tau4
+             + c[5] * tau5)
+        v = (c[1] + 2.0 * c[2] * tau + 3.0 * c[3] * tau2 + 4.0 * c[4] * tau3
+             + 5.0 * c[5] * tau4)
+        a = (2.0 * c[2] + 6.0 * c[3] * tau + 12.0 * c[4] * tau2
+             + 20.0 * c[5] * tau3)
+        return p, v, a
+
+    s, s_dot, s_ddot = poly_eval(cl, t)
+    s = torch.where(active, s, zero)
+    s_dot = torch.where(active, s_dot, zero)
+    s_ddot = torch.where(active, s_ddot, zero)
+    tau_lat = torch.where(active, torch.where(low_vel, s - s[:1, :], t), zero)
+    d, d_dot, d_ddot = poly_eval(ca, tau_lat)
+    d = torch.where(active, d, zero)
+    d_dot = torch.where(active, d_dot, zero)
+    d_ddot = torch.where(active, d_ddot, zero)
+    s_dot = torch.where(torch.abs(s_dot) < _EPS, zero, s_dot)
+    d_dot = torch.where(torch.abs(d_dot) < _EPS, zero, d_dot)
+
+    pre_acc = torch.any(torch.abs(s_ddot) > a_max, dim=0)
+    pre_vel = torch.any(s_dot < -_EPS, dim=0)
+    prefiltered = pre_acc | pre_vel
+
+    # table rows idx = count(s_row <= q) - 1 and idx + 1
+    s_col = table[:, 0].contiguous()
+
+    def row_index(q):
+        idx = frenet_ops.searchsorted_right(s_col, q) - 1
+        return torch.where(torch.isnan(q), torch.full_like(idx, -1), idx)
+
+    q = torch.where(active, s, sc[_S_TABLE_S0])
+    idx = torch.clamp(row_index(q), 0, P - 2)
+    lo = table[idx]                                          # [T, K, 12]
+    hi = table[idx + 1]
+    lam = (s - lo[..., 0]) / (hi[..., 0] - lo[..., 0])
+    raw = (hi[..., 1] - lo[..., 1]) * lam + lo[..., 1]
+    interp_theta = raw - _TWO_PI * torch.trunc(raw / _TWO_PI)
+    k_r = (hi[..., 2] - lo[..., 2]) * lam + lo[..., 2]
+    k_r_d = (hi[..., 3] - lo[..., 3]) * lam + lo[..., 3]
+    ds = s - lo[..., 0]
+    ego_x = lo[..., 6] + ds * lo[..., 8] + d * lo[..., 10]
+    ego_y = lo[..., 7] + ds * lo[..., 9] + d * lo[..., 11]
+
+    # Werling transform
+    moving = s_dot > 0.001
+    sv_safe = torch.where(moving, s_dot, one)
+    dp_high = torch.where(moving, d_dot / sv_safe, zero)
+    ddot_w = d_ddot - dp_high * s_ddot
+    dpp_high = torch.where(moving, ddot_w / (sv_safe * sv_safe), zero)
+    dp = torch.where(low_vel, d_dot, dp_high)
+    dpp = torch.where(low_vel, d_ddot, dpp_high)
+    theta_cl_move = atan_cephes(dp)
+    theta_gl_move = theta_cl_move + interp_theta
+    use_move = moving | low_vel
+    # standstill hold: the heading of the last moving step, else x0
+    held = []
+    carry = x0_theta.expand(K)
+    for c in range(T):
+        carry = torch.where(use_move[c], theta_gl_move[c], carry)
+        held.append(carry)
+    theta_gl = torch.stack(held)
+    theta_cl = torch.where(use_move, theta_cl_move, theta_gl - interp_theta)
+
+    one_krd = 1.0 - k_r * d
+    cos_t = torch.cos(theta_cl)
+    tan_t = torch.tan(theta_cl)
+    q_c = cos_t / one_krd
+    kappa_gl = ((dpp + (k_r * dp + k_r_d * d) * tan_t) * cos_t * (q_c * q_c)
+                + q_c * k_r)
+    v = s_dot * (one_krd / cos_t)
+    a = (s_ddot * one_krd / cos_t + ((s_dot * s_dot) / cos_t) *
+         (one_krd * tan_t * (kappa_gl * one_krd / cos_t - k_r) -
+          (k_r_d * d + k_r * dp)))
+
+    # first (step, rank) violation; rank = reason code 0..4
+    first_row = step < 1.0
+    big = 1e9
+    min_flat = torch.full((K,), big, dtype=f32, device=device)
+
+    def track(viol, rank):
+        flat = step * 5.0 + float(rank)
+        return torch.min(torch.where(viol & active, flat,
+                                     torch.full_like(flat, big)), dim=0).values
+
+    if flags & _F_VELOCITY:
+        min_flat = torch.minimum(min_flat, track(v < -_EPS, 0))
+    if flags & _F_KAPPA:
+        min_flat = torch.minimum(min_flat,
+                                 track(torch.abs(kappa_gl) > kappa_max, 1))
+    if flags & _F_YAW_RATE:
+        prev_theta = torch.cat([theta_gl[:1], theta_gl[:-1]], dim=0)
+        yaw = torch.where(first_row, zero, (theta_gl - prev_theta) / dt)
+        yaw_r = torch.round(yaw * 1e5) / 1e5
+        min_flat = torch.minimum(min_flat,
+                                 track(torch.abs(yaw_r) > kappa_max * v, 2))
+    if flags & _F_KAPPA_DOT:
+        steer = atan_cephes(wheelbase * kappa_gl)
+        c_st = torch.cos(steer)
+        kd_max = v_delta_max / (wheelbase * (c_st * c_st))
+        prev_k = torch.cat([kappa_gl[:1], kappa_gl[:-1]], dim=0)
+        kd = torch.where(first_row, zero, (kappa_gl - prev_k) / dt)
+        min_flat = torch.minimum(min_flat, track(torch.abs(kd) > kd_max, 3))
+    if flags & _F_ACCELERATION:
+        fast = v > v_switch
+        v_safe = torch.where(fast, v, one)
+        a_hi = torch.where(fast, a_max * v_switch / v_safe, a_max)
+        min_flat = torch.minimum(min_flat,
+                                 track((a < -a_max) | (a > a_hi), 4))
+
+    any_viol = min_flat < big
+    kin_feasible = ~prefiltered & ~any_viol
+    lat_ok = (one_krd > 0.0) & (torch.abs(d) < 19.9)
+    domain_ok = torch.all(((s >= 0.0) & (s <= ref_s_last) & lat_ok)
+                          | ~active, dim=0)
+    feasible = kin_feasible & domain_ok & (inp.goal_valid > 0.5)
+    scan_rank = min_flat - 5.0 * torch.floor(min_flat / 5.0)
+    reason = torch.where(any_viol, scan_rank, torch.full_like(min_flat, -1.0))
+    pre_reason = torch.where(pre_acc, torch.full_like(min_flat, 4.0),
+                             torch.zeros_like(min_flat))
+    reason = torch.where(prefiltered, pre_reason, reason)
+    reason = torch.where(kin_feasible & ~domain_ok,
+                         torch.full_like(min_flat, 5.0), reason)
+
+    # constant-acceleration extension past the last valid step
+    ext = ~active
+    last = traj_len - 1.0                                    # [1, K]
+    last_i = last.to(torch.int64)
+    has_last = (last >= 0.0) & (last <= T - 1.0)
+    last_idx = torch.clamp(last_i, 0, T - 1)
+
+    def take_last(arr):
+        return torch.where(has_last, torch.gather(arr, 0, last_idx), zero)
+
+    t_rel = (step - last) * dt
+    a_last = take_last(a)
+    v_temp = take_last(v) + t_rel * a_last
+    v_temp = v_temp * (v_temp >= 0).to(f32)
+    theta_last = take_last(theta_gl)
+    incr_x = torch.where(ext, dt * v_temp * torch.cos(theta_last), zero)
+    incr_y = torch.where(ext, dt * v_temp * torch.sin(theta_last), zero)
+    acc_x = torch.zeros((K,), dtype=f32, device=device)
+    acc_y = torch.zeros((K,), dtype=f32, device=device)
+    cum_x, cum_y = [], []
+    for c in range(T):                  # sequential, as the kernel sums
+        acc_x = acc_x + incr_x[c]
+        acc_y = acc_y + incr_y[c]
+        cum_x.append(acc_x)
+        cum_y.append(acc_y)
+    ego_x = torch.where(ext, take_last(ego_x) + torch.stack(cum_x), ego_x)
+    ego_y = torch.where(ext, take_last(ego_y) + torch.stack(cum_y), ego_y)
+    v = torch.where(ext, v_temp, v)
+    a = torch.where(ext, a_last, a)
+    theta_gl = torch.where(ext, theta_last, theta_gl)
+    theta_cl = torch.where(ext, take_last(theta_cl), theta_cl)
+    s = torch.where(ext, take_last(s) + t_rel * take_last(s_dot), s)
+    d = torch.where(ext, take_last(d) + t_rel * take_last(d_dot), d)
+
+    # DefaultCostFunction terms
+    w_a = sc[_S_W_A]
+    desired_v = sc[_S_DESIRED_V]
+    desired_d = sc[_S_DESIRED_D]
+    sq = lambda x: x * x
+    costs = torch.sum(sq(w_a * a), dim=0)
+    if flags & _F_HAS_DESIRED_V:
+        costs = costs + (torch.sum(sq(5.0 * (v - desired_v)), dim=0)
+                         + 50.0 * sq(v[T - 1] - desired_v)
+                         + 100.0 * sq(v[T // 2] - desired_v))
+    if flags & _F_HAS_DESIRED_S:
+        desired_s = sc[_S_DESIRED_S]
+        costs = costs + (torch.sum(sq(0.25 * (desired_s - s)), dim=0)
+                         + sq(20.0 * (desired_s - s[T - 1])))
+    costs = costs + (torch.sum(sq(0.25 * (desired_d - d)), dim=0)
+                     + sq(20.0 * (desired_d - d[T - 1])))
+    costs = costs + (torch.sum(sq(0.25 * torch.abs(theta_cl)), dim=0)
+                     + sq(5.0 * torch.abs(theta_cl[T - 1])))
+
+    # corridor road-boundary check: three probes along the ego box
+    half_len = sc[_S_HALF_LEN]
+    half_wid = sc[_S_HALF_WID]
+    wb_rear = sc[_S_WB_REAR]
+    cos_cl = torch.cos(theta_cl)
+    sin_cl = torch.sin(theta_cl)
+    s_center = s + wb_rear * cos_cl
+    d_center = d + wb_rear * sin_cl
+    lat_ext = half_wid * torch.abs(cos_cl) + half_len * torch.abs(sin_cl)
+    lon_ext = half_len * torch.abs(cos_cl) + half_wid * torch.abs(sin_cl)
+    d_plus = d_center + lat_ext
+    d_minus = d_center - lat_ext
+    collides = torch.zeros((K,), dtype=torch.bool, device=device)
+    for probe in (s_center - lon_ext, s_center, s_center + lon_ext):
+        q = torch.clamp(probe, min=0.0)
+        q = torch.minimum(q, ref_s_last)
+        bidx = row_index(q)
+        rows = table[torch.clamp(bidx, min=0)]
+        band_ok = bidx >= 0
+        band_lo = torch.where(band_ok, rows[..., 4], zero)
+        band_hi = torch.where(band_ok, rows[..., 5], zero)
+        collides = collides | torch.any((d_plus > band_hi)
+                                        | (d_minus < band_lo), dim=0)
+
+    # obstacle OBB / disc SAT at the ego box center
+    e_cos = torch.cos(theta_gl)
+    e_sin = torch.sin(theta_gl)
+    ecx = ego_x + wb_rear * e_cos
+    ecy = ego_y + wb_rear * e_sin
+    for m in range(inp.obs.shape[0]):
+        o = inp.obs[m]                                       # [T, 7]
+        ox, oy, otheta, ohl, ohw = (o[:, i:i + 1] for i in range(5))
+        valid = o[:, 5:6] > 0.5
+        radius = o[:, 6:7]
+        o_cos = torch.cos(otheta)
+        o_sin = torch.sin(otheta)
+        dx = ox - ecx
+        dy = oy - ecy
+        rel_cos = torch.abs(e_cos * o_cos + e_sin * o_sin)
+        rel_sin = torch.abs(o_sin * e_cos - o_cos * e_sin)
+        lx = torch.abs(dx * e_cos + dy * e_sin)
+        ly = torch.abs(-dx * e_sin + dy * e_cos)
+        sep = lx > half_len + ohl * rel_cos + ohw * rel_sin
+        sep = sep | (ly > half_wid + ohl * rel_sin + ohw * rel_cos)
+        sep = sep | (torch.abs(dx * o_cos + dy * o_sin) >
+                     ohl + half_len * rel_cos + half_wid * rel_sin)
+        sep = sep | (torch.abs(-dx * o_sin + dy * o_cos) >
+                     ohw + half_len * rel_sin + half_wid * rel_cos)
+        qx = torch.clamp(lx - half_len, min=0.0)
+        qy = torch.clamp(ly - half_wid, min=0.0)
+        disc_hit = qx * qx + qy * qy <= radius * radius
+        is_disc = radius > 0.0
+        hit = (is_disc & disc_hit) | (~is_disc & ~sep)
+        collides = collides | torch.any(valid & hit, dim=0)
+
+    # convex-polygon SAT: ego box axes + the piece's edge normals
+    V = inp.n_poly_verts
+    for m in range(inp.poly.shape[0]):
+        pc = inp.poly[m]                                     # [T, 2V + 1]
+        vxs = [pc[:, 2 * i:2 * i + 1] for i in range(V)]
+        vys = [pc[:, 2 * i + 1:2 * i + 2] for i in range(V)]
+        pvalid = pc[:, 2 * V:2 * V + 1] > 0.5
+        pm_min = pm_max = pn_min = pn_max = None
+        for i in range(V):
+            rx = vxs[i] - ecx
+            ry = vys[i] - ecy
+            pm = rx * e_cos + ry * e_sin
+            pn = -rx * e_sin + ry * e_cos
+            pm_min = pm if i == 0 else torch.minimum(pm_min, pm)
+            pm_max = pm if i == 0 else torch.maximum(pm_max, pm)
+            pn_min = pn if i == 0 else torch.minimum(pn_min, pn)
+            pn_max = pn if i == 0 else torch.maximum(pn_max, pn)
+        sep_p = (pm_min > half_len) | (pm_max < -half_len) | \
+            (pn_min > half_wid) | (pn_max < -half_wid)
+        for e in range(V):
+            e2 = (e + 1) % V
+            nx = -(vys[e2] - vys[e])
+            ny = vxs[e2] - vxs[e]
+            lo_p = hi_p = None
+            for i in range(V):
+                pv = nx * vxs[i] + ny * vys[i]
+                lo_p = pv if i == 0 else torch.minimum(lo_p, pv)
+                hi_p = pv if i == 0 else torch.maximum(hi_p, pv)
+            c_proj = nx * ecx + ny * ecy
+            r_ego = (half_len * torch.abs(nx * e_cos + ny * e_sin) +
+                     half_wid * torch.abs(-nx * e_sin + ny * e_cos))
+            sep_p = sep_p | (c_proj - r_ego > hi_p) | (c_proj + r_ego < lo_p)
+        collides = collides | torch.any(pvalid & ~sep_p, dim=0)
+
+    return (torch.where(feasible & ~collides, costs, inf),
+            torch.where(feasible, costs, inf),
+            reason)
+
+
+def score_candidates_reference(*args, **kwargs):
+    """Plain PyTorch version of the scoring kernel (same arguments and
+    outputs as :func:`score_candidates`), on whatever device the inputs
+    are."""
+    return _score_plain(prepare_inputs(*args, **kwargs))
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel: build (nvcc, plain C interface), bind (ctypes), launch
+# ---------------------------------------------------------------------------
+
+_PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
+KERNEL_SOURCE = _PKG_DIR / "csrc" / "scoring.cu"
+BUILD_DIR = _PKG_DIR.parent / "build" / "torch_kernels"
+# IEEE division and square root, no fast math, and no contraction of
+# multiply-add pairs into FMA (-fmad=false): every float32 operation rounds
+# as the plain PyTorch version's separate tensor operations do, so the two
+# agree except where cosf/sinf/tanf differ in the last bit
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+              "-prec-div=true", "-prec-sqrt=true", "-Xptxas", "-v")
+
+_lib = None
+_lib_lock = threading.Lock()
+build_log: Optional[str] = None
+
+
+def _nvcc() -> str:
+    found = os.environ.get("NVCC") or shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the scoring kernel is built from "
+                       f"{KERNEL_SOURCE} with the CUDA toolkit's nvcc")
+
+
+def build_library() -> pathlib.Path:
+    """Compile ``csrc/scoring.cu`` into ``build/torch_kernels`` (once per
+    source and flag set) and return the shared library's path."""
+    global build_log
+    source = KERNEL_SOURCE.read_bytes()
+    tag = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    out = BUILD_DIR / f"libcrp_scoring_{tag[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(KERNEL_SOURCE)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_log = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    os.replace(tmp, out)
+    return out
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build_library()))
+            fn = lib.crp_score_candidates
+            p, i = ctypes.c_void_p, ctypes.c_int
+            fn.argtypes = [p, p, p, p, p, i, p, i, p, i, i, p, i, i, i,
+                           p, p, p, p]
+            fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def _launch(inp: ScorerInputs):
+    for name in ("coeffs_lon", "coeffs_lat", "traj_len", "goal_valid",
+                 "table", "obs", "poly", "scalars"):
+        t = getattr(inp, name)
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"score_candidates: kernel operand {name} must "
+                             "be contiguous float32")
+    K = inp.coeffs_lon.shape[0]
+    out = torch.empty((3, K), dtype=torch.float32,
+                      device=inp.coeffs_lon.device)
+    lib = _library()
+    stream = torch.cuda.current_stream(inp.coeffs_lon.device).cuda_stream
+    rc = lib.crp_score_candidates(
+        inp.coeffs_lon.data_ptr(), inp.coeffs_lat.data_ptr(),
+        inp.traj_len.data_ptr(), inp.goal_valid.data_ptr(),
+        inp.table.data_ptr(), inp.table.shape[0],
+        inp.obs.data_ptr(), inp.obs.shape[0],
+        inp.poly.data_ptr(), inp.poly.shape[0], inp.n_poly_verts,
+        inp.scalars.data_ptr(), K, inp.n_steps + 1, inp.flags,
+        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"scoring kernel launch failed: CUDA error {rc}")
+    score_candidates.launches += 1
+    return out[0], out[1], out[2]
+
+
+def score_candidates(coeffs_lon, coeffs_lat, traj_len, goal_valid,
+                     packed_table, obstacles: ObstacleArrays,
+                     veh: VehicleArrays, x0_orientation, dt, low_vel,
+                     desired_speed, desired_d, w_a, ref_s_last=None,
+                     desired_s=None, *, n_steps: int,
+                     check_flags: tuple = (True,) * 5,
+                     has_desired_v: bool = True):
+    """(masked [K], kin [K], reason [K]) float32 rows for a candidate bundle.
+
+    Arguments follow ``pallas_cycle._score_candidates_pallas``: coefficient
+    rows [K, 6] float32, ``traj_len``/``goal_valid`` [K], the packed table
+    from :func:`pack_ref_tables`, the obstacle tables, vehicle scalars, the
+    initial heading, ``dt``, the low-velocity flag, the cost targets and
+    weight, the true path length and the optional stopping target.
+    ``check_flags`` are the (velocity, acceleration, kappa, kappa_dot,
+    yaw_rate) checks; ``has_desired_v`` switches the velocity cost terms off
+    for the fail-safe cost.
+
+    CUDA inputs launch the kernel (``score_candidates.launches`` counts the
+    launches) and raise if it cannot be built or launched; CPU inputs run
+    :func:`score_candidates_reference`.
+    """
+    inp = prepare_inputs(coeffs_lon, coeffs_lat, traj_len, goal_valid,
+                         packed_table, obstacles, veh, x0_orientation, dt,
+                         low_vel, desired_speed, desired_d, w_a, ref_s_last,
+                         desired_s, n_steps=n_steps, check_flags=check_flags,
+                         has_desired_v=has_desired_v)
+    device = inp.coeffs_lon.device
+    if device.type == "cpu":
+        return _score_plain(inp)
+    if device.type != "cuda":
+        raise ValueError(f"score_candidates: unsupported device {device}")
+    return _launch(inp)
+
+
+score_candidates.launches = 0

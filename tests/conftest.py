@@ -50,7 +50,8 @@ def pytest_collection_modifyitems(config, items):
     for item in items:
         mod = pathlib.Path(str(item.fspath)).name
         name = item.name.split("[")[0]
-        if mod in _FAST_MODULES or (mod, name) in _FAST_TESTS:
+        if mod in _FAST_MODULES or (mod, name) in _FAST_TESTS \
+                or mod.startswith("test_torch_"):
             item.add_marker(pytest.mark.fast)
         else:
             item.add_marker(pytest.mark.slow)

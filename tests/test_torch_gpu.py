@@ -1,0 +1,69 @@
+"""The CUDA scoring kernel against its plain PyTorch version, on the card.
+
+Marked ``gpu``: without a card every test skips.  On a machine with one,
+run (from the repository root; no JAX needed):
+
+    python -m pytest tests/test_torch_gpu.py --noconftest -q
+"""
+
+import pytest
+import torch
+
+import chip_smoke
+from commonroad_rp_tpu_torch.ops import cycle as cycle_ops
+from commonroad_rp_tpu_torch.ops import scoring
+from commonroad_rp_tpu_torch.run_planner import (drive_to_goal, load_config,
+                                                 make_planner)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is false)")
+    return torch.device("cuda")
+
+
+def _kernel_vs_plain(label, args, kwargs):
+    before = scoring.score_candidates.launches
+    out_k = scoring.score_candidates(*args, **kwargs)
+    out_p = scoring.score_candidates_reference(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert scoring.score_candidates.launches == before + 1
+    chip_smoke.compare(torch, label, out_k, out_p,
+                       chip_smoke.in_domain(torch, args, kwargs["n_steps"]))
+
+
+@pytest.mark.parametrize("n_steps", [20, 60])
+def test_kernel_matches_plain_synthetic_scene(cuda, n_steps):
+    args, kwargs = chip_smoke.synthetic_args(torch, n_steps, cuda)
+    _kernel_vs_plain(f"synthetic_T{n_steps + 1}", args, kwargs)
+
+
+def test_kernel_matches_plain_first_cycle(cuda):
+    planner = make_planner(load_config("ZAM_Over-1_1"), "cuda")
+    planner.set_desired_velocity(current_speed=planner.x_0.velocity)
+    x0_lon, x0_lat = planner.begin_cycle()
+    inputs = planner.cycle_inputs([
+        planner._create_trajectory_bundle(x0_lon, x0_lat, level)
+        for level in range(1, planner.sampling_level)])
+    inputs.pop("n_levels")
+    inputs.pop("level_ids")
+    _kernel_vs_plain("ZAM_Over first cycle",
+                     *cycle_ops.scorer_arguments(**inputs))
+
+
+def test_kernel_drives_to_goal(cuda):
+    planner = make_planner(load_config("ZAM_Over-1_1"), "cuda")
+    scoring.score_candidates.launches = 0
+    result = drive_to_goal(planner, max_steps=100)
+    assert result["goal_reached"] and result["steps"] == 27
+    assert scoring.score_candidates.launches == result["plan_calls"] == 9
+
+
+def test_kernel_rejects_mixed_devices(cuda):
+    args, kwargs = chip_smoke.synthetic_args(torch, 20, cuda)
+    args = (args[0],) + (args[1].cpu(),) + args[2:]
+    with pytest.raises(ValueError):
+        scoring.score_candidates(*args, **kwargs)

@@ -1,0 +1,280 @@
+"""The port's fused scorer (plain PyTorch version) against the TPU kernel.
+
+The same candidates and scene, made with numpy and the JAX package's grid
+helpers, go through ``pallas_cycle.score_candidates_pallas(...,
+interpret=True)`` and ``commonroad_rp_tpu_torch.ops.scoring.score_candidates``
+on CPU tensors (which runs ``score_candidates_reference``).  The bar is the
+one ``tests/test_pallas_cycle.py`` sets between the Pallas and XLA paths:
+identical finite/+inf patterns of the masked and kinematic rows, finite
+costs within rtol 2e-4 / atol 1e-2 (float32 sums taken in another order),
+the same argmin (or an exact cost tie), and identical reason codes for every
+candidate whose active steps stay inside [0, s_last] (below s = 0 the TPU
+kernel reads all-zero table rows, the port real rows; both mask the
+candidate as out of domain).  The kernel-on-the-card comparison is in
+``tests/test_torch_gpu.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from commonroad_rp_tpu.ops import collision as jax_collision
+from commonroad_rp_tpu.ops import frenet as jax_frenet
+from commonroad_rp_tpu.ops import grid as grid_ops
+from commonroad_rp_tpu.ops import kinematics as jax_kin
+from commonroad_rp_tpu.ops import pallas_cycle
+from commonroad_rp_tpu.utils.config import VehicleConfiguration
+
+from commonroad_rp_tpu_torch import interop
+from commonroad_rp_tpu_torch.ops import scoring
+
+RTOL, ATOL = 2e-4, 1e-2
+
+
+def _scene(level=1, v0=15.0, low_vel=False, n_steps=20, obstacle="obb"):
+    """The fixture shape of tests/test_pallas_cycle.py::_setup, with a
+    choice of obstacle group."""
+    dtype = jnp.float32
+    dt = 0.1
+    xs = np.linspace(0.0, 200.0, 400)
+    ys = 6.0 * np.sin(xs / 70.0)
+    ref = jax_frenet.from_polyline(np.stack([xs, ys], axis=1), dtype=dtype)
+    P = ref.s.shape[0]
+    corridor = jax_collision.CorridorArrays(
+        d_lo=jnp.full(P, -4.0, dtype), d_hi=jnp.full(P, 4.0, dtype))
+    vc = VehicleConfiguration()
+    veh = jax_kin.VehicleArrays(*[jnp.asarray(x, dtype) for x in [
+        vc.wheelbase, vc.wb_rear_axle, vc.a_max, vc.v_switch,
+        np.tan(vc.delta_max) / vc.wheelbase, vc.v_delta_max,
+        vc.length / 2, vc.width / 2]])
+    grid = grid_ops.make_static_grid(level, 0.4, n_steps * dt, dt,
+                                     -3.0, 3.0, 4)
+    x0_lon = jnp.asarray([40.0, v0, 0.2], dtype)
+    x0_lat = jnp.asarray([0.4, 0.05, 0.0], dtype)
+    cl, ca, tl = grid_ops.velocity_keeping_candidates(
+        x0_lon, x0_lat, jnp.asarray(max(0.0, v0 - 4.0), dtype),
+        jnp.asarray(v0 + 4.0, dtype), jnp.asarray(low_vel), grid)
+
+    T = n_steps + 1
+    if obstacle == "obb":
+        pose = np.zeros((1, T, 3), np.float32)
+        pose[0, :, 0] = 70.0
+        pose[0, :, 1] = 4.5
+        obs = jax_collision.ObstacleArrays(
+            pose=jnp.asarray(pose), half_ext=jnp.asarray([[2.5, 1.0]], dtype),
+            valid=jnp.ones((1, T), dtype=bool))
+    elif obstacle == "disc":
+        # one OBB row (radius 0) and one disc row, the disc moving
+        pose = np.zeros((2, T, 3), np.float32)
+        pose[0, :, :2] = [70.0, 4.5]
+        pose[1, :, 0] = 52.0 + 0.8 * np.arange(T)
+        pose[1, :, 1] = 0.9
+        valid = np.ones((2, T), bool)
+        valid[1, :3] = False
+        obs = jax_collision.ObstacleArrays(
+            pose=jnp.asarray(pose),
+            half_ext=jnp.asarray([[2.5, 1.0], [0.0, 0.0]], dtype),
+            valid=jnp.asarray(valid), radius=jnp.asarray([0.0, 1.2], dtype))
+    elif obstacle == "polygon":
+        # no OBB rows; one convex piece (a pentagon padded to V=6 by
+        # repeating its last vertex) drifting across the lane
+        body = np.array([[-1.5, -1.0], [1.5, -1.2], [2.0, 0.4], [0.0, 1.5],
+                         [-1.8, 0.6], [-1.8, 0.6]])
+        verts = np.zeros((1, T, 6, 2), np.float32)
+        for i in range(T):
+            verts[0, i] = body + np.array([58.0 + 0.5 * i, 2.2 - 0.05 * i])
+        pvalid = np.ones((1, T), bool)
+        obs = jax_collision.ObstacleArrays(
+            pose=jnp.zeros((0, T, 3), dtype), half_ext=jnp.zeros((0, 2), dtype),
+            valid=jnp.zeros((0, T), dtype=bool),
+            poly_verts=jnp.asarray(verts), poly_valid=jnp.asarray(pvalid))
+    else:
+        obs = jax_collision.ObstacleArrays(
+            pose=jnp.zeros((0, T, 3), dtype), half_ext=jnp.zeros((0, 2), dtype),
+            valid=jnp.zeros((0, T), dtype=bool))
+    return dict(ref=ref, corridor=corridor, veh=veh, cl=cl, ca=ca, tl=tl,
+                goal_valid=np.ones(cl.shape[0], bool), obstacles=obs, dt=dt,
+                n_steps=n_steps, x0_theta=0.08, low_vel=low_vel,
+                desired_v=v0, desired_d=0.0, w_a=5.0, desired_s=None,
+                has_desired_v=True)
+
+
+def _score_jax(sc):
+    packed = pallas_cycle.pack_ref_tables(sc["ref"], sc["corridor"])
+    out = pallas_cycle.score_candidates_pallas(
+        sc["cl"], sc["ca"], sc["tl"], jnp.asarray(sc["goal_valid"]), packed,
+        sc["obstacles"], sc["veh"], jnp.float32(sc["x0_theta"]), sc["dt"],
+        jnp.asarray(sc["low_vel"]), jnp.float32(sc["desired_v"]),
+        jnp.float32(sc["desired_d"]), jnp.float32(sc["w_a"]),
+        pallas_cycle.true_path_length(sc["ref"]),
+        None if sc["desired_s"] is None else jnp.float32(sc["desired_s"]),
+        n_steps=sc["n_steps"], interpret=True,
+        has_desired_v=sc["has_desired_v"])
+    return [np.asarray(x) for x in out]
+
+
+def _port_inputs(sc, device="cpu"):
+    ref = interop.ref_tables(sc["ref"], device, torch.float32)
+    corridor = interop.corridor(sc["corridor"], device, torch.float32)
+    cl, ca, tl, gv = interop.candidates(sc["cl"], sc["ca"], sc["tl"],
+                                        sc["goal_valid"], device=device)
+    args = (cl, ca, tl, gv, scoring.pack_ref_tables(ref, corridor),
+            interop.obstacles(sc["obstacles"], device, torch.float32),
+            interop.vehicle(sc["veh"]), sc["x0_theta"], sc["dt"],
+            sc["low_vel"], sc["desired_v"], sc["desired_d"], sc["w_a"],
+            scoring.true_path_length(ref), sc["desired_s"])
+    kwargs = dict(n_steps=sc["n_steps"], has_desired_v=sc["has_desired_v"])
+    return args, kwargs
+
+
+def _score_port(sc):
+    args, kwargs = _port_inputs(sc)
+    return [x.numpy() for x in scoring.score_candidates(*args, **kwargs)]
+
+
+def _in_domain(sc):
+    """Candidates whose active steps all lie in [0, s_last] (float32 rollout
+    of s, as both scorers compute it)."""
+    cl = np.asarray(sc["cl"], np.float32)
+    tl = np.asarray(sc["tl"])
+    T = sc["n_steps"] + 1
+    t = (np.arange(T, dtype=np.float32) * np.float32(sc["dt"]))[:, None]
+    t2 = t * t
+    s = (cl[:, 0] + cl[:, 1] * t + cl[:, 2] * t2 + cl[:, 3] * (t2 * t)
+         + cl[:, 4] * (t2 * t2) + cl[:, 5] * (t2 * t2 * t))
+    active = np.arange(T)[:, None] < tl[None, :]
+    s_last = np.float32(np.asarray(sc["ref"].s)[-1])
+    return np.all(((s >= 0) & (s <= s_last)) | ~active, axis=0)
+
+
+def assert_scorer_parity(want, got, in_domain):
+    """The parity bar of the module docstring; ``want``/``got`` are
+    (masked, kin, reason) numpy rows."""
+    nan_inf = lambda x: np.where(np.isnan(x), np.inf, x)
+    for name, w, g in zip(("masked", "kin"), want[:2], got[:2]):
+        w, g = nan_inf(w), nan_inf(g)
+        np.testing.assert_array_equal(np.isfinite(g), np.isfinite(w),
+                                      err_msg=f"{name} finite pattern")
+        fin = np.isfinite(w)
+        np.testing.assert_allclose(g[fin], w[fin], rtol=RTOL, atol=ATOL,
+                                   err_msg=f"{name} costs")
+    w, g = nan_inf(want[0]), nan_inf(got[0])
+    if np.isfinite(w).any():
+        iw, ig = int(np.argmin(w)), int(np.argmin(g))
+        assert iw == ig or np.isclose(w[iw], g[ig], rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(got[2][in_domain], want[2][in_domain],
+                                  err_msg="reason codes")
+
+
+_CASES = {
+    "obb_t21": dict(),
+    "no_obstacles": dict(obstacle="none"),
+    "low_velocity": dict(v0=2.5, low_vel=True),
+    "disc_row": dict(obstacle="disc"),
+    "polygon_piece": dict(obstacle="polygon"),
+    "t61_level1": dict(n_steps=60),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_CASES))
+def test_plain_scorer_matches_tpu_kernel(case):
+    sc = _scene(**_CASES[case])
+    want, got = _score_jax(sc), _score_port(sc)
+    assert np.isfinite(want[1]).any(), "degenerate: no feasible candidate"
+    assert_scorer_parity(want, got, _in_domain(sc))
+
+
+def test_plain_scorer_stopping_term():
+    """Stopping mode: quintics toward stop positions, the desired_s cost
+    terms and goal-behind filtering."""
+    sc = _scene(v0=8.0, obstacle="none")
+    grid = grid_ops.make_static_grid(1, 0.4, sc["n_steps"] * sc["dt"],
+                                     sc["dt"], -3.0, 3.0, 4)
+    cl, ca, tl, gv = grid_ops.stopping_candidates(
+        jnp.asarray([40.0, 8.0, 0.0], jnp.float32),
+        jnp.asarray([0.3, 0.0, 0.0], jnp.float32), jnp.float32(36.0),
+        jnp.float32(48.0), jnp.asarray(False), grid)
+    sc.update(cl=cl, ca=ca, tl=tl, goal_valid=np.asarray(gv), desired_v=0.0,
+              w_a=1.0, desired_s=45.0)
+    want, got = _score_jax(sc), _score_port(sc)
+    assert np.isfinite(want[0]).any()
+    assert not np.asarray(gv).all()            # some goals behind
+    assert_scorer_parity(want, got, _in_domain(sc))
+
+
+def test_plain_scorer_fail_safe():
+    """Fail-safe cost: w_a = 1, desired_d = 0, no velocity terms."""
+    sc = _scene()
+    sc.update(w_a=1.0, desired_d=0.0, has_desired_v=False)
+    want, got = _score_jax(sc), _score_port(sc)
+    assert np.isfinite(want[0]).any()
+    assert_scorer_parity(want, got, _in_domain(sc))
+
+
+@pytest.mark.parametrize("v0,low_vel", [(15.0, False), (2.5, True)])
+def test_plain_scorer_meets_pallas_cycle_bar(v0, low_vel):
+    """The bar of tests/test_pallas_cycle.py:107-117 word for word: finite
+    patterns of both rows identical, costs to rtol 2e-4 / atol 1e-2, the
+    same argmin, plus identical reason codes."""
+    sc = _scene(v0=v0, low_vel=low_vel)
+    want, got = _score_jax(sc), _score_port(sc)
+    finite_want = np.isfinite(want[0])
+    np.testing.assert_array_equal(np.isfinite(got[0]), finite_want)
+    np.testing.assert_array_equal(np.isfinite(got[1]), np.isfinite(want[1]))
+    assert finite_want.sum() > 0
+    np.testing.assert_allclose(got[0][finite_want], want[0][finite_want],
+                               rtol=RTOL, atol=ATOL)
+    assert int(np.argmin(got[0])) == int(np.argmin(want[0]))
+    in_dom = _in_domain(sc)
+    np.testing.assert_array_equal(got[2][in_dom], want[2][in_dom])
+
+
+def _atan_cephes_np(x):
+    """pallas_cycle._atan in numpy float32, term for term (pl.reciprocal
+    has no evaluation rule outside a kernel)."""
+    f = np.float32
+    sign = np.sign(x)
+    ax = np.abs(x)
+    hi = ax > f(2.414213562373095)
+    mid = ax > f(0.4142135623730950)
+    x_hi = -(f(1.0) / np.where(hi, ax, f(1.0)))
+    x_mid = (ax - f(1.0)) / (ax + f(1.0))
+    xr = np.where(hi, x_hi, np.where(mid, x_mid, ax))
+    y0 = np.where(hi, f(np.pi / 2), np.where(mid, f(np.pi / 4), f(0.0)))
+    z = xr * xr
+    poly = (((f(8.05374449538e-2) * z - f(1.38776856032e-1)) * z
+             + f(1.99777106478e-1)) * z - f(3.33329491539e-1)) * z * xr + xr
+    return sign * (y0 + poly)
+
+
+def test_atan_cephes_matches_tpu_kernel():
+    """The Cephes arctangent is ported term for term (all three range
+    branches, signs, zero) and stays within 3e-7 of arctan."""
+    x = np.concatenate([np.linspace(-40.0, 40.0, 2001),
+                        [0.0, 0.41421, 0.41422, 2.41421, 2.41422, 1e6]]
+                       ).astype(np.float32)
+    want = _atan_cephes_np(x)
+    got = scoring.atan_cephes(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(got, np.arctan(x.astype(np.float64)),
+                               rtol=0, atol=3e-7)
+
+
+def test_wrapper_validates_inputs():
+    """The wrapper raises on what the kernel does not take instead of
+    converting silently."""
+    sc = _scene()
+    args, kwargs = _port_inputs(sc)
+    bad = (args[0].double(),) + args[1:]
+    with pytest.raises(TypeError):
+        scoring.score_candidates(*bad, **kwargs)
+    bad = (args[0][:, :5].contiguous(),) + args[1:]
+    with pytest.raises(ValueError):
+        scoring.score_candidates(*bad, **kwargs)
+    with pytest.raises(ValueError):
+        scoring.score_candidates(*args, n_steps=sc["n_steps"] + 3)
+    before = scoring.score_candidates.launches
+    scoring.score_candidates(*args, **kwargs)   # CPU: plain version
+    assert scoring.score_candidates.launches == before
