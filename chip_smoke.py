@@ -19,11 +19,29 @@ Phases (any failure raises and ends the run with a non-zero exit code):
    must equal the number of ``plan()`` calls, and the first cycle's winner
    must match the CPU plain-version planner on the same inputs;
 5. times: kernel and plain version at both shapes (CUDA events, warm,
-   medians), and ``plan()`` p50/p90 over the drives' calls.
+   medians), and ``plan()`` p50/p90 over the drives' calls;
+6. the fleet kernel against its plain version on the card: the 12-problem
+   fleet (4 scenarios x 3 vehicle types, level 3, T=21), first cycle, at
+   the bar of phase 3; then a 10-cycle fleet scan through the kernel
+   against the same scan through the plain version (identical ``alive``,
+   states within 2e-3);
+7. ``plan_scan`` on the card: the four scenarios reach their goals in one
+   ``plan_scan`` of the JAX package's cycle count each (9/12/15/49 cycles,
+   27/35/44/146 steps) with one kernel launch per cycle, each scan first
+   run under ``torch.cuda.set_sync_debug_mode("error")`` (no cycle reads
+   the device); ZAM_Over at T=61 through the kernel against the plain
+   version (same found flags, states within 5e-3); ms/cycle at T=21 and
+   T=61;
+8. the 1024-problem heterogeneous fleet at full width (K=2754 per problem,
+   150 cycles at replanning frequency 1): one fleet-kernel launch per
+   cycle, no device read between cycles, per-scenario goal counts beside
+   the JAX package's, the fleet kernel's and the plain version's times,
+   candidate-evals/s of the warm scan and the device's busy share.
 
-The line before the last is a JSON object of per-kernel results; the last
-line is ``{"ok": true, "device": {...}}``.  Without a card, or outside a
-checkout of the repository, the run fails before printing either.
+The card's name and power limit, then a JSON object of per-kernel results,
+come on the two lines before the last; the last line is ``{"ok": true,
+"device": {...}}``.  Without a card, or outside a checkout of the
+repository, the run fails before printing any of them.
 """
 
 from __future__ import annotations
@@ -45,7 +63,15 @@ RTOL, ATOL = 2e-4, 1e-2
 # steps to the goal on the JAX package's fast path
 EXPECTED_STEPS = {"ZAM_Over-1_1": 27, "DEU_Test-1_1_T-1": 35,
                   "ZAM-Ramp-1_1-T-1": 44, "ZAM_Tjunction-1_42_T-1": 146}
+# plan_scan cycles to the goal (replanning frequency 3), the JAX package's
+EXPECTED_CYCLES = {"ZAM_Over-1_1": 9, "DEU_Test-1_1_T-1": 12,
+                   "ZAM-Ramp-1_1-T-1": 15, "ZAM_Tjunction-1_42_T-1": 49}
+# fleet1024 goal counts of the JAX package on the TPU (BENCH_r05.json)
+JAX_FLEET1024 = {"ZAM_Over-1_1": "258/258", "DEU_Test-1_1_T-1": "256/256",
+                 "ZAM_Tjunction-1_42_T-1": "201/255 (54 dead)",
+                 "ZAM-Ramp-1_1-T-1": "255/255"}
 PLAIN_REPS, KERNEL_REPS = 20, 200
+SCAN_ATOL, SCAN61_ATOL = 2e-3, 5e-3
 
 
 def log(msg):
@@ -112,8 +138,10 @@ def in_domain(torch, args, n_steps):
 
 
 def compare(torch, label, kernel_out, plain_out, domain):
-    """Kernel rows against the plain version's; returns max |cost error|."""
-    rows = [[x.cpu().numpy() for x in out] for out in (kernel_out, plain_out)]
+    """Kernel rows against the plain version's (rows [K], or [F, K] for a
+    fleet: argmin per problem); returns max |cost error|."""
+    rows = [[x.cpu().numpy().reshape(-1, x.shape[-1]) for x in out]
+            for out in (kernel_out, plain_out)]
     (km, kk, kr), (pm, pk, pr) = rows
     nan_inf = lambda x: np.where(np.isnan(x), np.inf, x)
     max_err = 0.0
@@ -122,24 +150,28 @@ def compare(torch, label, kernel_out, plain_out, domain):
                        ("kin", nan_inf(kk), nan_inf(pk))):
         differ = np.isfinite(g) != np.isfinite(w)
         flips += int(differ.sum())
-        for i in np.flatnonzero(differ)[:10]:
-            log(f"  {label} {name} flip at {i}: kernel {g[i]!r} reason "
-                f"{kr[i]:.0f}, plain {w[i]!r} reason {pr[i]:.0f}")
+        for f, i in np.argwhere(differ)[:10]:
+            log(f"  {label} {name} flip at {f},{i}: kernel {g[f, i]!r} "
+                f"reason {kr[f, i]:.0f}, plain {w[f, i]!r} reason "
+                f"{pr[f, i]:.0f}")
         fin = np.isfinite(g) & np.isfinite(w)
         if fin.any():
             err = np.abs(g[fin] - w[fin])
             max_err = max(max_err, float(err.max()))
             np.testing.assert_allclose(g[fin], w[fin], rtol=RTOL, atol=ATOL,
                                        err_msg=f"{label}: {name} costs")
-    dom = domain.cpu().numpy()
+    dom = domain.cpu().numpy().reshape(km.shape)
     reason_diff = int(np.sum(kr[dom] != pr[dom]))
     gm, wm = nan_inf(km), nan_inf(pm)
     tie = True
-    if np.isfinite(wm).any():
-        ig, iw = int(np.argmin(gm)), int(np.argmin(wm))
-        tie = ig == iw or bool(np.isclose(gm[ig], wm[iw], rtol=RTOL,
-                                          atol=ATOL))
-    log(f"{label}: K={len(km)} feasible={int(np.isfinite(pk).sum())} "
+    for f in range(gm.shape[0]):
+        if np.isfinite(wm[f]).any():
+            ig, iw = int(np.argmin(gm[f])), int(np.argmin(wm[f]))
+            tie = tie and (ig == iw or bool(np.isclose(
+                gm[f, ig], wm[f, iw], rtol=RTOL, atol=ATOL)))
+    shape = "K" if km.shape[0] == 1 else "F x K"
+    log(f"{label}: {shape}={'x'.join(map(str, kernel_out[0].shape))} "
+        f"feasible={int(np.isfinite(pk).sum())} "
         f"selectable={int(np.isfinite(pm).sum())} finite-pattern flips="
         f"{flips} reason mismatches (in domain)={reason_diff} "
         f"max|cost err|={max_err:.3e} argmin agrees={tie}")
@@ -147,6 +179,65 @@ def compare(torch, label, kernel_out, plain_out, domain):
         raise AssertionError(f"{label}: kernel disagrees with the plain "
                              "version")
     return max_err
+
+
+def prepared_in_domain(torch, inp):
+    """Candidates of prepared operands (one problem or a fleet) whose
+    active steps all lie in [0, s_last]."""
+    from commonroad_rp_tpu_torch.ops import scoring
+
+    if not isinstance(inp, scoring.FleetScorerInputs):
+        inp = scoring._as_fleet(inp)
+    cl, tl, sc = inp.coeffs_lon, inp.traj_len, inp.scalars
+    T = inp.n_steps + 1
+    t = (torch.arange(T, dtype=torch.float32, device=cl.device)[:, None, None]
+         * sc[:, scoring._S_DT][None, :, None])
+    t2 = t * t
+    c = [cl[..., i][None] for i in range(6)]
+    s = (c[0] + c[1] * t + c[2] * t2 + c[3] * (t2 * t) + c[4] * (t2 * t2)
+         + c[5] * (t2 * t2 * t))
+    active = torch.arange(T, device=cl.device)[:, None, None] < tl[None]
+    last = sc[:, scoring._S_REF_S_LAST][None, :, None]
+    return torch.all(((s >= 0) & (s <= last)) | ~active, dim=0)
+
+
+def captured_operands(run_scan):
+    """The scorer operands of a scan's first cycle: ``run_scan(scorer)``
+    runs a one-cycle scan with the given scoring function."""
+    from commonroad_rp_tpu_torch.ops import scoring
+
+    captured = []
+
+    def capture(inp):
+        captured.append(inp)
+        return scoring.score_prepared_reference(inp)
+
+    run_scan(capture)
+    return captured[0]
+
+
+def time_prepared(torch, inp, kernel_reps, plain_reps):
+    """(kernel ms, plain ms) on prepared operands, launches not counted."""
+    from commonroad_rp_tpu_torch.ops import scoring
+
+    counts = (scoring.score_candidates.launches, scoring.score_fleet.launches)
+    k_ms = cuda_time_ms(torch, lambda: scoring.score_prepared(inp),
+                        kernel_reps)
+    p_ms = cuda_time_ms(torch, lambda: scoring.score_prepared_reference(inp),
+                        plain_reps)
+    scoring.score_candidates.launches, scoring.score_fleet.launches = counts
+    return k_ms, p_ms
+
+
+def no_sync(torch, fn):
+    """fn() with every synchronizing CUDA call raising (the scan loops must
+    not read the device between cycles)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
 
 
 def synthetic_args(torch, n_steps, device):
@@ -353,7 +444,12 @@ def main():
     if opts.profile:
         profile_plans(torch, opts.profile)
 
+    fleet_k = phase_fleet_kernel(torch)
+    scan = phase_plan_scan(torch)
+    fleet1024 = phase_fleet1024(torch)
+
     k_ms, p_ms = timing["main"]
+    log(smi)
     log(json.dumps({"kernels": [{
         "name": "score_candidates",
         "route": "cuda",
@@ -362,12 +458,260 @@ def main():
         "launches": launches,
         "max_abs_err": max_err,
         "ms": k_ms,
-        "plain_ms": p_ms}]}))
-    log(smi)
+        "plain_ms": p_ms}, {
+        "name": "score_candidates (plan_scan, T=61)",
+        "route": "cuda",
+        "source": "commonroad_rp_tpu_torch/csrc/scoring.cu",
+        "replaces": "commonroad_rp_tpu/ops/pallas_cycle.py:420",
+        "launches": scan["launches61"],
+        "max_abs_err": scan["max_err61"],
+        "ms": scan["ms61"],
+        "plain_ms": scan["plain_ms61"]}, {
+        "name": "score_fleet",
+        "route": "cuda",
+        "source": "commonroad_rp_tpu_torch/csrc/scoring.cu",
+        "replaces": "commonroad_rp_tpu/ops/pallas_cycle.py:455",
+        "launches": fleet1024["launches"],
+        "max_abs_err": max(fleet_k["max_err"], fleet1024["max_err"]),
+        "ms": fleet1024["ms"],
+        "plain_ms": fleet1024["plain_ms"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def phase_fleet_kernel(torch):
+    """6. The fleet kernel against its plain version: the 12-problem fleet's
+    first cycle, then a 10-cycle scan through each."""
+    from commonroad_rp_tpu_torch.ops import scoring
+    from commonroad_rp_tpu_torch.run_fleet import heterogeneous_fleet, \
+        make_scan
+
+    scene, carry, _, _ = heterogeneous_fleet(12, 10, device="cuda",
+                                             root=HERE)
+    inp = captured_operands(
+        lambda scorer: make_scan(scene, 1, scorer=scorer)[0](carry))
+    out_k = scoring.score_prepared(inp)
+    out_p = scoring.score_prepared_reference(inp)
+    torch.cuda.synchronize()
+    max_err = compare(torch, "fleet F=12 first cycle", out_k, out_p,
+                      prepared_in_domain(torch, inp))
+    k_ms, p_ms = time_prepared(torch, inp, KERNEL_REPS, PLAIN_REPS)
+    log(f"time fleet F=12: F x K={inp.coeffs_lon.shape[0]}x"
+        f"{inp.coeffs_lon.shape[1]} T={inp.n_steps + 1} kernel {k_ms:.4f} "
+        f"ms, plain {p_ms:.4f} ms")
+
+    run_k, _ = make_scan(scene, 10)
+    run_p, _ = make_scan(scene, 10,
+                         scorer=scoring.score_prepared_reference)
+    scoring.score_fleet.launches = 0
+    final_k, metrics_k = no_sync(torch, lambda: run_k(carry))
+    n_launch = scoring.score_fleet.launches
+    final_p, metrics_p = run_p(carry)
+    check(n_launch == 10, f"fleet scan: {n_launch} kernel launches for 10 "
+          "cycles")
+    check(bool(torch.equal(metrics_k[0], metrics_p[0])),
+          "fleet scan: alive flags differ between kernel and plain")
+    worst = 0.0
+    for name in ("x0_lon", "x0_lat", "orientation", "velocity", "px", "py"):
+        a, b = getattr(final_k, name), getattr(final_p, name)
+        worst = max(worst, float((a - b).abs().max()))
+    for i in (2, 3, 8, 9):
+        worst = max(worst, float((metrics_k[i] - metrics_p[i]).abs().max()))
+    log(f"fleet scan F=12, 10 cycles: alive {int(metrics_k[0][-1].sum())}/12 "
+        f"at the end, identical in both; max |state diff| kernel vs plain "
+        f"{worst:.3e}")
+    check(worst <= SCAN_ATOL, f"fleet scan states differ by {worst}")
+    return dict(max_err=max_err, ms12=k_ms, plain_ms12=p_ms)
+
+
+def phase_plan_scan(torch):
+    """7. plan_scan on the card: the four scenarios to their goals, T=61
+    kernel against plain, ms/cycle."""
+    from commonroad_rp_tpu_torch.ops import scoring
+    from commonroad_rp_tpu_torch.run_planner import load_config, make_planner
+
+    for name, cycles in EXPECTED_CYCLES.items():
+        planner = make_planner(load_config(name, HERE), device="cuda")
+        planner.set_desired_velocity(current_speed=planner.x_0.velocity)
+        run, carry = planner.scan_program(cycles)
+        no_sync(torch, lambda: run(carry, float(planner._desired_speed)))
+        planner.record_state_and_input(planner.x_0)
+        scoring.score_candidates.launches = 0
+        scoring.score_fleet.launches = 0
+        info = planner.plan_scan(cycles)
+        n_launch = scoring.score_candidates.launches
+        log(f"plan_scan {name}: goal_reached={info['goal_reached']} "
+            f"steps={info['steps']} cycles_run={info['cycles_run']} kernel "
+            f"launches={n_launch} ({info['wall_time'] * 1e3:.1f} ms, first "
+            "call of this scan)")
+        check(info["goal_reached"], f"plan_scan {name}: goal not reached")
+        check(info["steps"] == EXPECTED_STEPS[name],
+              f"plan_scan {name}: {info['steps']} steps, expected "
+              f"{EXPECTED_STEPS[name]}")
+        check(n_launch == info["cycles_run"] == cycles
+              and scoring.score_fleet.launches == 0,
+              f"plan_scan {name}: {n_launch} launches for "
+              f"{info['cycles_run']} cycles")
+
+    def t61_planner():
+        config = load_config("ZAM_Over-1_1", HERE)
+        config.planning.time_steps_computation = 60
+        planner = make_planner(config, device="cuda")
+        planner.set_desired_velocity(current_speed=planner.x_0.velocity)
+        return planner
+
+    n61 = 12
+    planner = t61_planner()
+    ds = float(planner._desired_speed)
+    run_k, carry = planner.scan_program(n61)
+    _, metrics_k = no_sync(torch, lambda: run_k(carry, ds))
+    run_p, _ = planner.scan_program(
+        n61, scorer=scoring.score_prepared_reference)
+    _, metrics_p = run_p(carry, ds)
+    found_k, found_p = metrics_k[0].cpu(), metrics_p[0].cpu()
+    diff = float((metrics_k[4] - metrics_p[4]).abs().max())
+    log(f"plan_scan T=61 ZAM_Over, {n61} cycles: found "
+        f"{int(found_k.sum())}/{n61} (kernel) {int(found_p.sum())}/{n61} "
+        f"(plain); max |state diff| {diff:.3e}")
+    check(bool(torch.equal(found_k, found_p)) and bool(found_k.all()),
+          "plan_scan T=61: found flags differ or a cycle failed")
+    check(diff <= SCAN61_ATOL, f"plan_scan T=61: states differ by {diff}")
+
+    inp61 = captured_operands(
+        lambda scorer: t61_planner().scan_program(1, scorer=scorer)[0](
+            carry, ds))
+    out_k = scoring.score_prepared(inp61)
+    out_p = scoring.score_prepared_reference(inp61)
+    torch.cuda.synchronize()
+    max_err61 = compare(torch, "plan_scan T=61 union", out_k, out_p,
+                        prepared_in_domain(torch, inp61))
+    ms61, plain_ms61 = time_prepared(torch, inp61, KERNEL_REPS, PLAIN_REPS)
+    log(f"time plan_scan T=61 union: K={inp61.coeffs_lon.shape[0]} kernel "
+        f"{ms61:.4f} ms, plain {plain_ms61:.4f} ms")
+
+    planner = t61_planner()
+    planner.record_state_and_input(planner.x_0)
+    scoring.score_candidates.launches = 0
+    info = planner.plan_scan(n61)
+    launches61 = scoring.score_candidates.launches
+    log(f"plan_scan T=61 drive: goal_reached={info['goal_reached']} "
+        f"steps={info['steps']} cycles_run={info['cycles_run']} kernel "
+        f"launches={launches61}")
+    check(launches61 == n61, "plan_scan T=61: one launch per cycle")
+
+    for label, make in (("T=21", lambda: make_planner(
+            load_config("ZAM_Over-1_1", HERE), device="cuda")),
+            ("T=61", t61_planner)):
+        planner = make()
+        planner.set_desired_velocity(current_speed=planner.x_0.velocity)
+        planner.plan_scan(12, record=False)
+        times = []
+        for _ in range(5):
+            t0 = time.time()
+            planner.plan_scan(12, record=False)
+            times.append(time.time() - t0)
+        log(f"plan_scan ms/cycle {label} ZAM_Over (12 cycles per call, warm, "
+            f"median of 5, host clock incl. readback): "
+            f"{statistics.median(times) / 12 * 1e3:.3f} "
+            f"(min {min(times) / 12 * 1e3:.3f})")
+        run, carry = planner.scan_program(12)
+        ds = float(planner._desired_speed)
+        log(f"plan_scan {label} device busy share over 12 cycles: "
+            f"{device_busy_share(torch, lambda: run(carry, ds))}")
+    return dict(launches61=launches61, max_err61=max_err61, ms61=ms61,
+                plain_ms61=plain_ms61)
+
+
+def phase_fleet1024(torch):
+    """8. The 1024-problem heterogeneous fleet at full width."""
+    from commonroad_rp_tpu_torch.ops import scoring
+    from commonroad_rp_tpu_torch.run_fleet import (goal_counts,
+                                                   heterogeneous_fleet,
+                                                   make_scan)
+
+    F, cycles = 1024, 150
+    t0 = time.time()
+    scene, carry, goals, base_idx = heterogeneous_fleet(F, cycles,
+                                                        device="cuda",
+                                                        root=HERE)
+    run, K = make_scan(scene, cycles)
+    log(f"fleet{F}: built in {time.time() - t0:.1f} s, K={K}, "
+        f"{F * K} candidates per cycle")
+
+    scoring.score_candidates.launches = 0
+    scoring.score_fleet.launches = 0
+    t0 = time.time()
+    _, metrics = no_sync(torch, lambda: run(carry))
+    torch.cuda.synchronize()
+    first = time.time() - t0
+    n_launch = scoring.score_fleet.launches
+    check(n_launch == cycles and scoring.score_candidates.launches == 0,
+          f"fleet1024: {n_launch} fleet launches for {cycles} cycles")
+    walls = []
+    for _ in range(2):
+        t0 = time.time()
+        _, metrics = run(carry)
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+    wall = min(walls)
+    log(f"fleet1024: {cycles} cycles, {n_launch} fleet-kernel launches; "
+        f"first scan {first:.3f} s, warm {', '.join(f'{w:.3f}' for w in walls)}"
+        f" s; {F * K * cycles / wall:.6g} candidate-evals/s (warm, best of "
+        f"2), {wall / cycles * 1e3:.3f} ms/cycle")
+    counts = goal_counts(metrics, goals, base_idx)
+    for name, c in counts.items():
+        log(f"fleet1024 {name}: {c['reached']}/{c['total']} reached"
+            f"{', misses ' + str(c['misses']) if c['misses'] else ''} "
+            f"(JAX package on the TPU: {JAX_FLEET1024[name]})")
+    check(all(c["reached"] > 0 for c in counts.values()),
+          "fleet1024: a scenario reached no goal")
+
+    inp = captured_operands(
+        lambda scorer: make_scan(scene, 1, scorer=scorer)[0](carry))
+    out_k = scoring.score_prepared(inp)
+    out_p = scoring.score_prepared_reference(inp)
+    torch.cuda.synchronize()
+    max_err = compare(torch, "fleet1024 first cycle", out_k, out_p,
+                      prepared_in_domain(torch, inp))
+    del out_p
+    ms, plain_ms = time_prepared(torch, inp, 20, 3)
+    log(f"time fleet F=1024: kernel {ms:.4f} ms "
+        f"({F * K / ms * 1e3:.6g} candidate-evals/s), plain {plain_ms:.4f} "
+        "ms")
+    run3, _ = make_scan(scene, 3)
+    log(f"fleet1024 device busy share over a 3-cycle scan: "
+        f"{device_busy_share(torch, lambda: run3(carry))}")
+    return dict(launches=n_launch, max_err=max_err, ms=ms,
+                plain_ms=plain_ms)
+
+
+def device_busy_share(torch, fn):
+    """Device busy share of ``fn`` as text: the device time of its kernels
+    (``torch.profiler``, device events only: an operator's row repeats its
+    kernels' time) over the wall time of an unprofiled run (the profiler
+    stretches the host side)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device_us = sum(float(evt.self_device_time_total)
+                    for evt in prof.key_averages()
+                    if evt.device_type == DeviceType.CUDA)
+    if device_us <= 0.0:
+        return "not measured (no device events in the trace)"
+    return (f"{device_us / 1e3 / (wall * 1e3):.3f} ({device_us / 1e3:.2f} ms "
+            f"of kernels in {wall * 1e3:.2f} ms of unprofiled wall)")
 
 
 def profile_plans(torch, out_dir):

@@ -1,29 +1,39 @@
-// Fused candidate scorer for NVIDIA Hopper (sm_90a).
+// Fused candidate scorer for NVIDIA Hopper (sm_90a): one planning problem
+// (score_kernel) or a fleet of them in one launch (fleet_score_kernel).
 //
-// Replaces the TPU kernel commonroad_rp_tpu/ops/pallas_cycle.py::_scoring_body
-// (launched through _scoring_kernel by _score_candidates_pallas).  It computes
-// the same function; the plain PyTorch version is
-// commonroad_rp_tpu_torch/ops/scoring.py::score_candidates_reference.
+// Replaces the TPU kernels of commonroad_rp_tpu/ops/pallas_cycle.py:
+//   _scoring_kernel      (launched by _score_candidates_pallas at T <= 32),
+//   _scoring_kernel_ps   (the same body with per-step table windows, T > 32),
+//   _fleet_scoring_kernel (the same body over a (problem, K-tile) grid,
+//                          launched by _score_fleet_pallas),
+// all three computing _scoring_body.  The plain PyTorch versions are
+// commonroad_rp_tpu_torch/ops/scoring.py::score_candidates_reference and
+// ::score_fleet_reference.  The TPU's per-step table windows are a VMEM
+// schedule: here every table lookup is a binary search plus a load, so one
+// kernel serves both horizons.
 //
 // Design: one thread per candidate, with a serial loop over the T steps in
-// registers.  Every cross-step quantity of the scorer is a scan -- the
-// prefilter, the standstill heading hold, the previous heading and curvature
-// of the yaw-rate and curvature-rate checks, the first (step, rank)
-// violation, the values saved at the last valid step for the
+// registers (score_one).  Every cross-step quantity of the scorer is a scan
+// -- the prefilter, the standstill heading hold, the previous heading and
+// curvature of the yaw-rate and curvature-rate checks, the first (step,
+// rank) violation, the values saved at the last valid step for the
 // constant-acceleration extension with its running position sums, and the
 // cost sums -- so one pass suffices: steps at or after traj_len extend from
 // the values saved at the last valid step.  Reference-table rows are found by
 // binary search (idx = count(s_row <= q) - 1) and read, like the obstacle
-// and polygon tables, from global memory through the read-only path.
+// and polygon tables, from global memory through the read-only path.  The
+// fleet kernel puts the problem index in blockIdx.y and offsets every
+// operand by its problem's stride; all problems share the padded sizes P, M,
+// Mp and V (parallel/fleet.py pads them).
 //
 // What bounds it on the card: compute and latency, not bytes.  Each step runs
 // four binary searches (one lookup, three corridor probes), about ten
 // transcendentals, and two more per obstacle; the candidates' inputs are
-// 14 floats each.  At the main path's K ~ 3.4k and 256 threads per block the
-// launch fills only ~14 blocks of the H100's 132 SMs, so most of the card
-// idles.  A later change splits a candidate's steps across a warp (parallel
-// scans over T), stages the table and obstacles in shared memory, and batches
-// several planning problems per launch to fill the SMs.
+// 14 floats each.  A single problem (K ~ 3.4k, 256 threads per block) fills
+// only ~14 blocks of the H100's 132 SMs; the fleet kernel (F * K threads,
+// 2.82M for the 1024-problem fleet) fills the card.  Later changes: split a
+// candidate's steps across a warp (parallel scans over T) and stage the
+// tables and obstacles in shared memory.
 //
 // Numerics: built without fast math, with IEEE division and square root and
 // without FMA contraction (-fmad=false), so each float32 operation rounds as
@@ -95,17 +105,17 @@ __device__ __forceinline__ int count_le(const float* __restrict__ table, int P,
   return lo;
 }
 
-__global__ void __launch_bounds__(256) score_kernel(
-    const float* __restrict__ coeffs_lon, const float* __restrict__ coeffs_lat,
+// Scores candidate k of one problem; every pointer is that problem's base.
+__device__ __forceinline__ void score_one(
+    int k, const float* __restrict__ coeffs_lon,
+    const float* __restrict__ coeffs_lat,
     const float* __restrict__ traj_len_in,
     const float* __restrict__ goal_valid_in, const float* __restrict__ table,
     int P, const float* __restrict__ obs, int M,
     const float* __restrict__ poly, int Mp, int V,
-    const float* __restrict__ scal, int K, int T, int flags,
+    const float* __restrict__ scal, int T, int flags,
     float* __restrict__ out_masked, float* __restrict__ out_kin,
     float* __restrict__ out_reason) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= K) return;
 
   const float wheelbase = __ldg(scal + S_WHEELBASE);
   const float wb_rear = __ldg(scal + S_WB_REAR);
@@ -441,6 +451,40 @@ __global__ void __launch_bounds__(256) score_kernel(
   out_reason[k] = reason;
 }
 
+__global__ void __launch_bounds__(256) score_kernel(
+    const float* __restrict__ coeffs_lon, const float* __restrict__ coeffs_lat,
+    const float* __restrict__ traj_len, const float* __restrict__ goal_valid,
+    const float* __restrict__ table, int P, const float* __restrict__ obs,
+    int M, const float* __restrict__ poly, int Mp, int V,
+    const float* __restrict__ scal, int K, int T, int flags,
+    float* __restrict__ out_masked, float* __restrict__ out_kin,
+    float* __restrict__ out_reason) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= K) return;
+  score_one(k, coeffs_lon, coeffs_lat, traj_len, goal_valid, table, P, obs, M,
+            poly, Mp, V, scal, T, flags, out_masked, out_kin, out_reason);
+}
+
+// Problem f = blockIdx.y; operands are [F, ...] stacks with the padded sizes.
+__global__ void __launch_bounds__(256) fleet_score_kernel(
+    const float* __restrict__ coeffs_lon, const float* __restrict__ coeffs_lat,
+    const float* __restrict__ traj_len, const float* __restrict__ goal_valid,
+    const float* __restrict__ tables, int P, const float* __restrict__ obs,
+    int M, const float* __restrict__ poly, int Mp, int V,
+    const float* __restrict__ scal, int K, int T, int flags,
+    float* __restrict__ out_masked, float* __restrict__ out_kin,
+    float* __restrict__ out_reason) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= K) return;
+  const size_t f = blockIdx.y;
+  const size_t fk = f * (size_t)K;
+  score_one(k, coeffs_lon + fk * 6, coeffs_lat + fk * 6, traj_len + fk,
+            goal_valid + fk, tables + f * (size_t)P * kCols, P,
+            obs + f * (size_t)M * T * kObsCols, M,
+            poly + f * (size_t)Mp * T * (2 * V + 1), Mp, V, scal + f * S_NUM,
+            T, flags, out_masked + fk, out_kin + fk, out_reason + fk);
+}
+
 }  // namespace
 
 extern "C" int crp_score_candidates(
@@ -455,5 +499,21 @@ extern "C" int crp_score_candidates(
   score_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       coeffs_lon, coeffs_lat, traj_len, goal_valid, table, P, obs, M, poly, Mp,
       V, scalars, K, T, flags, out_masked, out_kin, out_reason);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int crp_score_fleet(
+    const float* coeffs_lon, const float* coeffs_lat, const float* traj_len,
+    const float* goal_valid, const float* tables, int P, const float* obs,
+    int M, const float* poly, int Mp, int V, const float* scalars, int F,
+    int K, int T, int flags, float* out_masked, float* out_kin,
+    float* out_reason, void* stream) {
+  if (K <= 0 || F <= 0) return 0;
+  if (F > 65535) return (int)cudaErrorInvalidConfiguration;
+  const int threads = 256;
+  const dim3 blocks((K + threads - 1) / threads, F);
+  fleet_score_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      coeffs_lon, coeffs_lat, traj_len, goal_valid, tables, P, obs, M, poly,
+      Mp, V, scalars, K, T, flags, out_masked, out_kin, out_reason);
   return (int)cudaGetLastError();
 }

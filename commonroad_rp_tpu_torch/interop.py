@@ -20,6 +20,9 @@ from commonroad_rp_tpu_torch.ops.collision import (CorridorArrays,
 from commonroad_rp_tpu_torch.ops.cycle import CostParams
 from commonroad_rp_tpu_torch.ops.frenet import RefPathTables
 from commonroad_rp_tpu_torch.ops.kinematics import VehicleArrays
+from commonroad_rp_tpu_torch.parallel.fleet import FleetCarry, FleetScene
+from commonroad_rp_tpu_torch.parallel.replanning_scan import (
+    FacadeScanCarry, ReplanningCarry)
 
 
 def tensor(leaf, device="cpu", dtype: Optional[torch.dtype] = None):
@@ -74,3 +77,28 @@ def candidates(coeffs_lon, coeffs_lat, traj_len, goal_valid,
     if level_ids is not None:
         out = out + (tensor(np.asarray(level_ids).astype(np.int32), device),)
     return out
+
+
+def fleet_scene(scene, device="cpu", dtype=None) -> FleetScene:
+    """A JAX ``parallel.fleet.FleetScene`` (leaves [F, ...]) as the port's,
+    vehicle leaves as [F] tensors."""
+    fields = {name: tensor(getattr(scene, name), device, dtype)
+              for name in FleetScene._fields if name not in ("ref", "veh")}
+    return FleetScene(ref=ref_tables(scene.ref, device, dtype),
+                      veh=_convert(scene.veh, VehicleArrays, device, dtype),
+                      **fields)
+
+
+def fleet_carry(carry, device="cpu") -> FleetCarry:
+    """A JAX ``parallel.fleet.FleetCarry`` as the port's."""
+    return _convert(carry, FleetCarry, device, None)
+
+
+def facade_carry(carry, device="cpu") -> FacadeScanCarry:
+    """A JAX ``pallas_fleet.FacadeScanCarry`` as the port's."""
+    return _convert(carry, FacadeScanCarry, device, None)
+
+
+def replanning_carry(carry, device="cpu") -> ReplanningCarry:
+    """A JAX ``pallas_fleet.PallasCycleCarry`` as the port's."""
+    return _convert(carry, ReplanningCarry, device, None)

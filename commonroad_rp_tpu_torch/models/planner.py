@@ -1,12 +1,14 @@
 """ReactivePlanner facade: the reference planner API over the fused scorer.
 
 Counterpart of ``commonroad_rp_tpu/models/planner.py`` (reference:
-commonroad_rp/reactive_planner.py:52-1159) for the main path.  The host
-compiles the scene, generates every sampling level's candidate grid, and
-assembles the output; one ``ops.cycle.evaluate_levels_fast`` call per cycle
-scores the union of the levels in one kernel launch on the planner's device,
-selects the winner with the reference's escalation semantics, and re-rolls
-it.  Only this fused float32 path is ported: configurations that need
+commonroad_rp/reactive_planner.py:52-1159).  ``plan()``: the host compiles
+the scene, generates every sampling level's candidate grid, and assembles
+the output; one ``ops.cycle.evaluate_levels_fast`` call per cycle scores the
+union of the levels in one kernel launch on the planner's device, selects
+the winner with the reference's escalation semantics, and re-rolls it.
+``plan_scan(n)``: n replanning cycles on the device
+(``parallel.replanning_scan.make_facade_replanning_scan``) with one readback
+at the end.  Only the fused float32 path is ported: configurations that need
 another scoring path raise ``NotImplementedError`` naming the ROADMAP item.
 """
 
@@ -15,6 +17,7 @@ from __future__ import annotations
 import logging
 import time
 import weakref
+from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -23,6 +26,7 @@ import torch
 from commonroad_rp_tpu_torch.models.cost_functions import (
     CostFunction, DefaultCostFunction)
 from commonroad_rp_tpu_torch.models.sampling import (CandidateBatch,
+                                                     CorridorSampling,
                                                      PositionSampling,
                                                      SamplingSpace,
                                                      TimeSampling,
@@ -35,7 +39,9 @@ from commonroad_rp_tpu_torch.models.trajectories import (OptimalTrajectory,
                                                          Trajectory)
 from commonroad_rp_tpu_torch.ops import collision as collision_ops
 from commonroad_rp_tpu_torch.ops import cycle as cycle_ops
+from commonroad_rp_tpu_torch.ops import grid as grid_ops
 from commonroad_rp_tpu_torch.ops import kinematics as kin_ops
+from commonroad_rp_tpu_torch.parallel import replanning_scan
 from commonroad_rp_tpu_torch.utils.config import ReactivePlannerConfiguration
 from commonroad_rp_tpu_torch.utils.coordinate_system import CoordinateSystem
 from commonroad_rp_tpu_torch.utils.general import (
@@ -230,6 +236,32 @@ class ReactivePlanner:
             logger.info("Goal of planning problem reached")
             return True
         return False
+
+    def goal_center_s(self) -> Optional[float]:
+        """Arclength of the goal region's center on the current reference
+        path, or None when the goal has no position constraint (the stop
+        target of stop-at-goal missions, ``run_planner.drive_mission``)."""
+        assert self._co is not None, "set_reference_path first"
+        goal = self.config.planning_problem.goal
+        centers = []
+        for gs in goal.state_list:
+            for shape in gs.position_shapes:
+                center = getattr(shape, "center", None)
+                if center is None and hasattr(shape, "vertices"):
+                    center = np.mean(np.asarray(shape.vertices), axis=0)
+                if center is not None:
+                    centers.append(np.asarray(center, dtype=float))
+            for lanelet_id in gs.position_lanelets:
+                lanelet = self.config.scenario.lanelet_network \
+                    .find_lanelet_by_id(lanelet_id)
+                if lanelet is not None:
+                    cv = lanelet.center_vertices
+                    centers.append(np.asarray(cv[len(cv) // 2], dtype=float))
+        if not centers:
+            return None
+        center = np.mean(np.stack(centers), axis=0)
+        s, _ = self._co.convert_to_curvilinear_coords(center[0], center[1])
+        return float(s)
 
     def reset(self, config: ReactivePlannerConfiguration = None,
               initial_state_cart: ReactivePlannerState = None,
@@ -630,6 +662,237 @@ class ReactivePlanner:
         """One sampling level on the fused scorer (the ``plan(level)``
         path)."""
         return self._evaluate([batch])
+
+    # ------------------------------------------------------------------
+    # device replanning loop (commonroad_rp_tpu models/planner.py:586-825)
+    # ------------------------------------------------------------------
+
+    def scan_program(self, n_cycles: int, scorer=None):
+        """(run, carry) of the device loop ``plan_scan`` drives: ``run(carry,
+        desired_speed)`` runs ``n_cycles`` cycles from the planner's current
+        state and returns (carry, metrics) without reading the device.
+        Built scans are cached (LRU of 4) on everything they close over.
+        ``scorer`` replaces the scan's scoring function
+        (``ops.scoring.score_prepared``), e.g. by its plain version."""
+        check_fast_scope(self.config)
+        assert self.x_0 is not None and self._co is not None
+        if not self.x_0_cl:
+            self.x_0_cl = self._compute_initial_states(self.x_0)
+        self._low_vel_mode = \
+            self.x_0.velocity < self.config.planning.low_vel_mode_threshold
+
+        cf = self.cost_function
+        cf_structure = cf.structure
+        if cf_structure[0] != "default" or not cf_structure[1]:
+            raise ValueError("plan_scan requires the fused-kernel scope "
+                             "(debug.fast_scoring, float32 kernels, "
+                             "default cost with speed target)")
+        longitudinal_mode = self.config.sampling.longitudinal_mode
+        if longitudinal_mode not in ("velocity_keeping", "stopping"):
+            raise ValueError(f"plan_scan: unknown longitudinal mode "
+                             f"{longitudinal_mode!r}")
+        stopping = longitudinal_mode == "stopping"
+        if stopping and self._desired_lon_position is None:
+            raise ValueError("stopping mode: call set_desired_lon_position() "
+                             "before plan_scan")
+        factor = self.config.planning.factor
+        if self.x_0.time_step % factor != 0:
+            raise ValueError(f"plan_scan: initial time_step "
+                             f"{self.x_0.time_step} must be divisible by "
+                             f"planning.factor {factor}")
+        if self._desired_speed is None:
+            raise ValueError("call set_desired_velocity() before plan_scan")
+        desired_s = float(self._desired_lon_position) if stopping else None
+        s_window = None
+        if stopping:
+            samples_s = self.sampling_space.samples_s
+            s_window = (float(samples_s.low), float(samples_s.up))
+
+        cs = self.config.sampling
+        corridor_grids = None
+        corridor_pin = None
+        if isinstance(self.sampling_space, CorridorSampling):
+            corridor_pin = self.sampling_space.driving_corridor
+            if corridor_pin is None:
+                raise ValueError("corridor sampling: set driving_corridor "
+                                 "before plan_scan")
+            corridor_grids = tuple(
+                grid_ops.make_corridor_grid(self.sampling_space, level,
+                                            self.dt, self.device)
+                for level in range(1, self.sampling_level))
+            grids = ()
+        else:
+            grids = tuple(
+                grid_ops.make_static_grid(level, cs.t_min, self.horizon,
+                                          self.dt, cs.d_min, cs.d_max,
+                                          cs.num_sampling_levels)
+                for level in range(1, self.sampling_level))
+
+        # full-span obstacle tables: every scenario step the scan can touch,
+        # sampled at planning.factor stride (one table row per planned step,
+        # reference reactive_planner.py:1032 scaling)
+        freq = self.config.planning.replanning_frequency
+        span = self.x_0.time_step // factor + n_cycles * freq + self.N + 1
+        constraints = self.config.planning.constraints_to_check
+        flags = tuple(c in constraints for c in _CONSTRAINT_ORDER)
+        lookahead = min(self._standstill_lookahead, self.N)
+        w_a = float(getattr(cf, "w_a", 5.0))
+        desired_d = float(getattr(cf, "desired_d", 0.0))
+        # the key holds the CoordinateSystem object itself (identity compare
+        # + a strong ref); the cached value pins the corridor object
+        cache_key = (n_cycles, freq, self.N, span, self._co, w_a, desired_d,
+                     flags, longitudinal_mode, desired_s, s_window, lookahead,
+                     factor, self.config.planning.boundary_mode,
+                     self.config.planning.continuous_collision_check,
+                     None if corridor_pin is None else id(corridor_pin),
+                     scorer)
+        cache = self.__dict__.setdefault("_plan_scan_cache", OrderedDict())
+        hit = cache.get(cache_key)
+        if hit is not None and hit[1] is corridor_pin:
+            cache.move_to_end(cache_key)          # LRU refresh
+            run = hit[0]
+        else:
+            obstacles_full = collision_ops.compile_obstacles(
+                self._cc.scenario, 0, span, factor, dtype=torch.float32,
+                device=self.device)
+            corridor = None
+            if self._cc.boundary.segments.shape[0] > 0:
+                corridor = self._cc.corridor_for(self._co)
+            run = replanning_scan.make_facade_replanning_scan(
+                self._co.tables, self._corridor_or_unbounded(corridor),
+                obstacles_full, self._vehicle_arrays(), grids, self.dt,
+                self.N, freq, self.config.planning.low_vel_mode_threshold,
+                self.horizon, float(self._desired_speed), w_a, desired_d,
+                flags, n_cycles, longitudinal_mode=longitudinal_mode,
+                desired_s=desired_s, s_window=s_window,
+                standstill_lookahead=lookahead,
+                corridor_grids=corridor_grids,
+                **({} if scorer is None else dict(scorer=scorer)))
+            # LRU over the last few built scans: mode-alternating missions
+            # (velocity keeping <-> stopping) must not rebuild per switch
+            cache[cache_key] = (run, corridor_pin)
+            self._plan_scan_builds = getattr(self, "_plan_scan_builds", 0) + 1
+            while len(cache) > 4:
+                cache.popitem(last=False)
+
+        x0_lon, x0_lat = self.x_0_cl
+        kappa_0 = np.tan(self.x_0.steering_angle) / \
+            self.vehicle_params.wheelbase
+        f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32),
+                                        device=self.device)
+        carry = replanning_scan.FacadeScanCarry(
+            x0_lon=f32(x0_lon), x0_lat=f32(x0_lat),
+            orientation=f32(self.x_0.orientation),
+            velocity=f32(self.x_0.velocity),
+            # the scan indexes obstacle tables in planned steps (tables are
+            # factor-strided); scenario steps = planned * factor
+            time_step=torch.as_tensor(self.x_0.time_step // factor,
+                                      dtype=torch.int32, device=self.device),
+            alive=torch.ones((), dtype=torch.bool, device=self.device),
+            kappa=f32(kappa_0), px=f32(self.x_0.position[0]),
+            py=f32(self.x_0.position[1]))
+        return run, carry
+
+    def plan_scan(self, n_cycles: int, record: bool = True,
+                  stop_on_goal: bool = True) -> dict:
+        """Device-resident multi-cycle replanning: the reference driver's
+        cyclic loop (run_planner.py:61-107) with no device readback between
+        cycles.
+
+        Each cycle regenerates every sampling level's grid on the device
+        around the carried state, scores the level union in one scorer
+        launch, selects the first-found level's winner (escalation
+        semantics), and advances ``replanning_frequency`` steps.  Scope: the
+        fused-kernel scope (default cost with a speed target); corridor and
+        no-boundary modes, discrete collision checks, any
+        ``planning.factor``, fixed-interval and corridor sampling, and both
+        longitudinal modes (stopping mode requires
+        ``set_desired_lon_position`` first).  The ``segments`` boundary and
+        continuous collision checks raise ``NotImplementedError`` (ROADMAP
+        queue 1 item 3).  Standstill starts work, and the standstill
+        fallback (reactive_planner.py:638-653, :667-713) runs on the device.
+
+        Returns a dict with ``goal_reached``, ``cycles_run``, ``steps``,
+        per-cycle ``found``/``best_cost``/rejection counters; with
+        ``record=True`` the driven states are appended to
+        ``record_state_list`` and the planner state advances to the final
+        recorded state (like reset() in the host loop).
+        """
+        run, carry = self.scan_program(n_cycles)
+        freq = self.config.planning.replanning_frequency
+        factor = self.config.planning.factor
+
+        t0 = time.time()
+        _, metrics = run(carry, float(self._desired_speed))
+        found, best_cost, n_inf_kin, n_coll, states = (
+            m.cpu().numpy() for m in metrics)
+        wall = time.time() - t0
+        self.stage_timers.record("device_scan", wall)
+        logger.info("plan_scan: %d cycles in %.4fs (%.2f ms/cycle)",
+                    n_cycles, wall, wall / max(n_cycles, 1) * 1e3)
+
+        goal = self.config.planning_problem.goal
+        wb = self.vehicle_params.wb_rear_axle
+        cycles_run = 0
+        steps = 0
+        goal_reached = False
+        last_state = None
+        t_start = self.x_0.time_step
+        prev_theta = self.x_0.orientation
+        prev_lon_lat = None
+        for c in range(n_cycles):
+            if not found[c]:
+                break
+            cycles_run += 1
+            arr = states[c]                          # [14, freq + 1]
+            for offset in range(1, freq + 1):
+                steps += 1
+                theta = float(arr[9, offset])
+                state = ReactivePlannerState(
+                    # scenario steps advance factor per planned step
+                    # (reactive_planner.py:1032)
+                    time_step=t_start + factor * ((c * freq) + offset),
+                    position=np.array([arr[7, offset], arr[8, offset]]),
+                    orientation=theta,
+                    velocity=float(arr[10, offset]),
+                    acceleration=float(arr[11, offset]),
+                    yaw_rate=(theta - prev_theta) / self.dt,
+                    steering_angle=float(np.arctan2(
+                        self.vehicle_params.wheelbase * arr[12, offset],
+                        1.0)))
+                prev_theta = theta
+                last_state = state
+                prev_lon_lat = (list(arr[0:3, offset]),
+                                list(arr[3:6, offset]))
+                if record:
+                    self.record_state_and_input(state)
+                if goal.is_reached(state.shift_positions_to_center(wb)):
+                    # stop_on_goal=False keeps driving (stop-at-goal
+                    # missions continue inside the goal region until the
+                    # stopping mode halts the vehicle)
+                    goal_reached = True
+                    if stop_on_goal:
+                        break
+            if goal_reached and stop_on_goal:
+                break
+
+        if record and last_state is not None:
+            # advance the planner like the host loop's reset()
+            self.reset(initial_state_cart=last_state,
+                       initial_state_curv=prev_lon_lat,
+                       collision_checker=self._cc,
+                       coordinate_system=self._co)
+        if cycles_run:
+            self._infeasible_count_kinematics = int(n_inf_kin[cycles_run - 1])
+            self._infeasible_count_collision = int(n_coll[cycles_run - 1])
+            self._optimal_cost = float(best_cost[cycles_run - 1])
+
+        return dict(goal_reached=goal_reached, cycles_run=cycles_run,
+                    steps=steps, found=found[:cycles_run].tolist(),
+                    best_cost=best_cost[:cycles_run].tolist(),
+                    n_inf_kinematics=n_inf_kin[:cycles_run].tolist(),
+                    n_inf_collision=n_coll[:cycles_run].tolist(),
+                    wall_time=wall)
 
     def _vehicle_arrays(self) -> kin_ops.VehicleArrays:
         v = self.vehicle_params

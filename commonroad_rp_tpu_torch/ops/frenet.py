@@ -4,6 +4,11 @@ Counterpart of ``commonroad_rp_tpu/ops/frenet.py``.  The reference path is
 compiled once on the host into fixed-size tables (``from_polyline``, numpy
 float64) and moved to the planner's device; conversion is a binary search
 (``torch.searchsorted``) plus a gather over the whole [K, T] batch.
+
+Every lookup also takes a fleet of reference paths: tables with a leading
+problem axis (leaves [F, P, ...], as ``parallel.fleet.FleetScene.ref``) and
+queries whose first axis is that problem axis ([F, ...]), each query searched
+in its own problem's table -- what ``jax.vmap`` over the JAX functions does.
 """
 
 from __future__ import annotations
@@ -53,25 +58,49 @@ def from_polyline(polyline: np.ndarray, dtype=torch.float64,
                          tangent=as_dev(tangent), normal=as_dev(normal))
 
 
+def per_problem(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """Per-problem values [F] shaped to broadcast against [F, ...]."""
+    return x.reshape(x.shape + (1,) * (like.dim() - x.dim()))
+
+
 def searchsorted_right(table: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """count(table <= s) for a sorted 1-D table, any query shape."""
-    flat = s.reshape(-1).contiguous()
+    """count(table <= s) for a sorted 1-D table and queries of any shape, or
+    for a batched [F, P] table and queries [F, ...] (row f searched for the
+    queries of problem f)."""
+    if table.dim() == 1:
+        flat = s.reshape(-1).contiguous()
+    else:
+        flat = s.reshape(s.shape[0], -1).contiguous()
     return torch.searchsorted(table.contiguous(), flat,
                               right=True).reshape(s.shape)
+
+
+def take_rows(table: torch.Tensor, idx: torch.Tensor,
+              batched: bool) -> torch.Tensor:
+    """table[idx] along the row axis: [P, ...] tables, or batched
+    [F, P, ...] tables with indices [F, ...]."""
+    if not batched:
+        return table[idx]
+    problem = torch.arange(table.shape[0], device=idx.device)
+    return table[per_problem(problem, idx), idx]
 
 
 def interp_index(ref: RefPathTables, s: torch.Tensor) -> torch.Tensor:
     """``np.argmax(ref_pos > s) - 1`` (reactive_planner.py:464, :835): the
     last vertex with s_vertex <= s, EXCEPT beyond the final vertex, where the
     reference's argmax over an all-False mask gives -1 (wrapping to the last
-    vertex; use ``gather_wrap``)."""
+    vertex; use ``gather_wrap``).  For a batched table the final vertex is
+    each problem's last (padded) row."""
     idx = searchsorted_right(ref.s, s) - 1
-    return torch.where(s >= ref.s[-1], torch.full_like(idx, -1), idx)
+    last = per_problem(ref.s[..., -1], s)
+    return torch.where(s >= last, torch.full_like(idx, -1), idx)
 
 
 def gather_wrap(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """table[idx] with numpy negative-index wrapping."""
-    return table[torch.remainder(idx, table.shape[0])]
+    """table[idx] with numpy negative-index wrapping ([P] tables, or
+    batched [F, P] tables with indices [F, ...])."""
+    batched = table.dim() == 2
+    return take_rows(table, torch.remainder(idx, table.shape[-1]), batched)
 
 
 class InterpValues(NamedTuple):
@@ -90,12 +119,13 @@ class InterpValues(NamedTuple):
 def lookup_interp_values(ref: RefPathTables,
                          idx: torch.Tensor) -> InterpValues:
     """All interpolation-table values at idx and idx+1 (numpy wrapping)."""
-    P = ref.s.shape[0]
+    batched = ref.s.dim() == 2
+    P = ref.s.shape[-1]
     lo_i = torch.remainder(idx, P)
     hi_i = torch.remainder(lo_i + 1, P)
-    packed = torch.stack([ref.s, ref.theta, ref.curv, ref.curv_d], dim=1)
-    lo = packed[lo_i]
-    hi = packed[hi_i]
+    packed = torch.stack([ref.s, ref.theta, ref.curv, ref.curv_d], dim=-1)
+    lo = take_rows(packed, lo_i, batched)
+    hi = take_rows(packed, hi_i, batched)
     return InterpValues(s_lo=lo[..., 0], s_hi=hi[..., 0],
                         theta_lo=lo[..., 1], theta_hi=hi[..., 1],
                         curv_lo=lo[..., 2], curv_hi=hi[..., 2],
@@ -108,17 +138,31 @@ def wrap_two_pi(angle: torch.Tensor) -> torch.Tensor:
     return angle - two_pi * torch.trunc(angle / two_pi)
 
 
+def interpolate_angle_at(ref: RefPathTables, s: torch.Tensor,
+                         idx: torch.Tensor) -> torch.Tensor:
+    """Angle interpolation between vertices idx and idx+1 at arclength s
+    over the unwrapped theta table (interpolate_angle,
+    utils_coordinate_system.py:25-43, as the standstill states use it)."""
+    x1 = gather_wrap(ref.s, idx)
+    x2 = gather_wrap(ref.s, idx + 1)
+    y1 = gather_wrap(ref.theta, idx)
+    y2 = gather_wrap(ref.theta, idx + 1)
+    return wrap_two_pi((y2 - y1) * (s - x1) / (x2 - x1) + y1)
+
+
 def to_cartesian(ref: RefPathTables, s: torch.Tensor, d: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(s, d) -> (x, y, in_domain) over the segment containing s, with the
     segment index clipped to [0, P-2] (the CLCS linear-segment model)."""
-    P = ref.s.shape[0]
+    batched = ref.s.dim() == 2
+    P = ref.s.shape[-1]
     seg = torch.clamp(searchsorted_right(ref.s, s) - 1, 0, P - 2)
     geometry_rows = torch.cat([ref.points, ref.tangent, ref.normal,
-                               ref.s[:, None]], dim=1)              # [P, 7]
-    rows = geometry_rows[seg]
+                               ref.s[..., None]], dim=-1)         # [.., P, 7]
+    rows = take_rows(geometry_rows, seg, batched)
     ds = s - rows[..., 6]
     x = rows[..., 0] + ds * rows[..., 2] + d * rows[..., 4]
     y = rows[..., 1] + ds * rows[..., 3] + d * rows[..., 5]
-    in_domain = (s >= ref.s[0]) & (s <= ref.s[-1])
+    in_domain = (s >= per_problem(ref.s[..., 0], s)) & \
+        (s <= per_problem(ref.s[..., -1], s))
     return x, y, in_domain

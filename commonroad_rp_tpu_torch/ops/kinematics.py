@@ -6,14 +6,16 @@ bundle as one dense [T, K] tensor program — polynomial rollout, Werling
 transform, the five constraint checks with first-failure reasons, the
 projection-domain mask, Frenet->Cartesian conversion and the
 constant-acceleration extension (``enlarge``) of short candidates.  The main
-path runs it once per cycle for the K=1 winner re-roll; the fused scorer
-(``ops.scoring``) covers the candidate bundle.
+path runs it once per cycle for the K=1 winner re-roll (the fleet scan for
+every problem's winner at once, with a leading problem axis); the fused
+scorer (``ops.scoring``) covers the candidate bundle.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from commonroad_rp_tpu_torch.ops import frenet as frenet_ops
@@ -86,6 +88,15 @@ def _diff0(arr: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.zeros_like(arr[:1]), arr[1:] - arr[:-1]], dim=0)
 
 
+def _select(cond, a, b):
+    """``a`` where ``cond`` else ``b``: a Python bool picks one side, a
+    tensor selects elementwise (the mode is a device value per cycle, or per
+    problem, in the scans)."""
+    if isinstance(cond, (bool, np.bool_)):
+        return a if cond else b
+    return torch.where(cond, a, b)
+
+
 def rollout(coeffs_lon: torch.Tensor,
             coeffs_lat: torch.Tensor,
             traj_len: torch.Tensor,
@@ -94,7 +105,7 @@ def rollout(coeffs_lon: torch.Tensor,
             x0_orientation,
             dt: float,
             n_steps: int,
-            low_vel_mode: bool,
+            low_vel_mode,
             check_velocity: bool = True,
             check_acceleration: bool = True,
             check_kappa: bool = True,
@@ -105,31 +116,55 @@ def rollout(coeffs_lon: torch.Tensor,
     coeffs_lon/coeffs_lat [K, 6]; traj_len [K] valid steps; arrays span
     T = n_steps + 1 steps of ``dt``; everything runs in ``coeffs_lon``'s
     dtype on its device.  ``low_vel_mode`` parameterizes the lateral
-    polynomials by travelled arclength (reactive_planner.py:755-772).
+    polynomials by travelled arclength (reactive_planner.py:755-772): a
+    Python bool, or a bool tensor selected elementwise so that a scan never
+    reads it back.
+
+    With a leading problem axis -- coefficients [F, K, 6], ``traj_len``
+    [F, K], reference tables [F, P, ...], vehicle leaves, orientation and
+    ``low_vel_mode`` [F] -- each problem rolls out against its own tables
+    and vehicle (``jax.vmap`` of the JAX function); results are [F, K, T].
     """
     dtype = coeffs_lon.dtype
     device = coeffs_lon.device
-    K = coeffs_lon.shape[0]
+    batch_shape = tuple(coeffs_lon.shape[:-1])          # (K,) or (F, K)
+    batched = len(batch_shape) == 2
     T = n_steps + 1
-    as_t = lambda x: torch.as_tensor(x, dtype=dtype, device=device)
-    low_vel = bool(low_vel_mode)
+
+    def as_t(x):
+        """A scalar, or per-problem [F] values shaped [F, 1]."""
+        t = torch.as_tensor(x, dtype=dtype, device=device)
+        return t[:, None] if batched and t.dim() == 1 else t
+
+    low_vel = low_vel_mode
+    if isinstance(low_vel, torch.Tensor):
+        low_vel = low_vel.to(device=device, dtype=torch.bool)
+        if batched and low_vel.dim() == 1:
+            low_vel = low_vel[:, None]
+    else:
+        low_vel = bool(low_vel)
+    # the reference-table lookups take problem-major queries [F, T, K]
+    to_q = (lambda a: a.transpose(0, 1)) if batched else (lambda a: a)
+
+    col = (T,) + (1,) * len(batch_shape)
+    shape = (T,) + batch_shape
     t_vec = torch.arange(T, dtype=dtype, device=device) * dt
-    step_idx = torch.arange(T, dtype=torch.int64, device=device)
+    step_idx = torch.arange(T, dtype=torch.int64, device=device).reshape(col)
     traj_len = traj_len.to(device=device, dtype=torch.int64)
-    # all internal math is T-major [T, K]; public arrays are [K, T]
-    active = step_idx[:, None] < traj_len[None, :]
+    # all internal math is step-major [T, (F,) K]; public arrays [(F,) K, T]
+    active = step_idx < traj_len[None]
     zero = torch.zeros((), dtype=dtype, device=device)
 
-    cl = coeffs_lon[None, :, :]
-    tau_lon = t_vec[:, None]
+    cl = coeffs_lon[None]
+    tau_lon = t_vec.reshape(col)
     s = torch.where(active, poly.eval_position(cl, tau_lon), zero)
     s_dot = torch.where(active, poly.eval_velocity(cl, tau_lon), zero)
     s_ddot = torch.where(active, poly.eval_acceleration(cl, tau_lon), zero)
 
     tau_lat = torch.where(active,
-                          (s - s[:1, :]) if low_vel
-                          else tau_lon.expand(T, K), zero)
-    ca = coeffs_lat[None, :, :]
+                          _select(low_vel, s - s[:1], tau_lon.expand(shape)),
+                          zero)
+    ca = coeffs_lat[None]
     d = torch.where(active, poly.eval_position(ca, tau_lat), zero)
     d_dot = torch.where(active, poly.eval_velocity(ca, tau_lat), zero)
     d_ddot = torch.where(active, poly.eval_acceleration(ca, tau_lat), zero)
@@ -150,11 +185,12 @@ def rollout(coeffs_lon: torch.Tensor,
     dp_high = torch.where(moving, d_dot / sv_safe, zero)
     ddot = d_ddot - dp_high * s_ddot                        # Werling Eq. (A.8)
     dpp_high = torch.where(moving, ddot / (sv_safe * sv_safe), zero)
-    dp = d_dot if low_vel else dp_high
-    dpp = d_ddot if low_vel else dpp_high
+    dp = _select(low_vel, d_dot, dp_high)
+    dpp = _select(low_vel, d_ddot, dpp_high)
 
-    idx = frenet_ops.interp_index(ref, s)
-    tv = frenet_ops.lookup_interp_values(ref, idx)
+    idx = frenet_ops.interp_index(ref, to_q(s))
+    tv = frenet_ops.InterpValues(*(to_q(v) for v in
+                                   frenet_ops.lookup_interp_values(ref, idx)))
     lam = (s - tv.s_lo) / (tv.s_hi - tv.s_lo)
     interp_theta = frenet_ops.wrap_two_pi(
         (tv.theta_hi - tv.theta_lo) * (s - tv.s_lo) / (tv.s_hi - tv.s_lo)
@@ -166,8 +202,8 @@ def rollout(coeffs_lon: torch.Tensor,
     theta_gl_move = theta_cl_move + interp_theta
     use_move = moving | low_vel
     last_move = torch.cummax(
-        torch.where(use_move, step_idx[:, None].expand(T, K),
-                    torch.full((T, K), -1, dtype=torch.int64,
+        torch.where(use_move, step_idx.expand(shape),
+                    torch.full(shape, -1, dtype=torch.int64,
                                device=device)), dim=0).values
     held = torch.gather(theta_gl_move, 0, torch.clamp(last_move, min=0))
     theta_gl = torch.where(last_move >= 0, held, as_t(x0_orientation))
@@ -188,8 +224,8 @@ def rollout(coeffs_lon: torch.Tensor,
          (one_krd * tan_t * (kappa_gl * one_krd / cos_t - k_r) -
           (k_r_d * d + k_r * dp)))
 
-    # constraint violations [T, K] in reference check order (:971-1017)
-    false_tk = torch.zeros((T, K), dtype=torch.bool, device=device)
+    # constraint violations [T, (F,) K] in reference check order (:971-1017)
+    false_tk = torch.zeros(shape, dtype=torch.bool, device=device)
     kappa_max = as_t(veh.kappa_max)
     vel_viol = v < -_EPS if check_velocity else false_tk
     kappa_viol = torch.abs(kappa_gl) > kappa_max if check_kappa else false_tk
@@ -220,8 +256,8 @@ def rollout(coeffs_lon: torch.Tensor,
 
     # first failing (step, constraint): step-major, then the fixed order
     viol = torch.stack([vel_viol, kappa_viol, yaw_viol, kd_viol, acc_viol],
-                       dim=1) & active[:, None, :]                 # [T, 5, K]
-    viol_flat = viol.reshape(T * 5, K)
+                       dim=1) & active[:, None]                # [T, 5, ...]
+    viol_flat = viol.reshape((T * 5,) + batch_shape)
     any_viol = torch.any(viol_flat, dim=0)
     first_flat = torch.argmax(viol_flat.to(torch.uint8), dim=0)
     scan_reason = torch.where(any_viol, first_flat % 5, REASON_FEASIBLE)
@@ -231,7 +267,8 @@ def rollout(coeffs_lon: torch.Tensor,
                                           (theta_cl, theta_gl, kappa_gl, v, a))
 
     # Frenet -> Cartesian + lateral projection-domain limits (:908-917)
-    x, y_pos, in_domain = frenet_ops.to_cartesian(ref, s, d)
+    x, y_pos, in_domain = (to_q(arr) for arr in
+                           frenet_ops.to_cartesian(ref, to_q(s), to_q(d)))
     x = pad(x)
     y_pos = pad(y_pos)
     in_domain = in_domain & (one_krd > 0.0) & \
@@ -248,9 +285,9 @@ def rollout(coeffs_lon: torch.Tensor,
 
     # ---- enlarge short candidates to N+1 steps (trajectories.py:168-332)
     ext = ~active
-    last = torch.clamp(traj_len - 1, 0, T - 1)[None, :]
-    take_last = lambda arr: torch.gather(arr, 0, last)       # [1, K]
-    t_rel = (step_idx[:, None] - (traj_len - 1)[None, :]).to(dtype) * dt
+    last = torch.clamp(traj_len - 1, 0, T - 1)[None]
+    take_last = lambda arr: torch.gather(arr, 0, last)       # [1, (F,) K]
+    t_rel = (step_idx - (traj_len - 1)[None]).to(dtype) * dt
 
     a_last = take_last(a)
     v_temp = take_last(v) + t_rel * a_last
@@ -280,7 +317,8 @@ def rollout(coeffs_lon: torch.Tensor,
     d_ddot = torch.where(ext, take_last(d_ddot), d_ddot)
     theta_cl = torch.where(ext, take_last(theta_cl), theta_cl)
 
-    out = [arr.T for arr in (s, s_dot, s_ddot, d, d_dot, d_ddot, theta_cl, x,
-                             y_pos, theta_gl, v, a, kappa_gl, kappa_dot)]
+    out = [arr.movedim(0, -1) for arr in (s, s_dot, s_ddot, d, d_dot, d_ddot,
+                                          theta_cl, x, y_pos, theta_gl, v, a,
+                                          kappa_gl, kappa_dot)]
     return RolloutResult(*out, feasible=feasible,
                          reason=reason.to(torch.int32))

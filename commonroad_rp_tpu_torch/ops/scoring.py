@@ -13,11 +13,17 @@ domain and goal masks, the constant-acceleration extension of short
 candidates, the DefaultCostFunction terms, the three-probe corridor band
 check, OBB/disc SAT against the obstacle table and convex-polygon SAT.
 
-``score_candidates`` is the public wrapper, with the argument order and
-layout of ``pallas_cycle._score_candidates_pallas``.  For CUDA tensors it
-launches the hand-written kernel ``csrc/scoring.cu`` (built with nvcc on
-first use, bound through ctypes); for CPU tensors it runs
-``score_candidates_reference``, the plain PyTorch version of the kernel.
+``score_candidates`` is the public wrapper for one planning problem, with the
+argument order and layout of ``pallas_cycle._score_candidates_pallas``;
+``score_fleet`` scores F problems in one launch, with the layout of
+``pallas_cycle._score_fleet_pallas`` (rows [F, K]).  For CUDA tensors they
+launch the hand-written kernels of ``csrc/scoring.cu`` (built with nvcc on
+first use, bound through ctypes); for CPU tensors they run the plain PyTorch
+version of the kernel (``score_candidates_reference``,
+``score_fleet_reference``: one function, batched over problems).
+``prepare_inputs``/``prepare_fleet_inputs`` lay the operands out once and
+``score_prepared`` scores them, so a scan builds its constant operands
+before its loop.
 
 Packed reference-table columns (``pack_ref_tables``):
     0: s      1: theta   2: curv   3: curv_d   4: d_lo   5: d_hi
@@ -69,7 +75,8 @@ _TWO_PI = float(np.float32(2.0 * np.pi))
 
 def pack_ref_tables(ref: frenet_ops.RefPathTables,
                     corridor: CorridorArrays) -> torch.Tensor:
-    """[P + 1, 12] float32 interpolation + corridor + geometry table.
+    """[P + 1, 12] float32 interpolation + corridor + geometry table
+    ([F, P + 1, 12] for a fleet's [F, P] tables, as ``jax.vmap`` gives).
 
     The extra final row is a successor sentinel: a copy of the last row with
     its arclength pushed ``1e7`` past the path end, so the interpolation at
@@ -78,11 +85,11 @@ def pack_ref_tables(ref: frenet_ops.RefPathTables,
     """
     packed = torch.cat([
         torch.stack([ref.s, ref.theta, ref.curv, ref.curv_d,
-                     corridor.d_lo, corridor.d_hi], dim=1),
-        ref.points, ref.tangent, ref.normal], dim=1).to(torch.float32)
-    sentinel = packed[-1:].clone()
-    sentinel[:, 0] += _SENTINEL_DS
-    return torch.cat([packed, sentinel], dim=0).contiguous()
+                     corridor.d_lo, corridor.d_hi], dim=-1),
+        ref.points, ref.tangent, ref.normal], dim=-1).to(torch.float32)
+    sentinel = packed[..., -1:, :].clone()
+    sentinel[..., 0] += _SENTINEL_DS
+    return torch.cat([packed, sentinel], dim=-2).contiguous()
 
 
 def true_path_length(ref: frenet_ops.RefPathTables) -> torch.Tensor:
@@ -126,30 +133,28 @@ class ScorerInputs(NamedTuple):
     flags: int
 
 
-def _float_operand(name, t, device, ndim, last=None):
+def _float_operand(name, t, device, ndim, last=None, who="score_candidates"):
     if not isinstance(t, torch.Tensor):
-        raise TypeError(f"score_candidates: {name} must be a tensor")
+        raise TypeError(f"{who}: {name} must be a tensor")
     if t.device != device:
-        raise ValueError(f"score_candidates: {name} is on {t.device}, "
+        raise ValueError(f"{who}: {name} is on {t.device}, "
                          f"the candidates on {device}")
     if t.dtype != torch.float32:
-        raise TypeError(f"score_candidates: {name} must be float32, "
-                        f"got {t.dtype}")
+        raise TypeError(f"{who}: {name} must be float32, got {t.dtype}")
     if t.dim() != ndim or (last is not None and t.shape[-1] != last):
-        raise ValueError(f"score_candidates: {name} has shape "
-                         f"{tuple(t.shape)}")
+        raise ValueError(f"{who}: {name} has shape {tuple(t.shape)}")
     return t.contiguous()
 
 
-def _as_f32(name, t, device, shape):
+def _as_f32(name, t, device, shape, who="score_candidates"):
     if not isinstance(t, torch.Tensor):
-        raise TypeError(f"score_candidates: {name} must be a tensor")
+        raise TypeError(f"{who}: {name} must be a tensor")
     if t.device != device:
-        raise ValueError(f"score_candidates: {name} is on {t.device}, "
+        raise ValueError(f"{who}: {name} is on {t.device}, "
                          f"the candidates on {device}")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"score_candidates: {name} has shape "
-                         f"{tuple(t.shape)}, expected {tuple(shape)}")
+        raise ValueError(f"{who}: {name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
     return t.to(torch.float32).contiguous()
 
 
@@ -194,14 +199,11 @@ def prepare_inputs(coeffs_lon, coeffs_lat, traj_len, goal_valid,
                              f"{tuple(obstacles.pose.shape)}, horizon T={T}")
         radius = obstacles.radius if obstacles.radius is not None \
             else torch.zeros((M,), dtype=torch.float32, device=device)
-        obs = torch.cat([
+        obs = obstacle_rows(
             _as_f32("obstacles.pose", obstacles.pose, device, (M, T, 3)),
-            _as_f32("obstacles.half_ext", obstacles.half_ext, device,
-                    (M, 2))[:, None, :].expand(M, T, 2),
-            _as_f32("obstacles.valid", obstacles.valid, device,
-                    (M, T))[..., None],
-            _as_f32("obstacles.radius", radius, device,
-                    (M,))[:, None, None].expand(M, T, 1)], dim=-1)
+            _as_f32("obstacles.half_ext", obstacles.half_ext, device, (M, 2)),
+            _as_f32("obstacles.valid", obstacles.valid, device, (M, T)),
+            _as_f32("obstacles.radius", radius, device, (M,)))
     else:
         obs = torch.zeros((0, T, _OBS_COLS), dtype=torch.float32,
                           device=device)
@@ -242,12 +244,7 @@ def prepare_inputs(coeffs_lon, coeffs_lat, traj_len, goal_valid,
         values[slot] = value
     scalars = _scalar_row(values, device)
 
-    flags = 0
-    for bit, on in zip((_F_VELOCITY, _F_ACCELERATION, _F_KAPPA,
-                        _F_KAPPA_DOT, _F_YAW_RATE), check_flags):
-        flags |= bit if on else 0
-    flags |= _F_HAS_DESIRED_S if desired_s is not None else 0
-    flags |= _F_HAS_DESIRED_V if has_desired_v else 0
+    flags = _flags(check_flags, desired_s is not None, has_desired_v)
     return ScorerInputs(coeffs_lon=cl, coeffs_lat=ca, traj_len=tl,
                         goal_valid=gv, table=table, obs=obs.contiguous(),
                         poly=poly.contiguous(), scalars=scalars,
@@ -255,34 +252,191 @@ def prepare_inputs(coeffs_lon, coeffs_lat, traj_len, goal_valid,
 
 
 # ---------------------------------------------------------------------------
-# plain PyTorch version of the kernel: vectorized over [T, K]
+# the fleet's operands: F problems stacked, padded to common P, M, Mp and V
 # ---------------------------------------------------------------------------
 
-def _score_plain(inp: ScorerInputs):
+class FleetScorerInputs(NamedTuple):
+    """Fleet kernel operands, all float32, contiguous, on one device."""
+
+    coeffs_lon: torch.Tensor   # [F, K, 6]
+    coeffs_lat: torch.Tensor   # [F, K, 6]
+    traj_len: torch.Tensor     # [F, K] valid steps
+    goal_valid: torch.Tensor   # [F, K] 1.0 / 0.0
+    tables: torch.Tensor       # [F, P, 12] (pack_ref_tables per problem)
+    obs: torch.Tensor          # [F, M, T, 7]
+    poly: torch.Tensor         # [F, Mp, T, 2V + 1]
+    scalars: torch.Tensor      # [F, 17]
+    n_steps: int
+    n_poly_verts: int
+    flags: int
+
+
+def pack_veh_stack(veh: VehicleArrays) -> torch.Tensor:
+    """[F, 8] vehicle-parameter stack for ``score_fleet`` from a
+    VehicleArrays whose leaves are [F] (``parallel.fleet.FleetScene.veh``);
+    counterpart of ``pallas_cycle.pack_veh_stack``."""
+    return torch.stack([veh.wheelbase, veh.wb_rear_axle, veh.a_max,
+                        veh.v_switch, veh.kappa_max, veh.v_delta_max,
+                        veh.half_length, veh.half_width],
+                       dim=-1).to(torch.float32)
+
+
+def obstacle_rows(pose: torch.Tensor, half_ext: torch.Tensor,
+                  valid: torch.Tensor, radius=None) -> torch.Tensor:
+    """[..., M, T, 7] obstacle table (x, y, theta, half_len, half_wid, valid,
+    radius) from pose [..., M, T, 3], half extents [..., M, 2], validity
+    [..., M, T] and disc radii [..., M] (None: all OBB rows)."""
     f32 = torch.float32
-    cl, ca, table, sc = inp.coeffs_lon, inp.coeffs_lat, inp.table, inp.scalars
+    if radius is None:
+        radius = torch.zeros(half_ext.shape[:-1], dtype=f32,
+                             device=pose.device)
+    shape = pose.shape[:-1]
+    return torch.cat([
+        pose.to(f32),
+        half_ext.to(f32)[..., None, :].expand(shape + (2,)),
+        valid.to(f32)[..., None],
+        radius.to(f32)[..., None, None].expand(shape + (1,))],
+        dim=-1).contiguous()
+
+
+def fleet_scalar_rows(veh_stack: torch.Tensor, x0_orientation, dt, low_vel,
+                      desired_speed, desired_d, w_a, ref_s_last,
+                      desired_s, table_s0) -> torch.Tensor:
+    """[F, 17] scalar rows, one per problem.  Every value is a [F] tensor or
+    a Python number (written with a fill, never a host copy)."""
+    F = veh_stack.shape[0]
+    device = veh_stack.device
+    col = lambda v: v.to(device=device, dtype=torch.float32).reshape(F) \
+        if isinstance(v, torch.Tensor) \
+        else torch.full((F,), float(v), dtype=torch.float32, device=device)
+    values = [None] * _NUM_SCALARS
+    for slot, i in ((_S_WHEELBASE, 0), (_S_WB_REAR, 1), (_S_A_MAX, 2),
+                    (_S_V_SWITCH, 3), (_S_KAPPA_MAX, 4), (_S_V_DELTA_MAX, 5),
+                    (_S_HALF_LEN, 6), (_S_HALF_WID, 7)):
+        values[slot] = veh_stack[:, i].to(torch.float32)
+    for slot, value in ((_S_X0_THETA, x0_orientation), (_S_DT, dt),
+                        (_S_LOW_VEL, low_vel), (_S_DESIRED_V, desired_speed),
+                        (_S_DESIRED_D, desired_d), (_S_W_A, w_a),
+                        (_S_REF_S_LAST, ref_s_last),
+                        (_S_DESIRED_S, 0.0 if desired_s is None
+                         else desired_s),
+                        (_S_TABLE_S0, table_s0)):
+        values[slot] = col(value)
+    return torch.stack(values, dim=1).contiguous()
+
+
+def _flags(check_flags, has_desired_s: bool, has_desired_v: bool) -> int:
+    flags = 0
+    for bit, on in zip((_F_VELOCITY, _F_ACCELERATION, _F_KAPPA,
+                        _F_KAPPA_DOT, _F_YAW_RATE), check_flags):
+        flags |= bit if on else 0
+    flags |= _F_HAS_DESIRED_S if has_desired_s else 0
+    flags |= _F_HAS_DESIRED_V if has_desired_v else 0
+    return flags
+
+
+def prepare_fleet_inputs(coeffs_lon, coeffs_lat, traj_len, goal_valid,
+                         packed_tables, obs_pose, obs_half_ext, obs_valid,
+                         veh_stack, x0_orientation, dt, low_vel,
+                         desired_speed, desired_d, w_a, ref_s_last,
+                         desired_s=None, obs_radius=None, poly_table=None, *,
+                         n_steps: int, check_flags: tuple = (True,) * 5,
+                         has_desired_s: bool = False) -> FleetScorerInputs:
+    """Validate and lay out the fleet scorer's operands (shared by the kernel
+    and the plain version).  Arguments follow ``_score_fleet_pallas``; every
+    per-problem value has a leading F axis and ``ref_s_last`` is per problem
+    (the fleet's padded tables need it from the caller)."""
+    who = "score_fleet"
+    device = coeffs_lon.device
+    T = n_steps + 1
+    cl = _float_operand("coeffs_lon", coeffs_lon, device, 3, 6, who)
+    F, K = cl.shape[:2]
+    ca = _float_operand("coeffs_lat", coeffs_lat, device, 3, 6, who)
+    if ca.shape[:2] != (F, K):
+        raise ValueError(f"{who}: coeffs_lat/coeffs_lon disagree")
+    tl = _as_f32("traj_len", traj_len, device, (F, K), who)
+    gv = _as_f32("goal_valid", goal_valid, device, (F, K), who)
+    tables = _float_operand("packed_tables", packed_tables, device, 3,
+                            _NUM_COLS, who)
+    if tables.shape[0] != F or tables.shape[1] < 2:
+        raise ValueError(f"{who}: packed_tables has shape "
+                         f"{tuple(tables.shape)}")
+    M = obs_pose.shape[1]
+    if tuple(obs_pose.shape) != (F, M, T, 3):
+        raise ValueError(f"{who}: obs_pose has shape "
+                         f"{tuple(obs_pose.shape)}, horizon T={T}")
+    for name, t, shape in (("obs_half_ext", obs_half_ext, (F, M, 2)),
+                           ("obs_valid", obs_valid, (F, M, T)),
+                           ("obs_radius", obs_radius, (F, M))):
+        if t is not None:
+            _as_f32(name, t, device, shape, who)
+    obs = obstacle_rows(obs_pose.to(device), obs_half_ext, obs_valid,
+                        obs_radius)
+    if poly_table is None:
+        V = 1
+        poly = torch.zeros((F, 0, T, 3), dtype=torch.float32, device=device)
+    else:
+        poly = _float_operand("poly_table", poly_table, device, 4, None, who)
+        if poly.shape[0] != F or poly.shape[2] != T \
+                or poly.shape[3] % 2 != 1:
+            raise ValueError(f"{who}: poly_table has shape "
+                             f"{tuple(poly.shape)}")
+        V = (poly.shape[3] - 1) // 2
+    if tuple(veh_stack.shape) != (F, 8):
+        raise ValueError(f"{who}: veh_stack has shape "
+                         f"{tuple(veh_stack.shape)}")
+    scalars = fleet_scalar_rows(veh_stack, x0_orientation, dt, low_vel,
+                                desired_speed, desired_d, w_a, ref_s_last,
+                                desired_s, tables[:, 0, 0])
+    return FleetScorerInputs(
+        coeffs_lon=cl, coeffs_lat=ca, traj_len=tl, goal_valid=gv,
+        tables=tables, obs=obs, poly=poly.contiguous(), scalars=scalars,
+        n_steps=n_steps, n_poly_verts=V,
+        flags=_flags(check_flags, has_desired_s, True))
+
+
+def _as_fleet(inp: ScorerInputs) -> FleetScorerInputs:
+    """One problem as a fleet of one."""
+    return FleetScorerInputs(
+        coeffs_lon=inp.coeffs_lon[None], coeffs_lat=inp.coeffs_lat[None],
+        traj_len=inp.traj_len[None], goal_valid=inp.goal_valid[None],
+        tables=inp.table[None], obs=inp.obs[None], poly=inp.poly[None],
+        scalars=inp.scalars[None], n_steps=inp.n_steps,
+        n_poly_verts=inp.n_poly_verts, flags=inp.flags)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch version of the kernel: vectorized over [T, F, K]
+# ---------------------------------------------------------------------------
+
+def _score_plain_fleet(inp: FleetScorerInputs):
+    """The kernel's function for F problems at once: (masked, kin, reason)
+    rows [F, K].  Step-major [T, F, K] arrays; per-problem scalars [F, 1]."""
+    f32 = torch.float32
+    cl, ca, table, sc = inp.coeffs_lon, inp.coeffs_lat, inp.tables, inp.scalars
     device = cl.device
     T = inp.n_steps + 1
-    K = cl.shape[0]
-    P = table.shape[0]
+    F, K = cl.shape[:2]
+    P = table.shape[1]
     flags = inp.flags
     zero = torch.zeros((), dtype=f32, device=device)
     one = torch.ones((), dtype=f32, device=device)
     inf = torch.full((), np.inf, dtype=f32, device=device)
+    par = lambda slot: sc[:, slot:slot + 1]                  # [F, 1]
 
-    dt = sc[_S_DT]
-    low_vel = sc[_S_LOW_VEL] > 0.5
-    wheelbase = sc[_S_WHEELBASE]
-    a_max = sc[_S_A_MAX]
-    v_switch = sc[_S_V_SWITCH]
-    kappa_max = sc[_S_KAPPA_MAX]
-    v_delta_max = sc[_S_V_DELTA_MAX]
-    x0_theta = sc[_S_X0_THETA]
-    ref_s_last = sc[_S_REF_S_LAST]
+    dt = par(_S_DT)
+    low_vel = par(_S_LOW_VEL) > 0.5
+    wheelbase = par(_S_WHEELBASE)
+    a_max = par(_S_A_MAX)
+    v_switch = par(_S_V_SWITCH)
+    kappa_max = par(_S_KAPPA_MAX)
+    v_delta_max = par(_S_V_DELTA_MAX)
+    x0_theta = par(_S_X0_THETA)
+    ref_s_last = par(_S_REF_S_LAST)
 
-    traj_len = inp.traj_len[None, :]                         # [1, K]
-    step = torch.arange(T, dtype=f32, device=device)[:, None]  # [T, 1]
-    active = step < traj_len                                 # [T, K]
+    traj_len = inp.traj_len[None]                            # [1, F, K]
+    step = torch.arange(T, dtype=f32, device=device)[:, None, None]
+    active = step < traj_len                                 # [T, F, K]
     t = step * dt
 
     def poly_eval(c, tau):
@@ -290,7 +444,7 @@ def _score_plain(inp: ScorerInputs):
         tau3 = tau2 * tau
         tau4 = tau2 * tau2
         tau5 = tau4 * tau
-        c = [c[:, i][None, :] for i in range(6)]
+        c = [c[..., i][None] for i in range(6)]
         p = (c[0] + c[1] * tau + c[2] * tau2 + c[3] * tau3 + c[4] * tau4
              + c[5] * tau5)
         v = (c[1] + 2.0 * c[2] * tau + 3.0 * c[3] * tau2 + 4.0 * c[4] * tau3
@@ -303,7 +457,7 @@ def _score_plain(inp: ScorerInputs):
     s = torch.where(active, s, zero)
     s_dot = torch.where(active, s_dot, zero)
     s_ddot = torch.where(active, s_ddot, zero)
-    tau_lat = torch.where(active, torch.where(low_vel, s - s[:1, :], t), zero)
+    tau_lat = torch.where(active, torch.where(low_vel, s - s[:1], t), zero)
     d, d_dot, d_ddot = poly_eval(ca, tau_lat)
     d = torch.where(active, d, zero)
     d_dot = torch.where(active, d_dot, zero)
@@ -315,17 +469,22 @@ def _score_plain(inp: ScorerInputs):
     pre_vel = torch.any(s_dot < -_EPS, dim=0)
     prefiltered = pre_acc | pre_vel
 
-    # table rows idx = count(s_row <= q) - 1 and idx + 1
-    s_col = table[:, 0].contiguous()
+    # table rows idx = count(s_row <= q) - 1 and idx + 1, per problem
+    s_col = table[:, :, 0].contiguous()                      # [F, P]
 
     def row_index(q):
-        idx = frenet_ops.searchsorted_right(s_col, q) - 1
+        idx = frenet_ops.searchsorted_right(
+            s_col, q.transpose(0, 1)).transpose(0, 1) - 1
         return torch.where(torch.isnan(q), torch.full_like(idx, -1), idx)
 
-    q = torch.where(active, s, sc[_S_TABLE_S0])
+    def rows(idx):                                           # [T, F, K, 12]
+        return frenet_ops.take_rows(table, idx.transpose(0, 1),
+                                    True).transpose(0, 1)
+
+    q = torch.where(active, s, par(_S_TABLE_S0))
     idx = torch.clamp(row_index(q), 0, P - 2)
-    lo = table[idx]                                          # [T, K, 12]
-    hi = table[idx + 1]
+    lo = rows(idx)
+    hi = rows(idx + 1)
     lam = (s - lo[..., 0]) / (hi[..., 0] - lo[..., 0])
     raw = (hi[..., 1] - lo[..., 1]) * lam + lo[..., 1]
     interp_theta = raw - _TWO_PI * torch.trunc(raw / _TWO_PI)
@@ -348,7 +507,7 @@ def _score_plain(inp: ScorerInputs):
     use_move = moving | low_vel
     # standstill hold: the heading of the last moving step, else x0
     held = []
-    carry = x0_theta.expand(K)
+    carry = x0_theta.expand(F, K)
     for c in range(T):
         carry = torch.where(use_move[c], theta_gl_move[c], carry)
         held.append(carry)
@@ -369,7 +528,7 @@ def _score_plain(inp: ScorerInputs):
     # first (step, rank) violation; rank = reason code 0..4
     first_row = step < 1.0
     big = 1e9
-    min_flat = torch.full((K,), big, dtype=f32, device=device)
+    min_flat = torch.full((F, K), big, dtype=f32, device=device)
 
     def track(viol, rank):
         flat = step * 5.0 + float(rank)
@@ -417,7 +576,7 @@ def _score_plain(inp: ScorerInputs):
 
     # constant-acceleration extension past the last valid step
     ext = ~active
-    last = traj_len - 1.0                                    # [1, K]
+    last = traj_len - 1.0                                    # [1, F, K]
     last_i = last.to(torch.int64)
     has_last = (last >= 0.0) & (last <= T - 1.0)
     last_idx = torch.clamp(last_i, 0, T - 1)
@@ -432,8 +591,8 @@ def _score_plain(inp: ScorerInputs):
     theta_last = take_last(theta_gl)
     incr_x = torch.where(ext, dt * v_temp * torch.cos(theta_last), zero)
     incr_y = torch.where(ext, dt * v_temp * torch.sin(theta_last), zero)
-    acc_x = torch.zeros((K,), dtype=f32, device=device)
-    acc_y = torch.zeros((K,), dtype=f32, device=device)
+    acc_x = torch.zeros((F, K), dtype=f32, device=device)
+    acc_y = torch.zeros((F, K), dtype=f32, device=device)
     cum_x, cum_y = [], []
     for c in range(T):                  # sequential, as the kernel sums
         acc_x = acc_x + incr_x[c]
@@ -450,9 +609,9 @@ def _score_plain(inp: ScorerInputs):
     d = torch.where(ext, take_last(d) + t_rel * take_last(d_dot), d)
 
     # DefaultCostFunction terms
-    w_a = sc[_S_W_A]
-    desired_v = sc[_S_DESIRED_V]
-    desired_d = sc[_S_DESIRED_D]
+    w_a = par(_S_W_A)
+    desired_v = par(_S_DESIRED_V)
+    desired_d = par(_S_DESIRED_D)
     sq = lambda x: x * x
     costs = torch.sum(sq(w_a * a), dim=0)
     if flags & _F_HAS_DESIRED_V:
@@ -460,7 +619,7 @@ def _score_plain(inp: ScorerInputs):
                          + 50.0 * sq(v[T - 1] - desired_v)
                          + 100.0 * sq(v[T // 2] - desired_v))
     if flags & _F_HAS_DESIRED_S:
-        desired_s = sc[_S_DESIRED_S]
+        desired_s = par(_S_DESIRED_S)
         costs = costs + (torch.sum(sq(0.25 * (desired_s - s)), dim=0)
                          + sq(20.0 * (desired_s - s[T - 1])))
     costs = costs + (torch.sum(sq(0.25 * (desired_d - d)), dim=0)
@@ -469,9 +628,9 @@ def _score_plain(inp: ScorerInputs):
                      + sq(5.0 * torch.abs(theta_cl[T - 1])))
 
     # corridor road-boundary check: three probes along the ego box
-    half_len = sc[_S_HALF_LEN]
-    half_wid = sc[_S_HALF_WID]
-    wb_rear = sc[_S_WB_REAR]
+    half_len = par(_S_HALF_LEN)
+    half_wid = par(_S_HALF_WID)
+    wb_rear = par(_S_WB_REAR)
     cos_cl = torch.cos(theta_cl)
     sin_cl = torch.sin(theta_cl)
     s_center = s + wb_rear * cos_cl
@@ -480,15 +639,15 @@ def _score_plain(inp: ScorerInputs):
     lon_ext = half_len * torch.abs(cos_cl) + half_wid * torch.abs(sin_cl)
     d_plus = d_center + lat_ext
     d_minus = d_center - lat_ext
-    collides = torch.zeros((K,), dtype=torch.bool, device=device)
+    collides = torch.zeros((F, K), dtype=torch.bool, device=device)
     for probe in (s_center - lon_ext, s_center, s_center + lon_ext):
         q = torch.clamp(probe, min=0.0)
         q = torch.minimum(q, ref_s_last)
         bidx = row_index(q)
-        rows = table[torch.clamp(bidx, min=0)]
+        band = rows(torch.clamp(bidx, min=0))
         band_ok = bidx >= 0
-        band_lo = torch.where(band_ok, rows[..., 4], zero)
-        band_hi = torch.where(band_ok, rows[..., 5], zero)
+        band_lo = torch.where(band_ok, band[..., 4], zero)
+        band_hi = torch.where(band_ok, band[..., 5], zero)
         collides = collides | torch.any((d_plus > band_hi)
                                         | (d_minus < band_lo), dim=0)
 
@@ -497,11 +656,12 @@ def _score_plain(inp: ScorerInputs):
     e_sin = torch.sin(theta_gl)
     ecx = ego_x + wb_rear * e_cos
     ecy = ego_y + wb_rear * e_sin
-    for m in range(inp.obs.shape[0]):
-        o = inp.obs[m]                                       # [T, 7]
-        ox, oy, otheta, ohl, ohw = (o[:, i:i + 1] for i in range(5))
-        valid = o[:, 5:6] > 0.5
-        radius = o[:, 6:7]
+    step_col = lambda o, i: o[..., i].transpose(0, 1)[..., None]  # [T, F, 1]
+    for m in range(inp.obs.shape[1]):
+        o = inp.obs[:, m]                                    # [F, T, 7]
+        ox, oy, otheta, ohl, ohw = (step_col(o, i) for i in range(5))
+        valid = step_col(o, 5) > 0.5
+        radius = step_col(o, 6)
         o_cos = torch.cos(otheta)
         o_sin = torch.sin(otheta)
         dx = ox - ecx
@@ -525,11 +685,11 @@ def _score_plain(inp: ScorerInputs):
 
     # convex-polygon SAT: ego box axes + the piece's edge normals
     V = inp.n_poly_verts
-    for m in range(inp.poly.shape[0]):
-        pc = inp.poly[m]                                     # [T, 2V + 1]
-        vxs = [pc[:, 2 * i:2 * i + 1] for i in range(V)]
-        vys = [pc[:, 2 * i + 1:2 * i + 2] for i in range(V)]
-        pvalid = pc[:, 2 * V:2 * V + 1] > 0.5
+    for m in range(inp.poly.shape[1]):
+        pc = inp.poly[:, m]                                  # [F, T, 2V + 1]
+        vxs = [step_col(pc, 2 * i) for i in range(V)]
+        vys = [step_col(pc, 2 * i + 1) for i in range(V)]
+        pvalid = step_col(pc, 2 * V) > 0.5
         pm_min = pm_max = pn_min = pn_max = None
         for i in range(V):
             rx = vxs[i] - ecx
@@ -562,11 +722,31 @@ def _score_plain(inp: ScorerInputs):
             reason)
 
 
+def _score_plain(inp: ScorerInputs):
+    """The plain version for one problem: rows [K]."""
+    return tuple(x[0] for x in _score_plain_fleet(_as_fleet(inp)))
+
+
+def score_prepared_reference(inp):
+    """Plain PyTorch version of the kernel on prepared operands
+    (``ScorerInputs`` or ``FleetScorerInputs``), on whatever device they
+    are."""
+    if isinstance(inp, FleetScorerInputs):
+        return _score_plain_fleet(inp)
+    return _score_plain(inp)
+
+
 def score_candidates_reference(*args, **kwargs):
     """Plain PyTorch version of the scoring kernel (same arguments and
     outputs as :func:`score_candidates`), on whatever device the inputs
     are."""
     return _score_plain(prepare_inputs(*args, **kwargs))
+
+
+def score_fleet_reference(*args, **kwargs):
+    """Plain PyTorch version of the fleet kernel (same arguments and outputs
+    as :func:`score_fleet`), on whatever device the inputs are."""
+    return _score_plain_fleet(prepare_fleet_inputs(*args, **kwargs))
 
 
 # ---------------------------------------------------------------------------
@@ -625,22 +805,27 @@ def _library() -> ctypes.CDLL:
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build_library()))
-            fn = lib.crp_score_candidates
             p, i = ctypes.c_void_p, ctypes.c_int
-            fn.argtypes = [p, p, p, p, p, i, p, i, p, i, i, p, i, i, i,
-                           p, p, p, p]
-            fn.restype = ctypes.c_int
+            lib.crp_score_candidates.argtypes = [
+                p, p, p, p, p, i, p, i, p, i, i, p, i, i, i, p, p, p, p]
+            lib.crp_score_fleet.argtypes = [
+                p, p, p, p, p, i, p, i, p, i, i, p, i, i, i, i, p, p, p, p]
+            lib.crp_score_candidates.restype = ctypes.c_int
+            lib.crp_score_fleet.restype = ctypes.c_int
             _lib = lib
     return _lib
 
 
-def _launch(inp: ScorerInputs):
-    for name in ("coeffs_lon", "coeffs_lat", "traj_len", "goal_valid",
-                 "table", "obs", "poly", "scalars"):
+def _check_kernel_operands(inp, who):
+    for name in inp._fields[:8]:            # the tensors, table(s) included
         t = getattr(inp, name)
         if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"score_candidates: kernel operand {name} must "
-                             "be contiguous float32")
+            raise ValueError(f"{who}: kernel operand {name} must be "
+                             "contiguous float32")
+
+
+def _launch(inp: ScorerInputs):
+    _check_kernel_operands(inp, "score_candidates")
     K = inp.coeffs_lon.shape[0]
     out = torch.empty((3, K), dtype=torch.float32,
                       device=inp.coeffs_lon.device)
@@ -658,6 +843,42 @@ def _launch(inp: ScorerInputs):
         raise RuntimeError(f"scoring kernel launch failed: CUDA error {rc}")
     score_candidates.launches += 1
     return out[0], out[1], out[2]
+
+
+def _launch_fleet(inp: FleetScorerInputs):
+    _check_kernel_operands(inp, "score_fleet")
+    F, K = inp.coeffs_lon.shape[:2]
+    out = torch.empty((3, F, K), dtype=torch.float32,
+                      device=inp.coeffs_lon.device)
+    lib = _library()
+    stream = torch.cuda.current_stream(inp.coeffs_lon.device).cuda_stream
+    rc = lib.crp_score_fleet(
+        inp.coeffs_lon.data_ptr(), inp.coeffs_lat.data_ptr(),
+        inp.traj_len.data_ptr(), inp.goal_valid.data_ptr(),
+        inp.tables.data_ptr(), inp.tables.shape[1],
+        inp.obs.data_ptr(), inp.obs.shape[1],
+        inp.poly.data_ptr(), inp.poly.shape[1], inp.n_poly_verts,
+        inp.scalars.data_ptr(), F, K, inp.n_steps + 1, inp.flags,
+        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"fleet scoring kernel launch failed: CUDA "
+                           f"error {rc}")
+    score_fleet.launches += 1
+    return out[0], out[1], out[2]
+
+
+def score_prepared(inp):
+    """Score prepared operands: ``ScorerInputs`` (rows [K]) or
+    ``FleetScorerInputs`` (rows [F, K]).  CUDA operands launch the kernel
+    and raise if it cannot be built or launched; CPU operands run the plain
+    version."""
+    device = inp.coeffs_lon.device
+    fleet = isinstance(inp, FleetScorerInputs)
+    if device.type == "cpu":
+        return _score_plain_fleet(inp) if fleet else _score_plain(inp)
+    if device.type != "cuda":
+        raise ValueError(f"scorer: unsupported device {device}")
+    return _launch_fleet(inp) if fleet else _launch(inp)
 
 
 def score_candidates(coeffs_lon, coeffs_lat, traj_len, goal_valid,
@@ -682,17 +903,40 @@ def score_candidates(coeffs_lon, coeffs_lat, traj_len, goal_valid,
     launches) and raise if it cannot be built or launched; CPU inputs run
     :func:`score_candidates_reference`.
     """
-    inp = prepare_inputs(coeffs_lon, coeffs_lat, traj_len, goal_valid,
-                         packed_table, obstacles, veh, x0_orientation, dt,
-                         low_vel, desired_speed, desired_d, w_a, ref_s_last,
-                         desired_s, n_steps=n_steps, check_flags=check_flags,
-                         has_desired_v=has_desired_v)
-    device = inp.coeffs_lon.device
-    if device.type == "cpu":
-        return _score_plain(inp)
-    if device.type != "cuda":
-        raise ValueError(f"score_candidates: unsupported device {device}")
-    return _launch(inp)
+    return score_prepared(prepare_inputs(
+        coeffs_lon, coeffs_lat, traj_len, goal_valid, packed_table,
+        obstacles, veh, x0_orientation, dt, low_vel, desired_speed,
+        desired_d, w_a, ref_s_last, desired_s, n_steps=n_steps,
+        check_flags=check_flags, has_desired_v=has_desired_v))
+
+
+def score_fleet(coeffs_lon, coeffs_lat, traj_len, goal_valid, packed_tables,
+                obs_pose, obs_half_ext, obs_valid, veh_stack, x0_orientation,
+                dt, low_vel, desired_speed, desired_d, w_a, ref_s_last,
+                desired_s=None, obs_radius=None, poly_table=None, *,
+                n_steps: int, check_flags: tuple = (True,) * 5,
+                has_desired_s: bool = False):
+    """(masked, kin, reason) rows [F, K] for F planning problems in one
+    launch; the arguments of ``pallas_cycle._score_fleet_pallas`` (its TPU
+    window operands ``span``/``pre`` have no counterpart): coefficients
+    [F, K, 6], ``traj_len``/``goal_valid`` [F, K], packed tables [F, P, 12],
+    windowed obstacles [F, M, T, ...], ``veh_stack`` [F, 8]
+    (:func:`pack_veh_stack`), per-problem scalars [F], optional
+    ``desired_s`` [F], disc radii [F, M] and polygon table
+    [F, Mp, T, 2V + 1].  The velocity cost terms are always on; there is no
+    fail-safe cost in the fleet.
+
+    CUDA inputs launch the fleet kernel (``score_fleet.launches`` counts the
+    launches) and raise if it cannot be built or launched; CPU inputs run
+    :func:`score_fleet_reference`.
+    """
+    return score_prepared(prepare_fleet_inputs(
+        coeffs_lon, coeffs_lat, traj_len, goal_valid, packed_tables,
+        obs_pose, obs_half_ext, obs_valid, veh_stack, x0_orientation, dt,
+        low_vel, desired_speed, desired_d, w_a, ref_s_last, desired_s,
+        obs_radius, poly_table, n_steps=n_steps, check_flags=check_flags,
+        has_desired_s=has_desired_s))
 
 
 score_candidates.launches = 0
+score_fleet.launches = 0

@@ -1,0 +1,668 @@
+"""Device replanning loops on the fused scorer.
+
+Counterpart of ``commonroad_rp_tpu/parallel/pallas_fleet.py``:
+
+* ``make_replanning_scan`` -- one problem, one static grid, the
+  velocity-keeping cycle (``make_pallas_replanning_scan``);
+* ``make_fleet_scan`` -- F heterogeneous problems (``parallel.fleet``), one
+  fleet-scorer launch per cycle (``make_pallas_fleet_scan``);
+* ``make_facade_replanning_scan`` -- the loop behind
+  ``ReactivePlanner.plan_scan``: every sampling level's grid, level
+  escalation, stopping mode, corridor sampling, the recorded states.
+
+Each cycle generates its candidate grids on the device around the carried
+state, scores them in one kernel launch, selects the winner by argmin, and
+re-rolls only the winner (K = 1 per problem) through ``kinematics.rollout``
+to advance the carry.  ``lax.scan`` becomes a Python loop over cycles that
+never reads the device: every per-cycle value stays a device tensor, the
+metrics are stacked on the device after the loop, and the constant operands
+(packed tables, scalar rows, obstacle tables) are built once before it.
+The obstacle window reproduces ``dynamic_slice``'s clamp: the window starts
+at the carried time step clamped to [0, T_table - T], and a step is valid
+only while the unclamped step is inside the prediction span.
+
+``scorer`` is the scoring function on prepared operands: by default
+``ops.scoring.score_prepared`` (the CUDA kernels on the card, the plain
+version on the CPU); ``ops.scoring.score_prepared_reference`` runs the plain
+version on any device, to hold the kernel's scan against it.
+
+Not ported: the lazy exact refinement of the facade scan (``segments``
+boundary, continuous collision checks), which needs the conformance checks
+(ROADMAP queue 1 item 3), and the fleet mesh (queue 1 item 10).  A CUDA graph
+over the cycle is later work (ROADMAP queue 1 item 6).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from commonroad_rp_tpu_torch.ops import cycle as cycle_ops
+from commonroad_rp_tpu_torch.ops import frenet as frenet_ops
+from commonroad_rp_tpu_torch.ops import grid as grid_ops
+from commonroad_rp_tpu_torch.ops import kinematics as kin_ops
+from commonroad_rp_tpu_torch.ops import scoring
+from commonroad_rp_tpu_torch.ops.collision import (CorridorArrays,
+                                                   ObstacleArrays)
+from commonroad_rp_tpu_torch.ops.cycle import CANDIDATE_FIELDS
+from commonroad_rp_tpu_torch.parallel.fleet import FleetCarry, FleetScene
+
+_F32 = torch.float32
+_DYNAMIC_SLOTS = (scoring._S_X0_THETA, scoring._S_LOW_VEL)
+
+
+class ReplanningCarry(NamedTuple):
+    """Carry of ``make_replanning_scan`` (``PallasCycleCarry``)."""
+
+    x0_lon: torch.Tensor          # [3]
+    x0_lat: torch.Tensor          # [3]
+    orientation: torch.Tensor     # scalar
+    velocity: torch.Tensor        # scalar
+    time_step: torch.Tensor       # scalar int32
+    alive: torch.Tensor           # scalar bool
+
+
+class FacadeScanCarry(NamedTuple):
+    """Carry of the facade replanning scan (mirror of the planner's
+    per-cycle state: curvilinear x0, pose, liveness).
+
+    ``kappa``/``px``/``py`` carry the current curvature (tan(steering)/L)
+    and Cartesian rear-axle position so the on-device standstill fallback
+    (reactive_planner.py:667-713) can emit the host's exact trajectory
+    arrays without a round-trip."""
+
+    x0_lon: torch.Tensor          # [3]
+    x0_lat: torch.Tensor          # [3]
+    orientation: torch.Tensor     # scalar
+    velocity: torch.Tensor        # scalar
+    time_step: torch.Tensor       # scalar int32
+    alive: torch.Tensor           # scalar bool
+    kappa: torch.Tensor           # scalar: current curvature tan(delta)/L
+    px: torch.Tensor              # scalar: cartesian x (rear axle)
+    py: torch.Tensor              # scalar: cartesian y (rear axle)
+
+
+def _f32_tensors(tup):
+    return type(tup)(*(torch.as_tensor(x, dtype=_F32) if x is not None
+                       else None for x in tup))
+
+
+def _device_veh(veh: kin_ops.VehicleArrays, device) -> kin_ops.VehicleArrays:
+    """Vehicle scalars as float32 device tensors (uploaded once)."""
+    return kin_ops.VehicleArrays(*(
+        torch.as_tensor(np.float32(float(x)) if not isinstance(x, torch.Tensor)
+                        else x, dtype=_F32, device=device)
+        for x in veh))
+
+
+def _with_invalid_row(table: torch.Tensor, step_dim: int) -> torch.Tensor:
+    """The table with one all-zero (invalid) step appended; window steps past
+    the prediction span read it."""
+    pad_shape = list(table.shape)
+    pad_shape[step_dim] = 1
+    return torch.cat([table, table.new_zeros(pad_shape)],
+                     dim=step_dim).contiguous()
+
+
+def window_rows(time_step: torch.Tensor, T: int, n_rows: int,
+                t_full: int) -> torch.Tensor:
+    """Table rows [..., T] that ``dynamic_slice_in_dim(table, time_step, T)``
+    reads (start clamped to [0, n_rows - T]), with every step whose unclamped
+    index ``time_step + t`` is at or past ``t_full`` sent to the appended
+    invalid row ``n_rows``."""
+    ts = time_step.to(torch.int64)[..., None]
+    ar = torch.arange(T, device=ts.device)
+    rows = torch.clamp(ts, 0, n_rows - T) + ar
+    return torch.where(ts + ar < t_full, rows, n_rows)
+
+
+def _scan_scalar_row(veh32, dt, desired_speed, desired_d, w_a, ref_s_last,
+                desired_s, table_s0) -> torch.Tensor:
+    """[17] scalar row of one problem; the per-cycle slots (heading, mode)
+    are written each cycle."""
+    row = scoring.fleet_scalar_rows(
+        scoring.pack_veh_stack(veh32)[None], 0.0, dt, 0.0, desired_speed,
+        desired_d, w_a, ref_s_last.reshape(1),
+        None if desired_s is None else desired_s, table_s0.reshape(1))
+    return row[0]
+
+
+def _obstacle_window_tables(obstacles_full: ObstacleArrays, T: int, device):
+    """(obstacle table [M, T_o + 1, 7], T_o, polygon table or None,
+    T_p, vertex count, t_full): the full-span tables with an invalid step
+    appended."""
+    M = obstacles_full.pose.shape[0]
+    t_full = obstacles_full.pose.shape[1] if M else T
+    if M:
+        obs = _with_invalid_row(scoring.obstacle_rows(
+            obstacles_full.pose.to(device), obstacles_full.half_ext.to(device),
+            obstacles_full.valid.to(device),
+            None if obstacles_full.radius is None
+            else obstacles_full.radius.to(device)), 1)
+    else:
+        obs = None
+    poly, t_poly, V = None, 0, 1
+    if obstacles_full.poly_verts is not None:
+        Mp, t_poly, V = obstacles_full.poly_verts.shape[:3]
+        poly = _with_invalid_row(torch.cat([
+            obstacles_full.poly_verts.to(device=device, dtype=_F32).reshape(
+                Mp, t_poly, 2 * V),
+            obstacles_full.poly_valid.to(device=device,
+                                         dtype=_F32)[..., None]], dim=-1), 1)
+        t_full = max(t_full, t_poly)
+    for n in (obstacles_full.pose.shape[1] if M else T, t_poly or T):
+        if n < T:
+            raise ValueError(f"obstacle tables span {n} steps, fewer than "
+                             f"the horizon's {T}")
+    return obs, (obstacles_full.pose.shape[1] if M else 0), poly, t_poly, \
+        V, t_full
+
+
+def _window(table, rows):
+    """[M, T, C] window of a [M, n_rows + 1, C] table at rows [T]."""
+    return table[:, rows]
+
+
+# ---------------------------------------------------------------------------
+# one problem, one static grid
+# ---------------------------------------------------------------------------
+
+def make_replanning_scan(ref: frenet_ops.RefPathTables,
+                         corridor: CorridorArrays,
+                         obstacles_full: ObstacleArrays,
+                         veh: kin_ops.VehicleArrays,
+                         static_grid: grid_ops.StaticGrid,
+                         dt: float, n_steps: int, replan_offset: int,
+                         low_vel_threshold: float, horizon: float,
+                         desired_speed: float, n_cycles: int,
+                         scorer=scoring.score_prepared):
+    """``run(carry: ReplanningCarry) -> (carry, metrics)`` running
+    ``n_cycles`` fused-scorer cycles of one problem; metrics (found, cost,
+    x, y), each [n_cycles]."""
+    device = ref.s.device
+    T = n_steps + 1
+    ref32 = _f32_tensors(ref)
+    packed = scoring.pack_ref_tables(ref32, _f32_tensors(corridor))
+    ref_s_last = scoring.true_path_length(ref32)
+    veh32 = _device_veh(veh, device)
+    obs_tab, t_obs, poly_tab, t_poly, V, t_full = _obstacle_window_tables(
+        obstacles_full, T, device)
+    template = _scan_scalar_row(veh32, dt, float(np.float32(desired_speed)),
+                                0.0, 5.0, ref_s_last, None, packed[0, 0])
+    slots = torch.tensor(_DYNAMIC_SLOTS, device=device)
+    flags = scoring._flags((True,) * 5, False, True)
+    goal_valid = torch.ones(static_grid.size, dtype=_F32, device=device)
+    no_obs = torch.zeros((0, T, scoring._OBS_COLS), dtype=_F32, device=device)
+    no_poly = torch.zeros((0, T, 3), dtype=_F32, device=device)
+    grid_ops.upload_constants(static_grid, device)
+    r = replan_offset
+
+    def cycle(carry: ReplanningCarry):
+        v_min = torch.clamp(carry.velocity - 0.125 * horizon * veh32.a_max,
+                            min=0.0)
+        v_max = torch.maximum(v_min + 5.0, carry.velocity + 2.0)
+        low_vel = carry.velocity < low_vel_threshold
+        cl, ca, tl = grid_ops.velocity_keeping_candidates(
+            carry.x0_lon, carry.x0_lat, v_min, v_max, low_vel, static_grid)
+        obs = no_obs if obs_tab is None else _window(
+            obs_tab, window_rows(carry.time_step, T, t_obs, t_full))
+        poly = no_poly if poly_tab is None else _window(
+            poly_tab, window_rows(carry.time_step, T, t_poly, t_full))
+        scalars = template.index_copy(0, slots, torch.stack(
+            [carry.orientation.to(_F32), low_vel.to(_F32)]))
+        costs, _, _ = scorer(scoring.ScorerInputs(
+            coeffs_lon=cl, coeffs_lat=ca, traj_len=tl.to(_F32),
+            goal_valid=goal_valid, table=packed, obs=obs, poly=poly,
+            scalars=scalars, n_steps=n_steps, n_poly_verts=V, flags=flags))
+        best = torch.argmin(costs).reshape(1)
+        best_cost = torch.gather(costs, 0, best)[0]
+        found = torch.isfinite(best_cost)
+
+        pick = lambda x: torch.index_select(x, 0, best)
+        ro = kin_ops.rollout(pick(cl), pick(ca), pick(tl), ref32, veh32,
+                             carry.orientation, dt, n_steps, low_vel)
+        alive = carry.alive & found
+        keep = lambda new, old: torch.where(alive, new, old)
+        new_carry = ReplanningCarry(
+            x0_lon=keep(torch.stack([ro.s[0, r], ro.s_dot[0, r],
+                                     ro.s_ddot[0, r]]), carry.x0_lon),
+            x0_lat=keep(torch.stack([ro.d[0, r], ro.d_dot[0, r],
+                                     ro.d_ddot[0, r]]), carry.x0_lat),
+            orientation=keep(ro.theta_gl[0, r], carry.orientation),
+            velocity=keep(ro.v[0, r], carry.velocity),
+            time_step=torch.where(alive, carry.time_step + r,
+                                  carry.time_step),
+            alive=alive)
+        return new_carry, (found, best_cost, ro.x[0, r], ro.y[0, r])
+
+    def run(carry: ReplanningCarry):
+        return _loop(cycle, carry, n_cycles)
+
+    return run
+
+
+def _loop(cycle, carry, n_cycles):
+    """``lax.scan`` as a Python loop: metrics stacked after the loop."""
+    metrics = []
+    for _ in range(n_cycles):
+        carry, m = cycle(carry)
+        metrics.append(m)
+    return carry, tuple(torch.stack(column) for column in zip(*metrics))
+
+
+# ---------------------------------------------------------------------------
+# the fleet: F problems, one fleet-scorer launch per cycle
+# ---------------------------------------------------------------------------
+
+def make_fleet_scan(scene: FleetScene, static_grid: grid_ops.StaticGrid,
+                    dt: float, n_steps: int, replan_offset: int,
+                    low_vel_threshold: float, horizon: float,
+                    n_cycles: int, mesh=None,
+                    longitudinal_mode: str = "velocity_keeping",
+                    desired_s=None, s_window=None, w_a: float = 5.0,
+                    standstill_lookahead: int = 10,
+                    scorer=scoring.score_prepared):
+    """Fleet replanning scan on the fused fleet scorer.
+
+    Takes a :class:`parallel.fleet.FleetScene` and returns
+    ``run(carry: FleetCarry) -> (carry, metrics)``; every cycle launches one
+    fleet kernel over all F problems' K candidates, and re-rolls only the F
+    winners.  Metrics, each with a leading cycle axis, in the JAX order:
+    (alive [F], best cost [F] (+inf when dead), x [F], y [F], fleet success
+    count, fleet mean cost, kinematically infeasible [F], colliding [F],
+    orientation [F], velocity [F]).
+
+    ``longitudinal_mode='stopping'`` samples quintic stop trajectories
+    toward per-problem ``s_window`` [F, 2] absolute windows with the
+    ``desired_s`` [F] stopping cost (``w_a`` should then be 1.0 --
+    reactive_planner.py:376) and goal-behind filtering.  The standstill
+    fallback (reactive_planner.py:638-653) runs per problem on the device:
+    a blocked member at v ~ 0 freezes its pose at zero velocity and cost 0
+    and stays alive.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "make_fleet_scan(mesh=...): sharding the fleet over several "
+            "devices (torch.distributed) is ROADMAP queue 1 item 10")
+    stopping = longitudinal_mode == "stopping"
+    if longitudinal_mode not in ("velocity_keeping", "stopping"):
+        raise ValueError(f"unknown longitudinal mode {longitudinal_mode!r}")
+    if stopping and (desired_s is None or s_window is None):
+        raise ValueError("stopping mode requires desired_s and s_window")
+
+    device = scene.ref.s.device
+    T = n_steps + 1
+    F = scene.obs_pose.shape[0]
+    K = static_grid.size
+    ref32 = _f32_tensors(scene.ref)
+    packed = scoring.pack_ref_tables(
+        ref32, CorridorArrays(scene.corridor_lo.to(_F32),
+                              scene.corridor_hi.to(_F32)))
+    # FleetScene pads refs with arclength sentinels stepping by 1e6
+    # (fleet.build_fleet_scene); the true per-problem path length is the
+    # largest arclength below the sentinel band
+    s = ref32.s
+    ref_s_last = torch.max(torch.where(
+        s < s[:, :1] + 5e5, s, torch.full_like(s, -np.inf)), dim=1).values
+    veh32 = _f32_tensors(scene.veh)
+    veh_stack = scoring.pack_veh_stack(veh32)
+
+    t_obs = scene.obs_pose.shape[2]
+    obs_tab = _with_invalid_row(scoring.obstacle_rows(
+        scene.obs_pose, scene.obs_half, scene.obs_valid, scene.obs_radius), 2)
+    M = obs_tab.shape[1]
+    Mp = scene.poly_verts.shape[1]
+    V = scene.poly_verts.shape[3] if Mp else 1
+    t_poly = scene.poly_verts.shape[2]
+    poly_tab = None
+    if Mp:
+        poly_tab = _with_invalid_row(torch.cat([
+            scene.poly_verts.to(_F32).reshape(F, Mp, t_poly, 2 * V),
+            scene.poly_valid.to(_F32)[..., None]], dim=-1), 2)
+    no_poly = torch.zeros((F, 0, T, 3), dtype=_F32, device=device)
+
+    if stopping:
+        s_win = torch.as_tensor(np.asarray(s_window, np.float32),
+                                device=device)
+        desired_s_t = torch.as_tensor(np.asarray(desired_s, np.float32),
+                                      device=device)
+    template = scoring.fleet_scalar_rows(
+        veh_stack, 0.0, dt, 0.0, scene.desired_speed, 0.0,
+        float(np.float32(w_a)), ref_s_last,
+        desired_s_t if stopping else None, packed[:, 0, 0])
+    slots = torch.tensor(_DYNAMIC_SLOTS, device=device)
+    flags = scoring._flags((True,) * 5, stopping, True)
+    ones = torch.ones((F, K), dtype=_F32, device=device)
+    inf = torch.full((), np.inf, dtype=_F32, device=device)
+    grid_ops.upload_constants(static_grid, device)
+    lookahead = min(standstill_lookahead, n_steps)
+    r = replan_offset
+
+    def cycle(carry: FleetCarry):
+        v_min = torch.clamp(carry.velocity - 0.125 * horizon * veh32.a_max,
+                            min=0.0)
+        v_max = torch.maximum(v_min + 5.0, carry.velocity + 2.0)
+        low_vel = carry.velocity < low_vel_threshold
+        if stopping:
+            cl, ca, tl, gv = grid_ops.stopping_candidates(
+                carry.x0_lon, carry.x0_lat, s_win[:, 0], s_win[:, 1],
+                low_vel, static_grid)
+            gv = gv.to(_F32)
+        else:
+            cl, ca, tl = grid_ops.velocity_keeping_candidates(
+                carry.x0_lon, carry.x0_lat, v_min, v_max, low_vel,
+                static_grid)
+            gv = ones
+
+        rows = window_rows(carry.time_step, T, t_obs, t_obs)       # [F, T]
+        obs = torch.gather(obs_tab, 2, rows[:, None, :, None].expand(
+            F, M, T, scoring._OBS_COLS))
+        if poly_tab is None:
+            poly = no_poly
+        else:
+            rows_p = window_rows(carry.time_step, T, t_poly, t_poly)
+            poly = torch.gather(poly_tab, 2, rows_p[:, None, :, None].expand(
+                F, Mp, T, 2 * V + 1))
+        scalars = template.index_copy(1, slots, torch.stack(
+            [carry.orientation.to(_F32), low_vel.to(_F32)], dim=1))
+        costs, kin_costs, _ = scorer(scoring.FleetScorerInputs(
+            coeffs_lon=cl, coeffs_lat=ca, traj_len=tl.to(_F32),
+            goal_valid=gv, tables=packed, obs=obs, poly=poly,
+            scalars=scalars, n_steps=n_steps, n_poly_verts=V, flags=flags))
+
+        best = torch.argmin(costs, dim=1)                          # [F]
+        best_cost = torch.gather(costs, 1, best[:, None])[:, 0]
+        found = torch.isfinite(best_cost)
+        # per-problem rejection statistics from the kernel's two cost rows
+        # (kinematic = inf in the stats row; colliding = kinematically
+        # feasible but masked out)
+        kin_inf = torch.isinf(kin_costs)
+        n_kin_infeasible = torch.sum(kin_inf, dim=1).to(torch.int32)
+        n_colliding = torch.sum(~kin_inf & torch.isinf(costs),
+                                dim=1).to(torch.int32)
+
+        # re-roll ONLY the winners (K = 1 per problem) for the carry update
+        take = lambda a: torch.gather(a, 1, best[:, None, None].expand(
+            F, 1, 6))
+        ro = kin_ops.rollout(take(cl), take(ca),
+                             torch.gather(tl, 1, best[:, None]), ref32,
+                             veh32, carry.orientation, dt, n_steps, low_vel)
+        pick = lambda a: a[:, 0, r]
+        new_lon = torch.stack([pick(ro.s), pick(ro.s_dot), pick(ro.s_ddot)],
+                              dim=1)
+        new_lat = torch.stack([pick(ro.d), pick(ro.d_dot), pick(ro.d_ddot)],
+                              dim=1)
+
+        # on-device standstill fallback (reactive_planner.py:638-653): at
+        # v ~ 0 with nothing found (or a winner that stays slow at the
+        # lookahead step) the member plans the standstill trajectory --
+        # pose frozen, v = 0, cost 0 -- and stays alive
+        standstill = ((carry.velocity <= 0.05)
+                      & (~found | (ro.v[:, 0, lookahead] <= 0.05)))
+        sel = lambda cond, a, b: torch.where(
+            cond.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+        new_lon = sel(standstill, carry.x0_lon, new_lon)
+        new_lat = sel(standstill, carry.x0_lat, new_lat)
+        new_theta = torch.where(standstill, carry.orientation,
+                                pick(ro.theta_gl))
+        new_v = torch.where(standstill, 0.0, pick(ro.v))
+        new_x = torch.where(standstill, carry.px, pick(ro.x))
+        new_y = torch.where(standstill, carry.py, pick(ro.y))
+        best_cost = torch.where(standstill, 0.0, best_cost)
+        found = found | standstill
+
+        step_alive = carry.alive & found
+        keep = lambda new, old: sel(step_alive, new, old)
+        new_carry = FleetCarry(
+            x0_lon=keep(new_lon, carry.x0_lon),
+            x0_lat=keep(new_lat, carry.x0_lat),
+            orientation=keep(new_theta, carry.orientation),
+            velocity=keep(new_v, carry.velocity),
+            time_step=torch.where(step_alive, carry.time_step + r,
+                                  carry.time_step),
+            alive=step_alive,
+            kappa=keep(torch.where(standstill, carry.kappa,
+                                   pick(ro.kappa_gl)), carry.kappa),
+            px=keep(new_x, carry.px),
+            py=keep(new_y, carry.py))
+        # dead members (incl. pad_fleet padding) drop out of the aggregates
+        n_success = torch.sum(step_alive.to(torch.int32))
+        cost_sum = torch.sum(torch.where(step_alive, best_cost, 0.0))
+        metrics = (step_alive, torch.where(step_alive, best_cost, inf),
+                   new_x, new_y, n_success,
+                   cost_sum / torch.clamp(n_success, min=1),
+                   n_kin_infeasible, n_colliding, new_theta, new_v)
+        return new_carry, metrics
+
+    def run(carry: FleetCarry):
+        return _loop(cycle, carry, n_cycles)
+
+    return run
+
+
+# ---------------------------------------------------------------------------
+# the facade scan behind ReactivePlanner.plan_scan
+# ---------------------------------------------------------------------------
+
+def make_facade_replanning_scan(ref: frenet_ops.RefPathTables,
+                                corridor: CorridorArrays,
+                                obstacles_full: ObstacleArrays,
+                                veh: kin_ops.VehicleArrays,
+                                static_grids, dt: float, n_steps: int,
+                                replan_offset: int,
+                                low_vel_threshold: float, horizon: float,
+                                desired_speed: float,
+                                w_a: float, desired_d: float,
+                                constraint_flags: tuple, n_cycles: int,
+                                longitudinal_mode: str = "velocity_keeping",
+                                desired_s: float | None = None,
+                                s_window: tuple | None = None,
+                                standstill_lookahead: int = 10,
+                                boundary=None,
+                                continuous: bool = False,
+                                corridor_grids: tuple | None = None,
+                                scorer=scoring.score_prepared):
+    """The loop behind ``ReactivePlanner.plan_scan``: ``n_cycles`` fused
+    level-escalated planning cycles, none of which reads the device.
+
+    Each cycle regenerates every sampling level's candidate grid on the
+    device around the carried state (set_desired_velocity semantics,
+    reactive_planner.py:329-335), scores the level union in one scorer
+    launch, selects the first-found level's winner
+    (``cycle.select_across_levels``), re-rolls only the winner, and records
+    its first ``replan_offset`` states -- the reference driver's cyclic
+    replanning loop (run_planner.py:61-107).
+
+    The host's ``np.unique`` d-grid union (sampling.py:226) is reproduced by
+    masking the appended current-offset sample ``goal_valid=False`` whenever
+    it duplicates a base grid value.
+
+    Longitudinal modes (reference sampling.py:253-266): ``velocity_keeping``
+    (quartics toward a velocity window derived from the carried speed each
+    cycle) and ``stopping`` (quintics toward stop positions sampled from the
+    static ``s_window``, the ``desired_s`` cost term, goal-behind
+    candidates masked).  Corridor sampling (``corridor_grids``) is
+    velocity-keeping only.
+
+    Standstill fallback on the device (reactive_planner.py:638-653,
+    :667-713): when the carried velocity is <= 0.05 and either no candidate
+    survived or the winner's speed at ``standstill_lookahead`` is <= 0.05,
+    the cycle emits the host's exact standstill arrays (position and
+    orientation frozen, v = 0, a[1] = -v0/dt, kappa from the carried
+    steering curvature, cost 0) and the scan continues.
+
+    Returns ``run(carry, desired_speed=None) -> (carry, metrics)`` with
+    metrics = (found [C], best_cost [C], n_inf_kin [C], n_coll [C],
+    states [C, 14, replan_offset + 1] -- CANDIDATE_FIELDS rows for offsets
+    0..replan_offset of each cycle's winner).
+    """
+    if (boundary is not None and boundary.segments.shape[0] > 0) \
+            or continuous:
+        raise NotImplementedError(cycle_ops._ROADMAP_SEGMENTS)
+    device = ref.s.device
+    T = n_steps + 1
+    n_levels = len(corridor_grids) if corridor_grids is not None \
+        else len(static_grids)
+    stopping = longitudinal_mode == "stopping"
+    if stopping and (desired_s is None or s_window is None):
+        raise ValueError("stopping mode requires desired_s and s_window")
+
+    # static union layout: per-level sizes + appended-d-sample positions
+    # (corridor mode: CorridorGrid lattices replace the static grids;
+    # CorridorSampling has no appended-d union, reference sampling.py:340)
+    appended = []
+    if corridor_grids is not None:
+        if longitudinal_mode != "velocity_keeping":
+            raise ValueError("corridor sampling: velocity_keeping only "
+                             "(reference sampling.py:340-397)")
+        sizes = [cg.size for cg in corridor_grids]
+    else:
+        sizes = []
+        for g in static_grids:
+            nd1 = len(g.d_values) + 1
+            k_l = len(g.t_values) * g.n_lon * nd1
+            sizes.append(k_l)
+            appended.append(torch.as_tensor(
+                (np.arange(k_l) % nd1) == nd1 - 1, device=device))
+    level_ids = torch.as_tensor(np.concatenate(
+        [np.full(k, j, np.int32) for j, k in enumerate(sizes)]),
+        device=device)
+    for g in corridor_grids or static_grids:
+        grid_ops.upload_constants(g, device)
+    d_values = [grid_ops.constant(g.d_values, _F32, device)
+                for g in static_grids or ()]
+
+    ref32 = _f32_tensors(ref)
+    packed = scoring.pack_ref_tables(ref32, _f32_tensors(corridor))
+    ref_s_last = scoring.true_path_length(ref32)
+    veh32 = _device_veh(veh, device)
+    obs_tab, t_obs, poly_tab, t_poly, V, t_full = _obstacle_window_tables(
+        obstacles_full, T, device)
+    no_obs = torch.zeros((0, T, scoring._OBS_COLS), dtype=_F32, device=device)
+    no_poly = torch.zeros((0, T, 3), dtype=_F32, device=device)
+    f32 = lambda x: float(np.float32(x))
+    template = _scan_scalar_row(veh32, dt, f32(desired_speed),
+                                f32(desired_d), f32(w_a), ref_s_last,
+                                f32(desired_s) if stopping else None,
+                                packed[0, 0])
+    slots = torch.tensor(_DYNAMIC_SLOTS, device=device)
+    flags = scoring._flags(constraint_flags, stopping, True)
+    if stopping:
+        s_lo = torch.full((), f32(s_window[0]), dtype=_F32, device=device)
+        s_hi = torch.full((), f32(s_window[1]), dtype=_F32, device=device)
+    r = replan_offset
+    offsets = torch.arange(r + 1, device=device)
+    cv, ck_v, ck, ckd, cy = constraint_flags
+
+    def cycle(carry: FacadeScanCarry, scalars_run):
+        v_min = torch.clamp(carry.velocity - 0.125 * horizon * veh32.a_max,
+                            min=0.0)
+        v_max = torch.maximum(v_min + 5.0, carry.velocity + 2.0)
+        low_vel = carry.velocity < low_vel_threshold
+
+        cls, cas, tls, gvs = [], [], [], []
+        if corridor_grids is not None:
+            for cg in corridor_grids:
+                cl, ca, tl, gv_l = grid_ops.corridor_candidates(
+                    carry.x0_lon, carry.x0_lat, cg)
+                cls.append(cl)
+                cas.append(ca)
+                tls.append(tl)
+                gvs.append(gv_l)
+        else:
+            for g, app, d_g in zip(static_grids, appended, d_values):
+                if stopping:
+                    cl, ca, tl, gv_goal = grid_ops.stopping_candidates(
+                        carry.x0_lon, carry.x0_lat, s_lo, s_hi, low_vel, g)
+                else:
+                    cl, ca, tl = grid_ops.velocity_keeping_candidates(
+                        carry.x0_lon, carry.x0_lat, v_min, v_max, low_vel, g)
+                    gv_goal = True
+                dup = torch.any(d_g == carry.x0_lat[0])
+                gvs.append(~(app & dup) & gv_goal)
+                cls.append(cl)
+                cas.append(ca)
+                tls.append(tl)
+        cl = torch.cat(cls)
+        ca = torch.cat(cas)
+        tl = torch.cat(tls)
+        gv = torch.cat(gvs)
+
+        obs = no_obs if obs_tab is None else _window(
+            obs_tab, window_rows(carry.time_step, T, t_obs, t_full))
+        poly = no_poly if poly_tab is None else _window(
+            poly_tab, window_rows(carry.time_step, T, t_poly, t_full))
+        scalars = scalars_run.index_copy(0, slots, torch.stack(
+            [carry.orientation.to(_F32), low_vel.to(_F32)]))
+        masked, kin, _ = scorer(scoring.ScorerInputs(
+            coeffs_lon=cl, coeffs_lat=ca, traj_len=tl.to(_F32),
+            goal_valid=gv.to(_F32), table=packed, obs=obs, poly=poly,
+            scalars=scalars, n_steps=n_steps, n_poly_verts=V, flags=flags))
+
+        (found, best_idx, best_cost, _stat_level, n_inf_kin,
+         n_coll) = cycle_ops.select_across_levels(masked, kin, gv,
+                                                  level_ids, n_levels)
+
+        # re-roll ONLY the winner for the recorded states + carry update
+        pick = lambda x: torch.index_select(x, 0, best_idx.reshape(1))
+        ro = kin_ops.rollout(
+            pick(cl), pick(ca), pick(tl), ref32, veh32, carry.orientation,
+            dt, n_steps, low_vel, check_velocity=cv, check_acceleration=ck_v,
+            check_kappa=ck, check_kappa_dot=ckd, check_yaw_rate=cy)
+        states = torch.stack([getattr(ro, f)[0, :r + 1]
+                              for f in CANDIDATE_FIELDS])     # [14, r+1]
+
+        # on-device standstill fallback (reactive_planner.py:638-653):
+        # engaged at v ~ 0 when nothing was found OR the winner stays slow
+        # at the lookahead step -- replaces the winner with the host's exact
+        # standstill arrays (:667-713) at cost 0
+        lookahead_v = ro.v[0, standstill_lookahead]
+        standstill = ((carry.velocity <= 0.05)
+                      & (~found | (lookahead_v <= 0.05)))
+        fill = lambda v: v.reshape(1).expand(r + 1)
+        s0 = carry.x0_lon[0]
+        idx0 = frenet_ops.interp_index(ref32, s0[None])
+        theta_ref = frenet_ops.interpolate_angle_at(ref32, s0[None], idx0)[0]
+        zeros = torch.zeros((r + 1,), dtype=_F32, device=device)
+        ss_states = torch.stack([
+            fill(s0), fill(carry.x0_lon[1]), fill(carry.x0_lon[2]),
+            fill(carry.x0_lat[0]), fill(carry.x0_lat[1]),
+            fill(carry.x0_lat[2]),
+            fill(carry.orientation - theta_ref),          # theta_cl
+            fill(carry.px), fill(carry.py),
+            fill(carry.orientation),
+            zeros,                                        # v = 0
+            torch.where(offsets == 1, -carry.velocity / dt, zeros),
+            fill(carry.kappa),
+            zeros])                                       # kappa_dot = 0
+        states = torch.where(standstill, ss_states, states)
+        best_cost = torch.where(standstill, 0.0, best_cost)
+        found = found | standstill
+
+        step_alive = carry.alive & found
+        keep = lambda new, old: torch.where(step_alive, new, old)
+        new_carry = FacadeScanCarry(
+            x0_lon=keep(states[0:3, r], carry.x0_lon),
+            x0_lat=keep(states[3:6, r], carry.x0_lat),
+            orientation=keep(states[9, r], carry.orientation),
+            velocity=keep(states[10, r], carry.velocity),
+            time_step=torch.where(step_alive, carry.time_step + r,
+                                  carry.time_step),
+            alive=step_alive,
+            kappa=keep(states[12, r], carry.kappa),
+            px=keep(states[7, r], carry.px),
+            py=keep(states[8, r], carry.py))
+        return new_carry, (step_alive, best_cost, n_inf_kin, n_coll, states)
+
+    def run(carry: FacadeScanCarry, desired_speed_val: float | None = None):
+        scalars_run = template
+        if desired_speed_val is not None:
+            # the desired speed varies per run (velocity-tracking missions)
+            # without rebuilding the scan: a fill, not a host copy
+            scalars_run = template.clone()
+            scalars_run[scoring._S_DESIRED_V].fill_(f32(desired_speed_val))
+        return _loop(lambda c: cycle(c, scalars_run), carry, n_cycles)
+
+    return run

@@ -1,4 +1,4 @@
-"""The CUDA scoring kernel against its plain PyTorch version, on the card.
+"""The CUDA scoring kernels against their plain PyTorch versions, on the card.
 
 Marked ``gpu``: without a card every test skips.  On a machine with one,
 run (from the repository root; no JAX needed):
@@ -12,6 +12,7 @@ import torch
 import chip_smoke
 from commonroad_rp_tpu_torch.ops import cycle as cycle_ops
 from commonroad_rp_tpu_torch.ops import scoring
+from commonroad_rp_tpu_torch.run_fleet import heterogeneous_fleet, make_scan
 from commonroad_rp_tpu_torch.run_planner import (drive_to_goal, load_config,
                                                  make_planner)
 
@@ -67,3 +68,55 @@ def test_kernel_rejects_mixed_devices(cuda):
     args = (args[0],) + (args[1].cpu(),) + args[2:]
     with pytest.raises(ValueError):
         scoring.score_candidates(*args, **kwargs)
+
+
+@pytest.fixture
+def fleet12(cuda):
+    """The 12-problem fleet (4 scenarios x 3 vehicle types), level 3."""
+    scene, carry, _, _ = heterogeneous_fleet(12, 10, device=cuda)
+    return scene, carry
+
+
+def test_fleet_kernel_matches_plain_first_cycle(fleet12):
+    scene, carry = fleet12
+    inp = chip_smoke.captured_operands(
+        lambda scorer: make_scan(scene, 1, scorer=scorer)[0](carry))
+    before = scoring.score_fleet.launches
+    out_k = scoring.score_prepared(inp)
+    out_p = scoring.score_prepared_reference(inp)
+    torch.cuda.synchronize()
+    assert scoring.score_fleet.launches == before + 1
+    chip_smoke.compare(torch, "fleet F=12", out_k, out_p,
+                       chip_smoke.prepared_in_domain(torch, inp))
+
+
+def test_fleet_scan_kernel_matches_plain_without_device_reads(fleet12):
+    scene, carry = fleet12
+    run_k, _ = make_scan(scene, 5)
+    run_p, _ = make_scan(scene, 5, scorer=scoring.score_prepared_reference)
+    before = scoring.score_fleet.launches
+    final_k, metrics_k = chip_smoke.no_sync(torch, lambda: run_k(carry))
+    assert scoring.score_fleet.launches == before + 5
+    final_p, metrics_p = run_p(carry)
+    assert torch.equal(metrics_k[0], metrics_p[0])
+    torch.testing.assert_close(final_k.x0_lon, final_p.x0_lon, rtol=0,
+                               atol=chip_smoke.SCAN_ATOL)
+
+
+def test_fleet_kernel_rejects_bad_operands(fleet12):
+    scene, carry = fleet12
+    inp = chip_smoke.captured_operands(
+        lambda scorer: make_scan(scene, 1, scorer=scorer)[0](carry))
+    with pytest.raises(ValueError):
+        scoring.score_prepared(inp._replace(
+            coeffs_lon=inp.coeffs_lon.transpose(0, 1)))
+
+
+def test_plan_scan_on_card_one_launch_per_cycle(cuda):
+    planner = make_planner(load_config("ZAM_Over-1_1"), "cuda")
+    planner.set_desired_velocity(current_speed=planner.x_0.velocity)
+    planner.record_state_and_input(planner.x_0)
+    scoring.score_candidates.launches = 0
+    info = planner.plan_scan(9)
+    assert info["goal_reached"] and info["steps"] == 27
+    assert scoring.score_candidates.launches == info["cycles_run"] == 9
