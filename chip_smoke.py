@@ -9,7 +9,8 @@ Phases (any failure raises and ends the run with a non-zero exit code):
 
 1. environment: torch, CUDA, nvcc and triton versions, the card's name and
    power limit from nvidia-smi;
-2. build: ``commonroad_rp_tpu_torch/csrc/scoring.cu`` with nvcc for sm_90a;
+2. build: ``commonroad_rp_tpu_torch/csrc/scoring.cu`` and ``collision.cu``
+   with nvcc for sm_90a, one nvcc per source, started together;
 3. kernel against its plain PyTorch version on the card: ZAM_Over-1_1's
    first planning cycle (the main path's shape), then a synthetic scene with
    OBB, disc and polygon obstacles at T=21 and T=61;
@@ -36,7 +37,21 @@ Phases (any failure raises and ends the run with a non-zero exit code):
    150 cycles at replanning frequency 1): one fleet-kernel launch per
    cycle, no device read between cycles, per-scenario goal counts beside
    the JAX package's, the fleet kernel's and the plain version's times,
-   candidate-evals/s of the warm scan and the device's busy share.
+   candidate-evals/s of the warm scan and the device's busy share;
+9. the OBB collision kernel (``csrc/collision.cu``) against its plain
+   version in float32 and float64: synthetic scenes (K=3414, T=21 and 61,
+   M=16 with disc rows and padded invalid rows) and every sampling level of
+   the four scenarios' first cycles on the conformance path; 0 differing
+   candidates, except where a candidate's tightest SAT margin is below
+   1e-5 m (float32) or 1e-12 m (float64); kernel and plain times;
+10. the conformance level program (``kernel_dtype: float64``) on the card:
+   the four first-cycle goldens of tests/test_precision_and_golden.py, the
+   four drives to their goals in 27/35/44/146 steps with one collision
+   kernel launch per level evaluation that has obstacles, ``plan()``
+   p50/p90 (and with the plain obstacle pass in the kernel's place), and
+   the four scenarios through ``segments`` and continuous ``plan_scan`` to
+   their goals, with no device read between cycles and the largest
+   per-cycle re-selection count of the scan's exact refinement.
 
 The card's name and power limit, then a JSON object of per-kernel results,
 come on the two lines before the last; the last line is ``{"ok": true,
@@ -72,6 +87,45 @@ JAX_FLEET1024 = {"ZAM_Over-1_1": "258/258", "DEU_Test-1_1_T-1": "256/256",
                  "ZAM-Ramp-1_1-T-1": "255/255"}
 PLAIN_REPS, KERNEL_REPS = 20, 200
 SCAN_ATOL, SCAN61_ATOL = 2e-3, 5e-3
+# the collision kernel may disagree with its plain version only on a
+# candidate whose tightest SAT margin is below this (metres)
+MARGIN_TOL = {"float32": 1e-5, "float64": 1e-12}
+TIMED_COLLISION_CASES = ("synthetic", "ZAM_Over-1_1 level",
+                         "ZAM_Tjunction-1_42_T-1 level")
+# steps to the goal on the JAX package's float64 conformance path (ramp and
+# T-junction pinned in tests/test_planner_e2e.py, the other two recorded
+# from the JAX package on the CPU): the same as its fast path's
+CONFORMANCE_STEPS = dict(EXPECTED_STEPS)
+# first-cycle goldens of the float64 conformance path, copied from
+# tests/test_precision_and_golden.py (_GOLDEN_FIRST_CYCLE): winner cost (rtol
+# 1e-9), end state (position 1e-7, velocity and orientation 1e-9),
+# (kinematic, colliding) rejection counters and the reason histogram
+GOLDEN_FIRST_CYCLE = {
+    "ZAM_Over-1_1": dict(
+        cost=3733.4777003862982,
+        end_position=(67.81315751831903, 4.149639636126384),
+        end_velocity=19.508531368656065,
+        end_orientation=0.08752291224665676, counters=(45, 44),
+        reasons={"acceleration": 2, "kappa_dot": 43}),
+    "DEU_Test-1_1_T-1": dict(
+        cost=79.28082121119598,
+        end_position=(57.224441656399875, 2.0000000000000067),
+        end_velocity=11.606224999999998,
+        end_orientation=3.297691703707007e-16, counters=(76, 0),
+        reasons={"acceleration": 18, "kappa_dot": 52, "yaw_rate": 6}),
+    "ZAM-Ramp-1_1-T-1": dict(
+        cost=305733.87850203505,
+        end_position=(6.327282906400004, 1.7499999999999991),
+        end_velocity=5.000000000000005,
+        end_orientation=6.86410096761853e-17, counters=(68, 0),
+        reasons={"acceleration": 12, "kappa": 12, "kappa_dot": 44}),
+    "ZAM_Tjunction-1_42_T-1": dict(
+        cost=43.12236764498027,
+        end_position=(-0.6221825578422608, 0.021638369718770756),
+        end_velocity=5.240995600000005,
+        end_orientation=-0.03976196117155634, counters=(63, 0),
+        reasons={"kappa_dot": 63}),
+}
 
 
 def log(msg):
@@ -122,6 +176,26 @@ def cuda_time_ms(torch, fn, reps):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def build_all():
+    """Build every kernel library of the port in parallel (one nvcc per
+    source), then print each build's ptxas lines."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from commonroad_rp_tpu_torch.ops import collision_kernel, cuda_build
+    from commonroad_rp_tpu_torch.ops import scoring
+
+    t0 = time.time()
+    sources = (scoring.KERNEL_SOURCE, collision_kernel.KERNEL_SOURCE)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        paths = list(pool.map(cuda_build.build, sources))
+    for source, path in zip(sources, paths):
+        log(f"build: {path.relative_to(HERE)} (from {source.name})")
+        for line in (cuda_build.build_log(source) or "").splitlines():
+            if "ptxas" in line or "error" in line.lower():
+                log("  " + line.strip())
+    log(f"build: {len(sources)} libraries in {time.time() - t0:.1f} s")
 
 
 def in_domain(torch, args, n_steps):
@@ -343,14 +417,8 @@ def main():
     # ---- 1. environment
     smi = environment(torch)
 
-    # ---- 2. build
-    t0 = time.time()
-    lib_path = scoring.build_library()
-    log(f"build: {lib_path.relative_to(HERE)} in {time.time() - t0:.1f} s")
-    if scoring.build_log:
-        for line in scoring.build_log.splitlines():
-            if "ptxas" in line or "error" in line.lower():
-                log("  " + line.strip())
+    # ---- 2. build: both libraries at once, one nvcc each
+    build_all()
 
     # ---- 3. kernel against the plain version on the card
     config = load_config("ZAM_Over-1_1", HERE)
@@ -447,6 +515,8 @@ def main():
     fleet_k = phase_fleet_kernel(torch)
     scan = phase_plan_scan(torch)
     fleet1024 = phase_fleet1024(torch)
+    collision = phase_collision_kernel(torch)
+    conformance = phase_conformance(torch)
 
     k_ms, p_ms = timing["main"]
     log(smi)
@@ -474,7 +544,15 @@ def main():
         "launches": fleet1024["launches"],
         "max_abs_err": max(fleet_k["max_err"], fleet1024["max_err"]),
         "ms": fleet1024["ms"],
-        "plain_ms": fleet1024["plain_ms"]}]}))
+        "plain_ms": fleet1024["plain_ms"]}, {
+        "name": "obb_collision",
+        "route": "cuda",
+        "source": "commonroad_rp_tpu_torch/csrc/collision.cu",
+        "replaces": "commonroad_rp_tpu/ops/pallas_kernels.py:33",
+        "launches": conformance["launches"],
+        "max_abs_err": collision["max_err"],
+        "ms": collision["ms"],
+        "plain_ms": collision["plain_ms"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -685,6 +763,327 @@ def phase_fleet1024(torch):
         f"{device_busy_share(torch, lambda: run3(carry))}")
     return dict(launches=n_launch, max_err=max_err, ms=ms,
                 plain_ms=plain_ms)
+
+
+def collision_scene(torch, n_steps, dtype, device):
+    """Synthetic operands of the collision kernel: K smooth ego paths on a
+    two-lane road (step-major OBB centers and headings) against 10 obstacle
+    rows -- 6 boxes, static and moving, and 4 discs, two rows without
+    occupancy over part of the horizon -- padded to 16 rows with invalid
+    ones (``pad_obstacles``)."""
+    from commonroad_rp_tpu_torch.ops.collision import (ObstacleArrays,
+                                                       pad_obstacles)
+    from commonroad_rp_tpu_torch.utils.config import VehicleConfiguration
+
+    rng = np.random.default_rng(0)
+    K, T = 3414, n_steps + 1
+    t = np.arange(T)[:, None] * 0.1
+    v = rng.uniform(5.0, 20.0, K)
+    lateral = rng.uniform(-1.0, 1.0, K)
+    cx = 10.0 + v[None] * t
+    cy = rng.uniform(-4.0, 4.0, K)[None] + lateral[None] * t
+    theta = np.broadcast_to(np.arctan2(lateral, v)[None], (T, K))
+    M = 10
+    pose = np.zeros((M, T, 3))
+    pose[..., 0] = rng.uniform(20.0, 120.0, M)[:, None] \
+        + rng.uniform(0.0, 8.0, M)[:, None] * t[None, :, 0]
+    pose[..., 1] = rng.uniform(-4.0, 4.0, M)[:, None]
+    pose[..., 2] = rng.uniform(-0.4, 0.4, M)[:, None]
+    half = np.tile([[2.2, 0.9]], (M, 1))
+    radius = np.zeros(M)
+    half[6:] = 0.0
+    radius[6:] = rng.uniform(0.5, 1.5, M - 6)
+    valid = np.ones((M, T), bool)
+    valid[3, :T // 3] = False
+    valid[7, T // 2:] = False
+    dev = lambda a, dt=dtype: torch.as_tensor(np.ascontiguousarray(a),
+                                              dtype=dt, device=device)
+    obstacles = pad_obstacles(ObstacleArrays(
+        pose=dev(pose), half_ext=dev(half), valid=dev(valid, torch.bool),
+        radius=dev(radius)), 16)
+    vc = VehicleConfiguration()
+    return (dev(cx), dev(cy), dev(theta), obstacles, vc.length / 2,
+            vc.width / 2)
+
+
+def level_collision_operands(torch, name, dtype_name):
+    """The collision kernel's operands of every sampling level of a
+    scenario's first cycle on the conformance path (``fast_scoring: False``,
+    ``kernel_dtype`` ``dtype_name``), captured from ``plan(level)`` calls
+    on the card."""
+    from commonroad_rp_tpu_torch.ops import collision as collision_ops
+    from commonroad_rp_tpu_torch.ops import collision_kernel
+    from commonroad_rp_tpu_torch.run_planner import load_config, make_planner
+
+    config = load_config(name, HERE)
+    config.debug.fast_scoring = False
+    config.debug.kernel_dtype = dtype_name
+    planner = make_planner(config, device="cuda")
+    planner.set_desired_velocity(current_speed=planner.x_0.velocity)
+    captured = []
+
+    def capture(*operands):
+        captured.append(operands)
+        return collision_kernel.obb_collision_reference(*operands)
+
+    collision_ops.obb_collision = capture
+    try:
+        for level in range(1, planner.sampling_level):
+            planner.plan(current_sampling_level=level)
+    finally:
+        collision_ops.obb_collision = collision_kernel.obb_collision
+    return captured
+
+
+def sat_margins(torch, cx, cy, theta, obstacles, ehl, ehw):
+    """[K] float64: each candidate's tightest margin over its valid (step,
+    obstacle) pairs -- |min over the four axes of (projection radius sum -
+    center distance)| on box rows, |r - distance to the ego box| on disc
+    rows.  Only a verdict within that margin can flip between two
+    roundings of the same arithmetic."""
+    f = lambda x: x.to(torch.float64)
+    e_cos, e_sin = torch.cos(f(theta))[:, None], torch.sin(f(theta))[:, None]
+    pose = f(obstacles.pose)
+    dx = pose[..., 0].T[:, :, None] - f(cx)[:, None]
+    dy = pose[..., 1].T[:, :, None] - f(cy)[:, None]
+    o_cos = torch.cos(pose[..., 2]).T[:, :, None]
+    o_sin = torch.sin(pose[..., 2]).T[:, :, None]
+    ohl = f(obstacles.half_ext[:, 0])[None, :, None]
+    ohw = f(obstacles.half_ext[:, 1])[None, :, None]
+    rel_cos = torch.abs(e_cos * o_cos + e_sin * o_sin)
+    rel_sin = torch.abs(o_sin * e_cos - o_cos * e_sin)
+    lx = torch.abs(dx * e_cos + dy * e_sin)
+    ly = torch.abs(-dx * e_sin + dy * e_cos)
+    margin = torch.minimum(
+        torch.minimum(ehl + ohl * rel_cos + ohw * rel_sin - lx,
+                      ehw + ohl * rel_sin + ohw * rel_cos - ly),
+        torch.minimum(ohl + ehl * rel_cos + ehw * rel_sin
+                      - torch.abs(dx * o_cos + dy * o_sin),
+                      ohw + ehl * rel_sin + ehw * rel_cos
+                      - torch.abs(-dx * o_sin + dy * o_cos)))
+    if obstacles.radius is not None:
+        r = f(obstacles.radius)[None, :, None]
+        gap = torch.sqrt(torch.clamp(lx - ehl, min=0.0) ** 2
+                         + torch.clamp(ly - ehw, min=0.0) ** 2)
+        margin = torch.where(r > 0, r - gap, margin)
+    margin = torch.where(obstacles.valid.T[:, :, None], torch.abs(margin),
+                         torch.full_like(margin, np.inf))
+    return torch.amin(margin.reshape(-1, margin.shape[-1]), dim=0)
+
+
+def phase_collision_kernel(torch):
+    """9. The collision kernel against its plain version, float32 and
+    float64: synthetic scenes at T=21 and T=61, then every sampling level of
+    the four scenarios' first cycles; times at the level shapes of ZAM_Over
+    and ZAM_Tjunction."""
+    from commonroad_rp_tpu_torch.ops import collision_kernel as ck
+
+    counted = ck.obb_collision.launches
+    max_err = 0.0
+    cases = {}
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[-1]
+        for n_steps in (20, 60):
+            cases[f"synthetic T={n_steps + 1} {dname}"] = collision_scene(
+                torch, n_steps, dtype, "cuda")
+        for name in EXPECTED_STEPS:
+            for level, ops in enumerate(
+                    level_collision_operands(torch, name, dname), start=1):
+                cases[f"{name} level {level} {dname}"] = ops
+    timing = {}
+    for label, ops in cases.items():
+        cx, _, _, obstacles, _, _ = ops
+        (T, K), M = cx.shape, obstacles.pose.shape[0]
+        before = ck.obb_collision.launches
+        got = ck.obb_collision(*ops)
+        want = ck.obb_collision_reference(*ops)
+        torch.cuda.synchronize()
+        check(ck.obb_collision.launches == before + (M > 0),
+              f"{label}: the kernel launched "
+              f"{ck.obb_collision.launches - before} times for M={M}")
+        differ = torch.nonzero(got != want).flatten()
+        max_err = max(max_err, float(len(differ) > 0))
+        tol = MARGIN_TOL[str(cx.dtype).split(".")[-1]]
+        margins = sat_margins(torch, *ops)[differ].cpu().numpy() \
+            if len(differ) else np.zeros(0)
+        for k, m in zip(differ.cpu().numpy()[:10], margins[:10]):
+            log(f"  {label}: candidate {k} differs (kernel {bool(got[k])}, "
+                f"plain {bool(want[k])}), tightest SAT margin {m:.3e} m")
+        log(f"collision {label}: T={T} K={K} M={M} hits={int(want.sum())} "
+            f"differing candidates={len(differ)}")
+        check(bool(np.all(margins < tol)),
+              f"{label}: kernel and plain version differ on a candidate "
+              f"whose tightest SAT margin is at least {tol} m")
+        if M > 0 and label.startswith(TIMED_COLLISION_CASES):
+            k_ms = cuda_time_ms(torch, lambda: ck._launch(*ops),
+                                KERNEL_REPS)
+            p_ms = cuda_time_ms(torch,
+                                lambda: ck.obb_collision_reference(*ops),
+                                PLAIN_REPS)
+            timing[label] = (k_ms, p_ms)
+            k_dev = device_kernel_ms(torch, lambda: ck._launch(*ops),
+                                     "obb_collision_kernel")
+            p_dev = device_kernel_ms(
+                torch, lambda: ck.obb_collision_reference(*ops), "")
+            dev = lambda x: "not measured" if x is None else f"{x:.4f} ms"
+            log(f"time collision {label}: T={T} K={K} M={M} kernel "
+                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms (CUDA events); device "
+                f"time of their kernels {dev(k_dev)} and {dev(p_dev)} "
+                "(profiler)")
+    ck.obb_collision.launches = counted
+    k_ms, p_ms = timing["ZAM_Over-1_1 level 1 float64"]
+    # the masks are bool: the error is 1 where any candidate differs
+    return dict(max_err=max_err, ms=k_ms, plain_ms=p_ms)
+
+
+def phase_conformance(torch):
+    """10. The float64 conformance plan() on the card: the four goldens, the
+    four drives to their goals in the JAX package's step counts with one
+    collision-kernel launch per level evaluation that has obstacles, plan()
+    p50/p90 beside the same drives with the plain obstacle pass, and the
+    four scenarios through ``segments`` and continuous ``plan_scan`` to
+    their goals without device reads between cycles."""
+    from commonroad_rp_tpu_torch.ops import collision as collision_ops
+    from commonroad_rp_tpu_torch.ops import collision_kernel as ck
+    from commonroad_rp_tpu_torch.ops import cycle as cycle_ops
+    from commonroad_rp_tpu_torch.ops import scoring
+    from commonroad_rp_tpu_torch.parallel import replanning_scan
+    from commonroad_rp_tpu_torch.run_planner import (drive_to_goal,
+                                                     load_config,
+                                                     make_planner)
+
+    def conformance_planner(name):
+        config = load_config(name, HERE)
+        config.debug.kernel_dtype = "float64"
+        return make_planner(config, device="cuda")
+
+    for name, g in GOLDEN_FIRST_CYCLE.items():
+        planner = conformance_planner(name)
+        planner.set_desired_velocity(current_speed=planner.x_0.velocity)
+        end = planner.plan()[0].state_list[-1]
+        reasons = {k: v for k, v in planner.infeasible_reason_dict.items()
+                   if v}
+        errors = (abs(planner.optimal_cost / g["cost"] - 1.0),
+                  float(np.abs(np.asarray(end.position)
+                               - g["end_position"]).max()),
+                  abs(end.velocity - g["end_velocity"]),
+                  abs(end.orientation - g["end_orientation"]))
+        counters = (planner.infeasible_count_kinematics,
+                    planner.infeasible_count_collision)
+        log(f"golden {name}: cost rel err {errors[0]:.3e}, end position "
+            f"{errors[1]:.3e} m, velocity {errors[2]:.3e}, orientation "
+            f"{errors[3]:.3e}; rejected (kinematic, colliding) {counters}; "
+            f"reasons {reasons}")
+        check(errors[0] <= 1e-9 and errors[1] <= 1e-7 and errors[2] <= 1e-9
+              and errors[3] <= 1e-9, f"golden {name}: winner differs")
+        check(counters == g["counters"] and reasons == g["reasons"],
+              f"golden {name}: counters or reasons differ")
+
+    calls = {"levels": 0, "with_obstacles": 0}
+    evaluate_level = cycle_ops.evaluate_level
+
+    def counting(*args, **kwargs):
+        calls["levels"] += 1
+        calls["with_obstacles"] += int(args[6].pose.shape[0] > 0)
+        return evaluate_level(*args, **kwargs)
+
+    plan_ms = []
+    launches = None
+    cycle_ops.evaluate_level = counting
+    try:
+        for name, want_steps in CONFORMANCE_STEPS.items():
+            planner = conformance_planner(name)
+            calls.update(levels=0, with_obstacles=0)
+            ck.obb_collision.launches = 0
+            scoring.score_candidates.launches = 0
+            result = drive_to_goal(planner, max_steps=300)
+            torch.cuda.synchronize()
+            n_launch = ck.obb_collision.launches
+            log(f"conformance drive {name}: goal_reached="
+                f"{result['goal_reached']} steps={result['steps']} plan() "
+                f"calls={result['plan_calls']} level evaluations="
+                f"{calls['levels']} (with obstacles "
+                f"{calls['with_obstacles']}) collision-kernel launches="
+                f"{n_launch}")
+            check(result["goal_reached"] and result["steps"] == want_steps,
+                  f"conformance {name}: expected the goal in {want_steps} "
+                  f"steps, got {result['steps']}")
+            check(n_launch == calls["with_obstacles"]
+                  and scoring.score_candidates.launches == 0,
+                  f"conformance {name}: {n_launch} collision-kernel launches "
+                  f"for {calls['with_obstacles']} level evaluations with "
+                  "obstacles")
+            if name == "ZAM_Over-1_1":
+                launches = n_launch
+                check(n_launch > 0, "ZAM_Over: the collision kernel never ran")
+            plan_ms += [1e3 * t for t in result["planning_times"][1:]]
+    finally:
+        cycle_ops.evaluate_level = evaluate_level
+    q = np.percentile(plan_ms, [50, 90])
+    log(f"conformance plan() float64: p50 {q[0]:.3f} ms, p90 {q[1]:.3f} ms "
+        f"over {len(plan_ms)} calls of the four drives (first call of each "
+        "drive excluded)")
+    # the same drives with the plain obstacle pass in the kernel's place
+    plain_ms = []
+    collision_ops.obb_collision = ck.obb_collision_reference
+    try:
+        for name, want_steps in CONFORMANCE_STEPS.items():
+            result = drive_to_goal(conformance_planner(name), max_steps=300)
+            torch.cuda.synchronize()
+            check(result["steps"] == want_steps,
+                  f"conformance {name} with the plain obstacle pass: "
+                  f"{result['steps']} steps")
+            plain_ms += [1e3 * t for t in result["planning_times"][1:]]
+    finally:
+        collision_ops.obb_collision = ck.obb_collision
+    q_plain = np.percentile(plain_ms, [50, 90])
+    log(f"conformance plan() float64 with the plain obstacle pass: p50 "
+        f"{q_plain[0]:.3f} ms, p90 {q_plain[1]:.3f} ms over "
+        f"{len(plain_ms)} calls")
+
+    for key, value in (("boundary_mode", "segments"),
+                       ("continuous_collision_check", True)):
+        for name, cycles in EXPECTED_CYCLES.items():
+            config = load_config(name, HERE)
+            setattr(config.planning, key, value)
+            planner = make_planner(config, device="cuda")
+            planner.set_desired_velocity(current_speed=planner.x_0.velocity)
+            run, carry = planner.scan_program(cycles + 3)
+            no_sync(torch, lambda: run(carry, float(planner._desired_speed)))
+            planner.record_state_and_input(planner.x_0)
+            info = planner.plan_scan(cycles + 3)
+            log(f"plan_scan {key}={value} {name}: goal_reached="
+                f"{info['goal_reached']} steps={info['steps']} cycles_run="
+                f"{info['cycles_run']}, largest re-selection count in a "
+                f"cycle {max(info['reselections'])} (bound "
+                f"{replanning_scan.REFINE_WIDTH}), no device read between "
+                f"cycles")
+            check(info["goal_reached"] and info["steps"] == EXPECTED_STEPS[
+                name], f"plan_scan {key}={value} {name}: goal not reached "
+                f"in {EXPECTED_STEPS[name]} steps")
+    return dict(launches=launches, p50=q[0], p90=q[1])
+
+
+def device_kernel_ms(torch, fn, name, reps=20):
+    """Device time (ms) per call of ``fn`` spent in the kernels whose name
+    contains ``name`` (every kernel for ""): ``torch.profiler`` device
+    events over ``reps`` warm calls; None when the trace holds no such
+    event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    device_us = sum(float(evt.self_device_time_total)
+                    for evt in prof.key_averages()
+                    if evt.device_type == DeviceType.CUDA
+                    and name in evt.key)
+    return device_us / 1e3 / reps if device_us > 0 else None
 
 
 def device_busy_share(torch, fn):

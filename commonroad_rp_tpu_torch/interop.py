@@ -15,11 +15,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from commonroad_rp_tpu_torch.ops.collision import (CorridorArrays,
+from commonroad_rp_tpu_torch.ops.collision import (BoundaryArrays,
+                                                   CorridorArrays,
                                                    ObstacleArrays)
 from commonroad_rp_tpu_torch.ops.cycle import CostParams
 from commonroad_rp_tpu_torch.ops.frenet import RefPathTables
-from commonroad_rp_tpu_torch.ops.kinematics import VehicleArrays
+from commonroad_rp_tpu_torch.ops.kinematics import (RolloutResult,
+                                                    VehicleArrays)
 from commonroad_rp_tpu_torch.parallel.fleet import FleetCarry, FleetScene
 from commonroad_rp_tpu_torch.parallel.replanning_scan import (
     FacadeScanCarry, ReplanningCarry)
@@ -54,6 +56,16 @@ def corridor(cor, device="cpu", dtype=None) -> CorridorArrays:
     return _convert(cor, CorridorArrays, device, dtype)
 
 
+def boundary(bnd, device="cpu", dtype=None) -> BoundaryArrays:
+    return _convert(bnd, BoundaryArrays, device, dtype)
+
+
+def rollout(ro, device="cpu", dtype=None) -> RolloutResult:
+    """A JAX ``kinematics.RolloutResult`` ([K, T] state arrays, [K] masks)
+    as the port's."""
+    return _convert(ro, RolloutResult, device, dtype)
+
+
 def vehicle(veh) -> VehicleArrays:
     """Vehicle scalars as Python floats (the values the JAX arrays hold)."""
     return VehicleArrays(*(float(np.asarray(getattr(veh, name)))
@@ -67,11 +79,11 @@ def cost_params(params) -> CostParams:
 
 
 def candidates(coeffs_lon, coeffs_lat, traj_len, goal_valid,
-               level_ids=None, device="cpu"):
-    """Candidate arrays: float32 coefficient rows [K, 6], int32 lengths,
-    bool goal mask and (optionally) int32 level ids."""
-    out = (tensor(coeffs_lon, device, torch.float32),
-           tensor(coeffs_lat, device, torch.float32),
+               level_ids=None, device="cpu", dtype=torch.float32):
+    """Candidate arrays: coefficient rows [K, 6] in ``dtype``, int32
+    lengths, bool goal mask and (optionally) int32 level ids."""
+    out = (tensor(coeffs_lon, device, dtype),
+           tensor(coeffs_lat, device, dtype),
            tensor(np.asarray(traj_len).astype(np.int32), device),
            tensor(np.asarray(goal_valid).astype(bool), device))
     if level_ids is not None:

@@ -1,17 +1,22 @@
-"""Cost-function objects: parameter holders for the fused scorer.
+"""Cost-function objects: parameter holders for the batched cost ops.
 
 Counterpart of ``commonroad_rp_tpu/models/cost_functions.py`` (reference:
 commonroad_rp/cost_function.py:17-92).  The classes carry the target-state
 parameters that the planner mutates between cycles and a static
-``structure`` signature; the scorer (``ops.scoring``) evaluates the default
-and fail-safe formulas.  The batched cost ops of the conformance path are not
-ported yet (ROADMAP queue 1 item 3).
+``structure`` signature; the fused scorer (``ops.scoring``) and the
+conformance level program (``ops.cycle.evaluate_level`` over ``ops.cost``)
+evaluate the default and fail-safe formulas.
 """
 
 from __future__ import annotations
 
 from abc import ABC, abstractmethod
 from typing import Optional
+
+import torch
+
+from commonroad_rp_tpu_torch.ops import cost as cost_ops
+from commonroad_rp_tpu_torch.ops.kinematics import RolloutResult
 
 
 class CostFunction(ABC):
@@ -38,6 +43,12 @@ class DefaultCostFunction(CostFunction):
         self.desired_s = desired_s
         self.w_a = 5.0
 
+    def evaluate_batch(self, rollout: RolloutResult) -> torch.Tensor:
+        """[K] costs for a rollout batch."""
+        return cost_ops.default_cost(
+            rollout, w_a=self.w_a, desired_d=self.desired_d,
+            desired_speed=self.desired_speed, desired_s=self.desired_s)
+
     @property
     def structure(self):
         return ("default", self.desired_speed is not None,
@@ -46,6 +57,10 @@ class DefaultCostFunction(CostFunction):
 
 class DefaultCostFunctionFailSafe(CostFunction):
     """Fail-safe planning cost (cost_function.py:74-92)."""
+
+    def evaluate_batch(self, rollout: RolloutResult) -> torch.Tensor:
+        """[K] costs for a rollout batch."""
+        return cost_ops.fail_safe_cost(rollout)
 
     @property
     def structure(self):

@@ -1,15 +1,23 @@
-"""ReactivePlanner facade: the reference planner API over the fused scorer.
+"""ReactivePlanner facade: the reference planner API over the device cycle.
 
 Counterpart of ``commonroad_rp_tpu/models/planner.py`` (reference:
 commonroad_rp/reactive_planner.py:52-1159).  ``plan()``: the host compiles
-the scene, generates every sampling level's candidate grid, and assembles
-the output; one ``ops.cycle.evaluate_levels_fast`` call per cycle scores the
-union of the levels in one kernel launch on the planner's device, selects
-the winner with the reference's escalation semantics, and re-rolls it.
-``plan_scan(n)``: n replanning cycles on the device
+the scene, generates the sampling levels' candidate grids, and assembles
+the output.  Two scoring paths, chosen by ``debug.fast_scoring`` and
+``debug.kernel_dtype`` as the JAX planner chooses them:
+
+* the fused float32 path (the default: ``"auto"``/None resolve to it): one
+  ``ops.cycle.evaluate_levels_fast`` call per cycle scores the union of the
+  levels in one kernel launch, selects the winner with the reference's
+  escalation semantics, and re-rolls it;
+* the conformance level program (``fast_scoring: False`` or
+  ``kernel_dtype: float64``): the sequential escalation loop, one
+  ``ops.cycle.evaluate_level`` per level, in the planner's dtype.
+
+``plan_scan(n)``: n replanning cycles of the fused path on the device
 (``parallel.replanning_scan.make_facade_replanning_scan``) with one readback
-at the end.  Only the fused float32 path is ported: configurations that need
-another scoring path raise ``NotImplementedError`` naming the ROADMAP item.
+at the end.  Trajectory-set capture for plots (``draw_traj_set``) is not
+ported and raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -69,27 +77,19 @@ def resolve_device(device=None) -> torch.device:
 
 
 def check_fast_scope(config: ReactivePlannerConfiguration):
-    """Raise NotImplementedError for configurations that need a scoring path
-    the port does not have yet (resolves the 'auto'/None defaults to the
-    fused float32 path)."""
+    """Resolve the 'auto'/None defaults to the fused float32 path, check the
+    dtype and boundary mode, and raise NotImplementedError for what the port
+    does not have yet (trajectory-set capture for plots)."""
     debug = config.debug
     if debug.kernel_dtype == "auto":
         debug.kernel_dtype = "float32"
     if debug.fast_scoring is None:
         debug.fast_scoring = True
-    if not debug.fast_scoring or debug.kernel_dtype != "float32":
-        raise NotImplementedError(
-            "only the fused float32 scorer is ported (fast_scoring: True, "
-            "kernel_dtype: float32); the float64 conformance path is ROADMAP "
-            "queue 1 item 3")
+    if debug.kernel_dtype not in ("float32", "float64"):
+        raise ValueError(f"unknown kernel_dtype {debug.kernel_dtype!r}")
     if config.planning.boundary_mode not in ("corridor", "segments"):
         raise ValueError(f"unknown boundary_mode "
                          f"{config.planning.boundary_mode!r}")
-    if config.planning.boundary_mode == "segments" \
-            or config.planning.continuous_collision_check:
-        raise NotImplementedError(
-            "boundary_mode: segments and continuous_collision_check need the "
-            "lazy winner refinement, ROADMAP queue 1 item 3")
     if debug.draw_traj_set and (debug.show_plots or debug.save_plots):
         raise NotImplementedError(
             "draw_traj_set (trajectory-set capture) is ROADMAP queue 1 item 9")
@@ -131,16 +131,17 @@ class CollisionChecker:
 
 
 class ReactivePlanner:
-    """Sampling-based reactive trajectory planner on the fused scorer.
+    """Sampling-based reactive trajectory planner on the device cycle.
 
     ``device`` defaults to ``cuda`` when a card is present and ``cpu``
-    otherwise; on the CPU the scorer runs its plain PyTorch version.
+    otherwise; on the CPU the kernels run their plain PyTorch versions.
     """
 
     def __init__(self, config: ReactivePlannerConfiguration, device=None):
         self.device = resolve_device(device)
         check_fast_scope(config)
-        self._dtype = torch.float32
+        self._dtype = torch.float64 if config.debug.kernel_dtype == "float64" \
+            else torch.float32
 
         self.dt: float = config.planning.dt
         self.N: int = config.planning.time_steps_computation
@@ -395,16 +396,17 @@ class ReactivePlanner:
             self.cost_function.w_a = 1
 
     def set_cost_function(self, cost_function: CostFunction = None):
-        """Default or fail-safe cost; any other cost function needs the
-        conformance path (ROADMAP queue 1 item 5) and raises."""
+        """Default or fail-safe cost.  Any other cost structure raises
+        ValueError: the JAX package evaluates none on any path either (its
+        ``evaluate_level`` raises the same error)."""
         if cost_function:
             structure = getattr(cost_function, "structure", None)
             if not structure or structure[0] not in ("default", "fail_safe"):
-                raise NotImplementedError(
-                    f"custom cost function {type(cost_function).__name__}: "
-                    "only DefaultCostFunction and DefaultCostFunctionFailSafe "
-                    "run on the fused scorer; the conformance path for other "
-                    "cost functions is ROADMAP queue 1 item 5")
+                raise ValueError(
+                    f"unknown cost structure {structure!r} of "
+                    f"{type(cost_function).__name__}: the planner evaluates "
+                    "DefaultCostFunction and DefaultCostFunctionFailSafe "
+                    "only")
             self.cost_function = cost_function
         else:
             self.cost_function = DefaultCostFunction(
@@ -440,15 +442,23 @@ class ReactivePlanner:
             self._infeasible_reason_dict[constraint] = 0
 
     def _materialize_reason_stats(self):
-        """Deferred device->host readback of the per-constraint counters from
-        the scorer's reason row (paid only when the statistics are read)."""
+        """Deferred device->host readback of the per-constraint counters
+        (paid only when the statistics are read): from the conformance
+        program's [3, K] mask pack ("xla") or the scorer's reason row
+        ("fast")."""
         pending = self._pending_reason_stats
         if pending is None:
             return
         self._pending_reason_stats = None
-        reasons_dev, kin_dev, goal_valid = pending
-        reasons = reasons_dev.cpu().numpy()
-        feasible = np.isfinite(kin_dev.cpu().numpy())
+        if pending[0] == "xla":
+            _, masks_dev, goal_valid = pending
+            masks = masks_dev.cpu().numpy()
+            feasible = masks[0].astype(bool)
+            reasons = masks[2]
+        else:
+            _, reasons_dev, kin_dev, goal_valid = pending
+            reasons = reasons_dev.cpu().numpy()
+            feasible = np.isfinite(kin_dev.cpu().numpy())
         for code, name in kin_ops.REASON_NAMES.items():
             if name in self._infeasible_reason_dict:
                 self._infeasible_reason_dict[name] += int(
@@ -503,19 +513,28 @@ class ReactivePlanner:
                     self.x_0.time_step, self.x_0.velocity)
 
         optimal_trajectory: Optional[OptimalTrajectory] = None
-        if current_sampling_level is None:
+        if current_sampling_level is None and self._kernel_ok():
             # every level scored in one kernel launch
             if self.sampling_level > 1:
                 optimal_trajectory = self._plan_all_levels_fast(
                     x_0_lon, x_0_lat, 1)
-        elif current_sampling_level < self.sampling_level:
-            with self.stage_timers.stage("grid_generation"):
-                batch = self._create_trajectory_bundle(
-                    x_0_lon, x_0_lat, current_sampling_level)
-            logger.info("Sampling level %d/%d: %d candidates",
-                        current_sampling_level + 1, self.sampling_level,
-                        batch.size)
-            optimal_trajectory = self._get_optimal_trajectory_fast(batch)
+        else:
+            # sequential escalation (reactive_planner.py:616-636)
+            i = 1 if current_sampling_level is None \
+                else current_sampling_level
+            while optimal_trajectory is None and i < self.sampling_level:
+                with self.stage_timers.stage("grid_generation"):
+                    batch = self._create_trajectory_bundle(x_0_lon, x_0_lat,
+                                                           i)
+                logger.info("Sampling level %d/%d: %d candidates", i + 1,
+                            self.sampling_level, batch.size)
+                optimal_trajectory = self._get_optimal_trajectory(batch)
+                logger.info("Rejected %d kinematically infeasible, %d "
+                            "colliding", self._infeasible_count_kinematics,
+                            self._infeasible_count_collision)
+                if current_sampling_level is not None:
+                    break
+                i += 1
 
         # standstill fallback (reactive_planner.py:638-653)
         if ((optimal_trajectory is None or
@@ -544,16 +563,37 @@ class ReactivePlanner:
                             batch.lon_x0_pos < batch.lon_xd_pos)
         return np.ones(batch.size, dtype=bool)
 
+    def _scalar(self, x) -> float:
+        """A host scalar in the planner's dtype (float32 values rounded)."""
+        return float(x) if self._dtype == torch.float64 \
+            else float(np.float32(x))
+
+    def _kernel_ok(self) -> bool:
+        """The fused float32 scorer applies (fast_scoring, float32 kernels;
+        ``set_cost_function`` admits only the costs it scores); otherwise
+        the conformance level program runs.  The ``segments`` boundary and
+        the continuous pass run on the fused path as lazy winner
+        refinement."""
+        return bool(self.config.debug.fast_scoring
+                    and self._dtype == torch.float32)
+
+    def _boundary_mode(self) -> str:
+        """The road-boundary check: 'none' without boundary segments, else
+        ``planning.boundary_mode`` ('corridor' or 'segments')."""
+        if self._cc.boundary.segments.shape[0] == 0:
+            return "none"
+        return self.config.planning.boundary_mode
+
     def _scene_context(self):
-        """Per-cycle scene pack: vehicle scalars, obstacle window, corridor,
-        constraint flags and cost parameters."""
+        """Per-cycle scene pack shared by the level paths: vehicle scalars,
+        obstacle window, boundary mode + corridor, constraint flags and cost
+        parameters, all in the planner's dtype."""
         veh = self._vehicle_arrays()
         obstacles = self._cc.obstacles_for_window(
             self.x_0.time_step, self.N, self.config.planning.factor)
-        corridor = None
-        if self._cc.boundary.segments.shape[0] > 0:
-            corridor = self._cc.corridor_for(self._co)
-        corridor = self._corridor_or_unbounded(corridor)
+        boundary_mode = self._boundary_mode()
+        corridor = self._cc.corridor_for(self._co) \
+            if boundary_mode == "corridor" else None
         constraints = self.config.planning.constraints_to_check
         flags = tuple(c in constraints for c in _CONSTRAINT_ORDER)
 
@@ -561,14 +601,15 @@ class ReactivePlanner:
         # fail-safe cost = the default formula at w_a=1, desired_d=0 without
         # the velocity and stopping terms (cost_function.py:74-92)
         fail_safe = cf.structure[0] == "fail_safe"
-        f32 = lambda x: float(np.float32(x))
+        sc = self._scalar
         cost_params = cycle_ops.CostParams(
-            w_a=f32(1.0 if fail_safe else getattr(cf, "w_a", 0.0)),
-            desired_d=f32(0.0 if fail_safe
-                          else getattr(cf, "desired_d", 0.0)),
-            desired_speed=f32(getattr(cf, "desired_speed", None) or 0.0),
-            desired_s=f32(getattr(cf, "desired_s", None) or 0.0))
-        return dict(veh=veh, obstacles=obstacles, corridor=corridor,
+            w_a=sc(1.0 if fail_safe else getattr(cf, "w_a", 0.0)),
+            desired_d=sc(0.0 if fail_safe
+                         else getattr(cf, "desired_d", 0.0)),
+            desired_speed=sc(getattr(cf, "desired_speed", None) or 0.0),
+            desired_s=sc(getattr(cf, "desired_s", None) or 0.0))
+        return dict(veh=veh, obstacles=obstacles, boundary=self._cc.boundary,
+                    boundary_mode=boundary_mode, corridor=corridor,
                     flags=flags, cost_params=cost_params)
 
     def _corridor_or_unbounded(self, corridor):
@@ -598,7 +639,7 @@ class ReactivePlanner:
             level_ids=dev([np.full(b.size, j, np.int32)
                            for j, b in enumerate(batches)], torch.int32),
             ref=self._co.tables, veh=ctx["veh"], obstacles=ctx["obstacles"],
-            corridor=ctx["corridor"],
+            corridor=self._corridor_or_unbounded(ctx["corridor"]),
             x0_orientation=float(np.float32(self.x_0.orientation)),
             cost_params=ctx["cost_params"], dt=self.dt, n_steps=self.N,
             low_vel_mode=self._low_vel_mode,
@@ -614,7 +655,11 @@ class ReactivePlanner:
                                     for j, b in enumerate(batches)])
         self._reset_statistics()
         t0 = time.time()
-        result = cycle_ops.evaluate_levels_fast(**self.cycle_inputs(batches))
+        result = cycle_ops.evaluate_levels_fast(
+            **self.cycle_inputs(batches),
+            boundary=self._cc.boundary
+            if self._boundary_mode() == "segments" else None,
+            continuous=self.config.planning.continuous_collision_check)
         packed = torch.cat([result.scalars,
                             result.optimal.reshape(-1)]).cpu()
         scalars = packed[:6].numpy()
@@ -629,13 +674,20 @@ class ReactivePlanner:
                            "exact feasibility re-check (a boundary-tight "
                            "verdict flipped)")
         level_mask = level_ids == int(scalars[5])
-        self._pending_reason_stats = (result.reasons, result.kin_costs,
+        self._pending_reason_stats = ("fast", result.reasons,
+                                      result.kin_costs,
                                       goal_valid & level_mask)
         logger.info("Selected sampling level %d (%d candidates)",
                     int(scalars[5]), int(level_mask.sum()))
         logger.info("Rejected %d kinematically infeasible, %d colliding",
                     self._infeasible_count_kinematics,
                     self._infeasible_count_collision)
+        return self._finalize_level(found, scalars, optimal_packed)
+
+    def _finalize_level(self, found: bool, scalars: np.ndarray,
+                        optimal_packed: np.ndarray):
+        """Shared tail of both level paths: the winner's [14, T] pack as an
+        OptimalTrajectory, or None when nothing was found."""
         if not found:
             return None
         arrays = cycle_ops.unpack_candidate(optimal_packed)
@@ -658,10 +710,46 @@ class ReactivePlanner:
                     sum(b.size for b in batches))
         return self._evaluate(batches)
 
-    def _get_optimal_trajectory_fast(self, batch: CandidateBatch):
-        """One sampling level on the fused scorer (the ``plan(level)``
-        path)."""
-        return self._evaluate([batch])
+    def _get_optimal_trajectory(self, batch: CandidateBatch):
+        """One sampling level (replaces reactive_planner.py:1065-1136): on
+        the fused scorer when it applies, else through the conformance level
+        program ``ops.cycle.evaluate_level``."""
+        if self._kernel_ok():
+            return self._evaluate([batch])
+        self._reset_statistics()
+        dtype = self._dtype
+        goal_valid = self._goal_valid_mask(batch)
+        ctx = self._scene_context()
+        boundary_mode = ctx["boundary_mode"]
+        dev = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt,
+                                            device=self.device)
+        t0 = time.time()
+        result = cycle_ops.evaluate_level(
+            dev(batch.coeffs_lon, dtype), dev(batch.coeffs_lat, dtype),
+            dev(batch.traj_len, torch.int64), dev(goal_valid, torch.bool),
+            self._co.tables, ctx["veh"], ctx["obstacles"],
+            ctx["boundary"] if boundary_mode == "segments" else None,
+            ctx["corridor"], self._scalar(self.x_0.orientation),
+            ctx["cost_params"], dt=self.dt, n_steps=self.N,
+            low_vel_mode=self._low_vel_mode,
+            cost_structure=self.cost_function.structure,
+            constraint_flags=ctx["flags"], boundary_mode=boundary_mode,
+            continuous_check=self.config.planning.continuous_collision_check)
+        # one device->host transfer: the [4] scalar pack + [14, T] winner;
+        # the [3, K] masks are read only when the reason dict is
+        packed = torch.cat([result.scalars,
+                            result.optimal.reshape(-1)]).cpu().numpy()
+        scalars = packed[:4]
+        found = bool(np.isfinite(scalars[1]))
+        self.stage_timers.record("device_cycle", time.time() - t0)
+
+        # statistics with reference lazy-iteration semantics; goal-filtered
+        # candidates never enter the kinematic check (:1076-1077)
+        self._infeasible_count_kinematics = int(scalars[2])
+        self._infeasible_count_collision = int(scalars[3])
+        self._pending_reason_stats = ("xla", result.masks, goal_valid)
+        return self._finalize_level(found, scalars,
+                                    packed[4:].reshape(14, -1))
 
     # ------------------------------------------------------------------
     # device replanning loop (commonroad_rp_tpu models/planner.py:586-825)
@@ -683,7 +771,8 @@ class ReactivePlanner:
 
         cf = self.cost_function
         cf_structure = cf.structure
-        if cf_structure[0] != "default" or not cf_structure[1]:
+        if not self._kernel_ok() or cf_structure[0] != "default" \
+                or not cf_structure[1]:
             raise ValueError("plan_scan requires the fused-kernel scope "
                              "(debug.fast_scoring, float32 kernels, "
                              "default cost with speed target)")
@@ -736,14 +825,15 @@ class ReactivePlanner:
         constraints = self.config.planning.constraints_to_check
         flags = tuple(c in constraints for c in _CONSTRAINT_ORDER)
         lookahead = min(self._standstill_lookahead, self.N)
+        boundary_mode = self._boundary_mode()
+        continuous = self.config.planning.continuous_collision_check
         w_a = float(getattr(cf, "w_a", 5.0))
         desired_d = float(getattr(cf, "desired_d", 0.0))
         # the key holds the CoordinateSystem object itself (identity compare
         # + a strong ref); the cached value pins the corridor object
         cache_key = (n_cycles, freq, self.N, span, self._co, w_a, desired_d,
                      flags, longitudinal_mode, desired_s, s_window, lookahead,
-                     factor, self.config.planning.boundary_mode,
-                     self.config.planning.continuous_collision_check,
+                     factor, boundary_mode, continuous,
                      None if corridor_pin is None else id(corridor_pin),
                      scorer)
         cache = self.__dict__.setdefault("_plan_scan_cache", OrderedDict())
@@ -755,9 +845,8 @@ class ReactivePlanner:
             obstacles_full = collision_ops.compile_obstacles(
                 self._cc.scenario, 0, span, factor, dtype=torch.float32,
                 device=self.device)
-            corridor = None
-            if self._cc.boundary.segments.shape[0] > 0:
-                corridor = self._cc.corridor_for(self._co)
+            corridor = self._cc.corridor_for(self._co) \
+                if boundary_mode == "corridor" else None
             run = replanning_scan.make_facade_replanning_scan(
                 self._co.tables, self._corridor_or_unbounded(corridor),
                 obstacles_full, self._vehicle_arrays(), grids, self.dt,
@@ -766,7 +855,9 @@ class ReactivePlanner:
                 flags, n_cycles, longitudinal_mode=longitudinal_mode,
                 desired_s=desired_s, s_window=s_window,
                 standstill_lookahead=lookahead,
-                corridor_grids=corridor_grids,
+                boundary=self._cc.boundary if boundary_mode == "segments"
+                else None,
+                continuous=continuous, corridor_grids=corridor_grids,
                 **({} if scorer is None else dict(scorer=scorer)))
             # LRU over the last few built scans: mode-alternating missions
             # (velocity keeping <-> stopping) must not rebuild per switch
@@ -803,17 +894,22 @@ class ReactivePlanner:
         around the carried state, scores the level union in one scorer
         launch, selects the first-found level's winner (escalation
         semantics), and advances ``replanning_frequency`` steps.  Scope: the
-        fused-kernel scope (default cost with a speed target); corridor and
-        no-boundary modes, discrete collision checks, any
-        ``planning.factor``, fixed-interval and corridor sampling, and both
-        longitudinal modes (stopping mode requires
-        ``set_desired_lon_position`` first).  The ``segments`` boundary and
-        continuous collision checks raise ``NotImplementedError`` (ROADMAP
-        queue 1 item 3).  Standstill starts work, and the standstill
+        fused-kernel scope (``debug.fast_scoring``, float32 kernels, default
+        cost with a speed target; ValueError outside it); corridor,
+        ``segments`` and no-boundary modes, discrete and continuous
+        collision checks, any ``planning.factor``, fixed-interval and
+        corridor sampling, and both longitudinal modes (stopping mode
+        requires ``set_desired_lon_position`` first).  The exact
+        ``segments`` SAT and the swept continuous pass run as a bounded
+        device-side refinement of the cheapest candidates
+        (``parallel.replanning_scan``); a cycle that would need more
+        re-selections than its bound raises RuntimeError after the scan.
+        Standstill starts work, and the standstill
         fallback (reactive_planner.py:638-653, :667-713) runs on the device.
 
         Returns a dict with ``goal_reached``, ``cycles_run``, ``steps``,
-        per-cycle ``found``/``best_cost``/rejection counters; with
+        per-cycle ``found``/``best_cost``/rejection counters and
+        ``reselections`` (winners the exact refinement masked); with
         ``record=True`` the driven states are appended to
         ``record_state_list`` and the planner state advances to the final
         recorded state (like reset() in the host loop).
@@ -824,8 +920,8 @@ class ReactivePlanner:
 
         t0 = time.time()
         _, metrics = run(carry, float(self._desired_speed))
-        found, best_cost, n_inf_kin, n_coll, states = (
-            m.cpu().numpy() for m in metrics)
+        found, best_cost, n_inf_kin, n_coll, states, reselections, \
+            overflow = (m.cpu().numpy() for m in metrics)
         wall = time.time() - t0
         self.stage_timers.record("device_scan", wall)
         logger.info("plan_scan: %d cycles in %.4fs (%.2f ms/cycle)",
@@ -876,6 +972,12 @@ class ReactivePlanner:
             if goal_reached and stop_on_goal:
                 break
 
+        if overflow[:cycles_run].any():
+            raise RuntimeError(
+                "plan_scan: the exact refinement of cycle "
+                f"{int(np.argmax(overflow))} needed more than "
+                f"{replanning_scan.REFINE_WIDTH} re-selections; plan() has "
+                "no such bound")
         if record and last_state is not None:
             # advance the planner like the host loop's reset()
             self.reset(initial_state_cart=last_state,
@@ -892,17 +994,19 @@ class ReactivePlanner:
                     best_cost=best_cost[:cycles_run].tolist(),
                     n_inf_kinematics=n_inf_kin[:cycles_run].tolist(),
                     n_inf_collision=n_coll[:cycles_run].tolist(),
+                    reselections=reselections[:cycles_run].tolist(),
                     wall_time=wall)
 
     def _vehicle_arrays(self) -> kin_ops.VehicleArrays:
+        """Vehicle scalars in the planner's dtype (host floats)."""
         v = self.vehicle_params
-        f32 = lambda x: float(np.float32(x))
+        sc = self._scalar
         return kin_ops.VehicleArrays(
-            wheelbase=f32(v.wheelbase), wb_rear_axle=f32(v.wb_rear_axle),
-            a_max=f32(v.a_max), v_switch=f32(v.v_switch),
-            kappa_max=f32(np.tan(v.delta_max) / v.wheelbase),
-            v_delta_max=f32(v.v_delta_max), half_length=f32(0.5 * v.length),
-            half_width=f32(0.5 * v.width))
+            wheelbase=sc(v.wheelbase), wb_rear_axle=sc(v.wb_rear_axle),
+            a_max=sc(v.a_max), v_switch=sc(v.v_switch),
+            kappa_max=sc(np.tan(v.delta_max) / v.wheelbase),
+            v_delta_max=sc(v.v_delta_max), half_length=sc(0.5 * v.length),
+            half_width=sc(0.5 * v.width))
 
     # ------------------------------------------------------------------
     # standstill fallback (reactive_planner.py:667-713)

@@ -1,12 +1,17 @@
-"""Collision scene compilation: obstacle, road-boundary and corridor tables.
+"""Batched collision checking: OBB obstacles + road-boundary segments.
 
-Host half of ``commonroad_rp_tpu/ops/collision.py``: the scene is compiled
-once on the host (numpy float64) into dense tensors on the planner's device —
+Counterpart of ``commonroad_rp_tpu/ops/collision.py`` (reference:
+reactive_planner.py:218-256 scene construction, :1019-1063 per-pose RectOBB
++ TimeVariantCollisionObject collide() calls).  The scene is compiled once
+on the host (numpy float64) into dense tensors on the planner's device —
 obstacle pose tables [M, T, 3] with validity masks, road-boundary segments
 [B, 2, 2], and the quantized drivable d-band along the reference path.  The
-per-candidate checks run inside the fused scorer (``ops.scoring``); the
-dense device checks of the conformance path are not ported yet (ROADMAP
-queue 1 item 3).
+per-cycle checks of the conformance level program are dense separating-axis
+tests over [T x M x K] (``check_collisions``, whose box/disc obstacle pass
+is the CUDA kernel of ``ops.collision_kernel`` on the card), [T x B x K]
+segment tests, the corridor band probes (``check_corridor``) and the swept
+pass (``check_collisions_continuous``), in the tables' dtype (float32 or
+float64).  The fused scorer (``ops.scoring``) covers the float32 main path.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from commonroad_rp_tpu_torch.ops.collision_kernel import obb_collision
 from commonroad_rp_tpu_torch.utils.scenario import (Circle, Polygon, Rectangle,
                                               Scenario)
 
@@ -319,3 +325,346 @@ def compile_corridor(boundary: BoundaryArrays, ref_tables,
                           d_hi=_tensor(d_hi, dtype, device))
 
 
+def check_corridor(s: torch.Tensor, d: torch.Tensor, theta_cl: torch.Tensor,
+                   ref_s: torch.Tensor, corridor: CorridorArrays,
+                   half_length, half_width, wb_rear_axle,
+                   active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Road-boundary violation mask [K] from curvilinear rollout states
+    [K, T].
+
+    The ego OBB (centered wb_rear_axle ahead of the rear axle along the
+    heading) is conservatively boxed in the road frame: lateral half-extent
+    |half_width cos(theta_cl)| + |half_length sin(theta_cl)|, probed at the
+    front/center/rear longitudinal stations; each probe gathers the band row
+    of its reference segment.
+    """
+    from commonroad_rp_tpu_torch.ops.frenet import searchsorted_right
+
+    P = ref_s.shape[0]
+    # step-major internally (the rollout's storage)
+    s_t, d_t, theta_t = s.T, d.T, theta_cl.T
+    s_center = s_t + wb_rear_axle * torch.cos(theta_t)
+    d_center = d_t + wb_rear_axle * torch.sin(theta_t)
+    lat_ext = (half_width * torch.abs(torch.cos(theta_t)) +
+               half_length * torch.abs(torch.sin(theta_t)))
+    lon_ext = (half_length * torch.abs(torch.cos(theta_t)) +
+               half_width * torch.abs(torch.sin(theta_t)))
+
+    bands = torch.stack([corridor.d_lo, corridor.d_hi], dim=1)      # [P, 2]
+    violate = torch.zeros(s_t.shape, dtype=torch.bool, device=s.device)
+    for offset in (-1.0, 0.0, 1.0):
+        s_probe = s_center + offset * lon_ext
+        seg = torch.clamp(searchsorted_right(ref_s, s_probe) - 1, 0, P - 1)
+        rows = bands[seg]
+        lo, hi = rows[..., 0], rows[..., 1]
+        violate = violate | (d_center + lat_ext > hi) | \
+            (d_center - lat_ext < lo)
+    if active is not None:
+        violate = violate & active.T
+    return torch.any(violate, dim=0)
+
+
+def pad_obstacles(obstacles: ObstacleArrays, m_max: int) -> ObstacleArrays:
+    """Pad the box/disc obstacle axis to a fixed size (invalid rows, half
+    extents 1) for static shapes.  The polygon group passes through
+    unchanged."""
+    M, T, _ = obstacles.pose.shape
+    if M == m_max:
+        return obstacles
+    assert M < m_max, f"more obstacles ({M}) than padding target ({m_max})"
+    pad = m_max - M
+    pose, half = obstacles.pose, obstacles.half_ext
+    radius = obstacles.radius
+    if radius is not None:
+        radius = torch.cat([radius, radius.new_zeros((pad,))])
+    return ObstacleArrays(
+        pose=torch.cat([pose, pose.new_zeros((pad, T, 3))]),
+        half_ext=torch.cat([half, half.new_ones((pad, 2))]),
+        valid=torch.cat([obstacles.valid,
+                         obstacles.valid.new_zeros((pad, T))]),
+        radius=radius, poly_verts=obstacles.poly_verts,
+        poly_valid=obstacles.poly_valid)
+
+
+# ---------------------------------------------------------------------------
+# device checks
+# ---------------------------------------------------------------------------
+
+def _fill(value, like: torch.Tensor) -> torch.Tensor:
+    """A scalar (float or 0-d tensor) broadcast to ``like``'s shape, dtype
+    and device; a 0-d tensor already there is not copied (no device read
+    inside a scan)."""
+    return torch.as_tensor(value, dtype=like.dtype,
+                           device=like.device).expand(like.shape)
+
+
+def _obb_axes(theta: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Unit axes (major, minor) of an OBB with orientation theta [..., 2]."""
+    c, s = torch.cos(theta), torch.sin(theta)
+    return torch.stack([c, s], dim=-1), torch.stack([-s, c], dim=-1)
+
+
+def _project_radius(axis, major, minor, half_ext) -> torch.Tensor:
+    """Projection radius of an OBB onto a unit axis."""
+    return (half_ext[..., 0] * torch.abs(torch.sum(axis * major, dim=-1)) +
+            half_ext[..., 1] * torch.abs(torch.sum(axis * minor, dim=-1)))
+
+
+def obb_overlap(center_a, theta_a, half_a, center_b, theta_b,
+                half_b) -> torch.Tensor:
+    """Separating-axis OBB-OBB overlap test; broadcasts over leading dims.
+
+    Batched equivalent of pycrcc.RectOBB vs RectOBB collide()
+    (reactive_planner.py:1041-1042).
+    """
+    maj_a, min_a = _obb_axes(theta_a)
+    maj_b, min_b = _obb_axes(theta_b)
+    delta = center_b - center_a
+
+    overlap = None
+    for axis in (maj_a, min_a, maj_b, min_b):
+        dist = torch.abs(torch.sum(delta * axis, dim=-1))
+        r_a = _project_radius(axis, maj_a, min_a, half_a)
+        r_b = _project_radius(axis, maj_b, min_b, half_b)
+        ok = dist <= r_a + r_b
+        overlap = ok if overlap is None else overlap & ok
+    return overlap
+
+
+def disc_obb_overlap(disc_center, radius, box_center, box_theta,
+                     box_half) -> torch.Tensor:
+    """Exact disc vs OBB overlap (closest-point test); broadcasts leading
+    dims.
+
+    Batched equivalent of pycrcc.Circle vs RectOBB collide(): the disc
+    center is clamped into the box frame; overlap iff the clamped point lies
+    within the radius (no corner over-approximation).
+    """
+    major, minor = _obb_axes(box_theta)
+    delta = disc_center - box_center
+    lx = torch.abs(torch.sum(delta * major, dim=-1))
+    ly = torch.abs(torch.sum(delta * minor, dim=-1))
+    qx = torch.clamp(lx - box_half[..., 0], min=0.0)
+    qy = torch.clamp(ly - box_half[..., 1], min=0.0)
+    return qx * qx + qy * qy <= radius * radius
+
+
+def _poly_obb_overlap_tmajor(vt, pvalid_t, cx, cy, e_cos, e_sin,
+                             ehl, ehw) -> torch.Tensor:
+    """Exact convex-polygon vs ego-OBB SAT in the step-major layout.
+
+    vt: [T, Mp, V, 2] world vertices (padded V repeats the final vertex);
+    pvalid_t: [T, Mp]; cx/cy/e_cos/e_sin: [T, K] ego OBB center poses;
+    ehl/ehw: scalar half extents.  Returns the hit mask [T, Mp, K].
+
+    Axes: the 2 ego box axes + the polygon's V edge normals (exact for
+    convex-convex SAT).  Edge normals stay unnormalized: the ego projection
+    radius and the polygon interval scale identically, and zero-length
+    padded edges contribute no separating axis.
+    """
+    # ego axes: project polygon vertices into the ego frame
+    rel_x = vt[..., 0][:, :, :, None] - cx[:, None, None, :]   # [T, Mp, V, K]
+    rel_y = vt[..., 1][:, :, :, None] - cy[:, None, None, :]
+    ec = e_cos[:, None, None, :]
+    es = e_sin[:, None, None, :]
+    proj_major = rel_x * ec + rel_y * es
+    proj_minor = -rel_x * es + rel_y * ec
+    sep = (torch.amin(proj_major, dim=2) > ehl) | \
+        (torch.amax(proj_major, dim=2) < -ehl)
+    sep = sep | (torch.amin(proj_minor, dim=2) > ehw) | \
+        (torch.amax(proj_minor, dim=2) < -ehw)                 # [T, Mp, K]
+
+    # polygon edge-normal axes (candidate-independent intervals)
+    edges = torch.roll(vt, -1, dims=2) - vt                    # [T, Mp, V, 2]
+    nx = -edges[..., 1]
+    ny = edges[..., 0]
+    # the polygon's own projection interval on each normal: [T, Mp, V]
+    vert_proj = (nx[..., None] * vt[..., 0][:, :, None, :] +
+                 ny[..., None] * vt[..., 1][:, :, None, :])    # [T, Mp, V, V]
+    lo_n = torch.amin(vert_proj, dim=-1)
+    hi_n = torch.amax(vert_proj, dim=-1)
+    # ego center projection + projection radius on each normal
+    c_proj = (nx[..., None] * cx[:, None, None, :] +
+              ny[..., None] * cy[:, None, None, :])            # [T, Mp, V, K]
+    r_ego = (ehl * torch.abs(nx[..., None] * ec + ny[..., None] * es) +
+             ehw * torch.abs(-nx[..., None] * es + ny[..., None] * ec))
+    sep_n = (c_proj - r_ego > hi_n[..., None]) | \
+        (c_proj + r_ego < lo_n[..., None])
+    sep = sep | torch.any(sep_n, dim=2)
+    return ~sep & pvalid_t[:, :, None]
+
+
+def obb_segment_overlap(center, theta, half_ext, seg_a,
+                        seg_b) -> torch.Tensor:
+    """Separating-axis OBB vs line-segment overlap; broadcasts leading dims.
+
+    Axes: the two box axes plus the segment normal (exact for convex vs
+    segment).  The road-boundary check that replaces the triangle-soup
+    boundary obstacle (reactive_planner.py:246-248).
+    """
+    major, minor = _obb_axes(theta)
+    mid = 0.5 * (seg_a + seg_b)
+    half_seg = 0.5 * (seg_b - seg_a)
+    delta = mid - center
+
+    overlap = None
+    for axis in (major, minor):
+        dist = torch.abs(torch.sum(delta * axis, dim=-1))
+        r_box = _project_radius(axis, major, minor, half_ext)
+        r_seg = torch.abs(torch.sum(half_seg * axis, dim=-1))
+        ok = dist <= r_box + r_seg
+        overlap = ok if overlap is None else overlap & ok
+    seg_dir = seg_b - seg_a
+    normal = torch.stack([-seg_dir[..., 1], seg_dir[..., 0]], dim=-1)
+    norm_len = torch.linalg.vector_norm(normal, dim=-1, keepdim=True)
+    normal = normal / torch.where(norm_len > 0, norm_len,
+                                  torch.ones_like(norm_len))
+    dist = torch.abs(torch.sum(delta * normal, dim=-1))
+    r_box = _project_radius(normal, major, minor, half_ext)
+    return overlap & (dist <= r_box)
+
+
+def merge_obb_pairs(center: torch.Tensor, theta: torch.Tensor,
+                    half_ext: torch.Tensor):
+    """Enclose consecutive OBB pairs along the time axis in one OBB each.
+
+    Batched closed-form equivalent of the C++ ``trajectory_preprocess_obb_sum``
+    (reference: reactive_planner.py:241, :1053): for poses at steps t and t+1
+    build an OBB with the circular-mean orientation whose half-extents cover
+    both boxes (projected corner radii plus center-offset projections).
+
+    Shapes: center [..., T, 2], theta [..., T], half_ext broadcastable
+    [..., 2]; returns (center_m [..., T-1, 2], theta_m [..., T-1],
+    half_m [..., T-1, 2]).
+    """
+    c0, c1 = center[..., :-1, :], center[..., 1:, :]
+    t0, t1 = theta[..., :-1], theta[..., 1:]
+    theta_m = torch.atan2(torch.sin(t0) + torch.sin(t1),
+                          torch.cos(t0) + torch.cos(t1))
+    center_m = 0.5 * (c0 + c1)
+    major, minor = _obb_axes(theta_m)
+
+    hl = torch.broadcast_to(half_ext[..., None, 0], t0.shape)
+    hw = torch.broadcast_to(half_ext[..., None, 1], t0.shape)
+
+    def cover(c_i, t_i):
+        # projection radius of box i onto the merged axes + center offset
+        d_theta = t_i - theta_m
+        r_major = hl * torch.abs(torch.cos(d_theta)) + \
+            hw * torch.abs(torch.sin(d_theta))
+        r_minor = hl * torch.abs(torch.sin(d_theta)) + \
+            hw * torch.abs(torch.cos(d_theta))
+        off = c_i - center_m
+        off_major = torch.abs(torch.sum(off * major, dim=-1))
+        off_minor = torch.abs(torch.sum(off * minor, dim=-1))
+        return off_major + r_major, off_minor + r_minor
+
+    a_major, a_minor = cover(c0, t0)
+    b_major, b_minor = cover(c1, t1)
+    half_m = torch.stack([torch.maximum(a_major, b_major),
+                          torch.maximum(a_minor, b_minor)], dim=-1)
+    return center_m, theta_m, half_m
+
+
+def check_collisions_continuous(x: torch.Tensor, y: torch.Tensor,
+                                theta: torch.Tensor,
+                                obstacles: ObstacleArrays,
+                                half_length, half_width,
+                                wb_rear_axle) -> torch.Tensor:
+    """Swept (continuous) collision mask [K]: merged consecutive ego OBBs vs
+    merged consecutive obstacle OBBs (reference continuous mode,
+    reactive_planner.py:1049-1058 with obstacle preprocessing at :240-244).
+
+    Like pycrcc's ``trajectory_preprocess_obb_sum``, non-rectangle occupancy
+    pairs are enclosed in covering OBBs: discs as their bounding squares
+    (half extents = radius) before merging, polygon pieces as the
+    axis-aligned box covering both steps' vertices.
+    """
+    cx = x + wb_rear_axle * torch.cos(theta)
+    cy = y + wb_rear_axle * torch.sin(theta)
+    ego_center = torch.stack([cx, cy], dim=-1)                     # [K, T, 2]
+    K = theta.shape[0]
+    ego_half = torch.stack([_fill(half_length, theta[:, 0]),
+                            _fill(half_width, theta[:, 0])], dim=-1)
+    ego_c, ego_t, ego_h = merge_obb_pairs(ego_center, theta, ego_half)
+
+    collides = torch.zeros(K, dtype=torch.bool, device=theta.device)
+
+    if obstacles.pose.shape[0] > 0:
+        half_ext = obstacles.half_ext
+        if obstacles.radius is not None:
+            r = obstacles.radius
+            half_ext = torch.where((r > 0)[:, None],
+                                   torch.stack([r, r], dim=-1), half_ext)
+        obs_c, obs_t, obs_h = merge_obb_pairs(
+            obstacles.pose[..., :2], obstacles.pose[..., 2], half_ext)
+        pair_valid = obstacles.valid[:, :-1] & obstacles.valid[:, 1:]
+
+        # [K, T-1, M]
+        hit = obb_overlap(ego_c[:, :, None, :], ego_t[:, :, None],
+                          ego_h[:, :, None, :],
+                          obs_c.permute(1, 0, 2)[None], obs_t.T[None],
+                          obs_h.permute(1, 0, 2)[None])
+        hit = hit & pair_valid.T[None]
+        collides = collides | torch.any(hit.reshape(K, -1), dim=1)
+
+    if obstacles.poly_verts is not None:
+        vt = obstacles.poly_verts                                 # [Mp, T, V, 2]
+        pair_min = torch.amin(torch.minimum(vt[:, :-1], vt[:, 1:]), dim=2)
+        pair_max = torch.amax(torch.maximum(vt[:, :-1], vt[:, 1:]), dim=2)
+        p_center = 0.5 * (pair_min + pair_max)
+        p_half = 0.5 * (pair_max - pair_min)
+        p_theta = p_half.new_zeros(p_half.shape[:-1])
+        pair_valid = obstacles.poly_valid[:, :-1] & \
+            obstacles.poly_valid[:, 1:]
+        hit = obb_overlap(ego_c[:, :, None, :], ego_t[:, :, None],
+                          ego_h[:, :, None, :],
+                          p_center.permute(1, 0, 2)[None], p_theta.T[None],
+                          p_half.permute(1, 0, 2)[None])
+        hit = hit & pair_valid.T[None]
+        collides = collides | torch.any(hit.reshape(K, -1), dim=1)
+
+    return collides
+
+
+def check_collisions(x: torch.Tensor, y: torch.Tensor, theta: torch.Tensor,
+                     obstacles: ObstacleArrays,
+                     boundary: Optional[BoundaryArrays],
+                     half_length, half_width, wb_rear_axle) -> torch.Tensor:
+    """Collision mask [K] for ego trajectories [K, T] (rear-axle positions).
+
+    Mirrors _check_collisions pose construction (reactive_planner.py:1033-1041):
+    the ego OBB is centered at the rear-axle position shifted forward by
+    wb_rear_axle along the heading.  The box/disc obstacle pass is
+    ``ops.collision_kernel.obb_collision`` (the CUDA kernel for tensors on
+    the card, its plain version on the CPU); the polygon and road-boundary
+    passes are plain tensor code over [T, Mp|B, K].
+    """
+    # step-major: the rollout's [K, T] arrays are views of [T, K] storage
+    theta_t = theta.T.contiguous()                           # [T, K]
+    cx = (x.T + wb_rear_axle * torch.cos(theta_t)).contiguous()
+    cy = (y.T + wb_rear_axle * torch.sin(theta_t)).contiguous()
+    ehl, ehw = half_length, half_width
+
+    collides = obb_collision(cx, cy, theta_t, obstacles, ehl, ehw)
+
+    if obstacles.poly_verts is not None:
+        vt = obstacles.poly_verts.permute(1, 0, 2, 3)        # [T, Mp, V, 2]
+        hit_p = _poly_obb_overlap_tmajor(
+            vt, obstacles.poly_valid.T, cx, cy,
+            torch.cos(theta_t), torch.sin(theta_t), ehl, ehw)
+        collides = collides | torch.any(
+            hit_p.reshape(-1, hit_p.shape[-1]), dim=0)
+
+    if boundary is not None and boundary.segments.shape[0] > 0:
+        ego_center = torch.stack([cx, cy], dim=-1)           # [T, K, 2]
+        ego_half = torch.stack([_fill(ehl, cx), _fill(ehw, cx)], dim=-1)
+        seg_a = boundary.segments[None, :, None, 0, :]       # [1, B, 1, 2]
+        seg_b = boundary.segments[None, :, None, 1, :]
+        hit_b = obb_segment_overlap(ego_center[:, None], theta_t[:, None],
+                                    ego_half[:, None], seg_a, seg_b)
+        hit_b = hit_b & boundary.valid[None, :, None]        # [T, B, K]
+        collides = collides | torch.any(
+            hit_b.reshape(-1, hit_b.shape[-1]), dim=0)
+
+    return collides

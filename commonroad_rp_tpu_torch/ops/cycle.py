@@ -1,29 +1,39 @@
-"""One planning cycle on the fused scorer: score, select, re-roll the winner.
+"""The planning-cycle programs: the conformance level program and the
+fused-scorer cycle.
 
-Counterpart of the fast half of ``commonroad_rp_tpu/ops/cycle.py``.  Every
-sampling level's bundle is scored in one ``ops.scoring.score_candidates``
-launch; the winner comes from the first level with a feasible collision-free
-candidate (the reference's escalation loop, reactive_planner.py:616-636),
-the rejection counters follow the reference's lazy sorted iteration
-(:1031-1046), and the winner is re-rolled as a K=1 batch through
-``kinematics.rollout`` for its [14, T] state arrays.
+Counterpart of ``commonroad_rp_tpu/ops/cycle.py``.
+
+* ``evaluate_level`` -- the conformance level program (the JAX package's
+  default path off the TPU, in float32 or float64): the K-wide rollout
+  (``ops.kinematics``), the batched costs (``ops.cost``), the exact collision
+  checks (``ops.collision``, whose box/disc obstacle pass is the CUDA kernel
+  of ``ops.collision_kernel`` on the card), argmin selection and the packed
+  host outputs.  It replaces the reference's ``_get_optimal_trajectory``
+  stage chain (reactive_planner.py:1065-1136) with mask + argmin semantics.
+* ``evaluate_levels_fast`` -- every sampling level's bundle scored in one
+  ``ops.scoring.score_candidates`` launch; the winner comes from the first
+  level with a feasible collision-free candidate (the reference's escalation
+  loop, reactive_planner.py:616-636) and is re-rolled as a K=1 batch for its
+  [14, T] state arrays.  The exact ``segments`` boundary and the continuous
+  swept pass run as lazy per-winner refinement (a host loop).
+
+The rejection counters follow the reference's lazy sorted iteration
+(:1031-1046): ``n_coll`` counts kinematically feasible candidates that
+collide AND rank before the winner in cost order.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from commonroad_rp_tpu_torch.ops import collision as collision_ops
+from commonroad_rp_tpu_torch.ops import cost as cost_ops
 from commonroad_rp_tpu_torch.ops import frenet as frenet_ops
 from commonroad_rp_tpu_torch.ops import kinematics
 from commonroad_rp_tpu_torch.ops import scoring
-
-_ROADMAP_SEGMENTS = ("the exact 'segments' boundary and continuous collision "
-                     "checking run as lazy winner refinement, not ported yet "
-                     "(ROADMAP queue 1 item 3)")
 
 
 class CostParams(NamedTuple):
@@ -39,6 +49,112 @@ class CostParams(NamedTuple):
 CANDIDATE_FIELDS = ("s", "s_dot", "s_ddot", "d", "d_dot", "d_ddot",
                     "theta_cl", "x", "y", "theta_gl", "v", "a", "kappa_gl",
                     "kappa_dot")
+
+
+class LevelResult(NamedTuple):
+    """Output of one conformance level evaluation (everything the host
+    needs), packed into few tensors: one readback of ``scalars`` and
+    ``optimal`` per cycle, the masks and costs only when consumed."""
+
+    found: torch.Tensor           # 0-d bool: any feasible & collision-free
+    scalars: torch.Tensor         # [4]: best_idx, best_cost, n_inf_kin, n_coll
+    masks: torch.Tensor           # [3, K] int32: feasible, collides, reason
+    costs: torch.Tensor           # [K] costs (all candidates)
+    optimal: torch.Tensor         # [14, T] best candidate (CANDIDATE_FIELDS)
+    rollout: kinematics.RolloutResult     # dense [K, T] state arrays
+
+
+def evaluate_level(coeffs_lon: torch.Tensor,
+                   coeffs_lat: torch.Tensor,
+                   traj_len: torch.Tensor,
+                   goal_valid: torch.Tensor,
+                   ref: frenet_ops.RefPathTables,
+                   veh: kinematics.VehicleArrays,
+                   obstacles: collision_ops.ObstacleArrays,
+                   boundary: Optional[collision_ops.BoundaryArrays],
+                   corridor: Optional[collision_ops.CorridorArrays],
+                   x0_orientation,
+                   cost_params: CostParams,
+                   *,
+                   dt: float,
+                   n_steps: int,
+                   low_vel_mode: bool,
+                   cost_structure: tuple,
+                   constraint_flags: tuple,
+                   boundary_mode: str,
+                   continuous_check: bool = False) -> LevelResult:
+    """Evaluate one sampling level end to end on the tensors' device, in
+    the coefficients' dtype.
+
+    ``goal_valid`` [K] pre-masks candidates (filter_goals_behind semantics,
+    trajectories.py:545-550; all-true in velocity mode).
+    ``cost_structure`` is the static cost signature
+    (models.cost_functions.*.structure); ``constraint_flags`` the 5-tuple of
+    active kinematic constraints in reference order.  ``boundary_mode``
+    selects the road-boundary check: 'corridor' (d-band probes), 'segments'
+    (exact OBB-vs-segment SAT), or 'none'.
+    """
+    cv, ca, ck, ckd, cy = constraint_flags
+    rollout = kinematics.rollout(
+        coeffs_lon, coeffs_lat, traj_len, ref, veh, x0_orientation,
+        dt, n_steps, low_vel_mode,
+        check_velocity=cv, check_acceleration=ca, check_kappa=ck,
+        check_kappa_dot=ckd, check_yaw_rate=cy)
+    costs = cost_ops.structure_costs(rollout, cost_structure, cost_params)
+
+    collides = collision_ops.check_collisions(
+        rollout.x, rollout.y, rollout.theta_gl, obstacles,
+        boundary if boundary_mode == "segments" else None,
+        veh.half_length, veh.half_width, veh.wb_rear_axle)
+    if boundary_mode == "corridor":
+        collides = collides | collision_ops.check_corridor(
+            rollout.s, rollout.d, rollout.theta_cl, ref.s, corridor,
+            veh.half_length, veh.half_width, veh.wb_rear_axle)
+    if continuous_check:
+        # swept-OBB pass between consecutive steps (reactive_planner.py:1049-1058)
+        collides = collides | collision_ops.check_collisions_continuous(
+            rollout.x, rollout.y, rollout.theta_gl, obstacles,
+            veh.half_length, veh.half_width, veh.wb_rear_axle)
+
+    goal_valid = goal_valid.to(torch.bool)
+    feasible = rollout.feasible & goal_valid
+    ok = feasible & ~collides
+    inf = torch.full((), np.inf, dtype=costs.dtype, device=costs.device)
+    # non-finite costs (NaN/overflow) must not win the argmin: the
+    # reference's sorted iteration would skip past them to a finite winner
+    masked = torch.where(ok & torch.isfinite(costs), costs, inf)
+    best_cost, best_idx = torch.min(masked, dim=0)
+    found = torch.isfinite(best_cost)
+
+    # goal-filtered candidates are removed from the bundle BEFORE the
+    # kinematic check in the reference (reactive_planner.py:1076-1077), so
+    # they do not count as kinematically infeasible
+    n_inf_kin = torch.sum(goal_valid & ~rollout.feasible)
+    # lazy-iteration collision count: feasible, colliding, cheaper than the
+    # winner (strict <: the measure-zero tie class of doc/conformance.md
+    # divergence 1); with no winner the lazy loop visits every feasible one
+    n_coll = torch.where(found,
+                         torch.sum(feasible & collides & (costs < best_cost)),
+                         torch.sum(feasible & collides))
+
+    dtype = costs.dtype
+    scalars = torch.stack([best_idx.to(dtype), best_cost,
+                           n_inf_kin.to(dtype), n_coll.to(dtype)])
+    masks = torch.stack([feasible.to(torch.int32), collides.to(torch.int32),
+                         rollout.reason])
+    return LevelResult(found=found, scalars=scalars, masks=masks, costs=costs,
+                       optimal=gather_candidate(rollout, best_idx),
+                       rollout=rollout)
+
+
+def gather_candidate(rollout: kinematics.RolloutResult,
+                     idx: torch.Tensor) -> torch.Tensor:
+    """One candidate's state arrays as one packed [14, T] tensor
+    (CANDIDATE_FIELDS order); ``idx`` is a 0-d index tensor (no device
+    read)."""
+    pick = idx.reshape(1).to(torch.int64)
+    return torch.stack([torch.index_select(getattr(rollout, f), 0, pick)[0]
+                        for f in CANDIDATE_FIELDS])
 
 
 class FastLevelResult(NamedTuple):
@@ -58,6 +174,38 @@ def unpack_candidate(packed) -> dict:
     arr = packed.detach().cpu().numpy() if isinstance(packed, torch.Tensor) \
         else np.asarray(packed)
     return {name: arr[i] for i, name in enumerate(CANDIDATE_FIELDS)}
+
+
+def exact_refinement(boundary: Optional[collision_ops.BoundaryArrays],
+                     continuous: bool):
+    """The exact checks that the fused scorer does not mask densely, as
+    ``colliding(rollout, obstacles, veh) -> [K']`` bool over re-rolled
+    candidates: the ``segments`` road-boundary SAT (when ``boundary`` has
+    segments) and the continuous swept-OBB pass against ``obstacles``;
+    None when neither applies."""
+    segments = boundary is not None and boundary.segments.shape[0] > 0
+    if not (segments or continuous):
+        return None
+
+    def colliding(ro: kinematics.RolloutResult, obstacles, veh):
+        K, T = ro.x.shape
+        out = torch.zeros(K, dtype=torch.bool, device=ro.x.device)
+        if segments:
+            empty = collision_ops.ObstacleArrays(
+                pose=ro.x.new_zeros((0, T, 3)),
+                half_ext=ro.x.new_zeros((0, 2)),
+                valid=torch.zeros((0, T), dtype=torch.bool,
+                                  device=ro.x.device))
+            out = out | collision_ops.check_collisions(
+                ro.x, ro.y, ro.theta_gl, empty, boundary, veh.half_length,
+                veh.half_width, veh.wb_rear_axle)
+        if continuous:
+            out = out | collision_ops.check_collisions_continuous(
+                ro.x, ro.y, ro.theta_gl, obstacles, veh.half_length,
+                veh.half_width, veh.wb_rear_axle)
+        return out
+
+    return colliding
 
 
 def select_across_levels(masked: torch.Tensor, kin: torch.Tensor,
@@ -117,10 +265,9 @@ def scorer_arguments(coeffs_lon, coeffs_lat, traj_len, goal_valid, ref,
         # CostParams carry the weights)
         has_speed, has_s = False, False
     else:
-        raise NotImplementedError(
-            f"fused scorer: cost structure {cost_structure!r}; custom cost "
-            "functions run on the conformance path, not ported yet (ROADMAP "
-            "queue 1 item 5)")
+        # the JAX package evaluates no other cost structure on any path
+        # (its evaluate_level raises the same ValueError)
+        raise ValueError(f"unknown cost structure {cost_structure}")
     ref = frenet_ops.RefPathTables(*(t.to(f32) for t in ref))
     corridor = collision_ops.CorridorArrays(*(t.to(f32) for t in corridor))
     args = (coeffs_lon.to(f32).contiguous(), coeffs_lat.to(f32).contiguous(),
@@ -164,17 +311,33 @@ def evaluate_levels_fast(coeffs_lon: torch.Tensor,
     """All sampling levels scored in ONE kernel launch (the main path).
 
     The candidate tensors concatenate every level's batch, with
-    ``level_ids`` [K] naming each candidate's level.
+    ``level_ids`` [K] naming each candidate's level; the scene tensors are
+    float32, the scorer's dtype.
     """
-    if (boundary is not None and boundary.segments.shape[0] > 0) \
-            or continuous:
-        raise NotImplementedError(_ROADMAP_SEGMENTS)
     masked, kin, reasons = _score_union_fast(
         coeffs_lon, coeffs_lat, traj_len, goal_valid, ref, veh, obstacles,
         corridor, x0_orientation, cost_params, dt=dt, n_steps=n_steps,
         low_vel_mode=low_vel_mode, cost_structure=cost_structure,
         constraint_flags=constraint_flags)
     dtype = masked.dtype
+
+    colliding = exact_refinement(boundary, continuous)
+    if colliding is not None:
+        # lazy winner refinement (reference reactive_planner.py:1031-1062):
+        # re-roll the current winner, apply the exact checks, mask a
+        # colliding winner to +inf and re-select until one passes
+        while True:
+            found_i, bi, *_ = select_across_levels(masked, kin, goal_valid,
+                                                   level_ids, n_levels)
+            if not bool(found_i):
+                break
+            pick = lambda x: torch.index_select(x, 0, bi.reshape(1))
+            ro = kinematics.rollout(pick(coeffs_lon), pick(coeffs_lat),
+                                    pick(traj_len), ref, veh, x0_orientation,
+                                    dt, n_steps, low_vel_mode)
+            if not bool(colliding(ro, obstacles, veh)[0]):
+                break
+            masked = masked.index_fill(0, bi.reshape(1), np.inf)
 
     (found, best_idx, best_cost, stat_level,
      n_inf_kin, n_coll) = select_across_levels(masked, kin, goal_valid,

@@ -33,17 +33,13 @@ Packed reference-table columns (``pack_ref_tables``):
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
-import threading
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from commonroad_rp_tpu_torch.ops import cuda_build
 from commonroad_rp_tpu_torch.ops import frenet as frenet_ops
 from commonroad_rp_tpu_torch.ops.collision import (CorridorArrays,
                                                    ObstacleArrays)
@@ -753,67 +749,27 @@ def score_fleet_reference(*args, **kwargs):
 # the CUDA kernel: build (nvcc, plain C interface), bind (ctypes), launch
 # ---------------------------------------------------------------------------
 
-_PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
-KERNEL_SOURCE = _PKG_DIR / "csrc" / "scoring.cu"
-BUILD_DIR = _PKG_DIR.parent / "build" / "torch_kernels"
-# IEEE division and square root, no fast math, and no contraction of
-# multiply-add pairs into FMA (-fmad=false): every float32 operation rounds
-# as the plain PyTorch version's separate tensor operations do, so the two
-# agree except where cosf/sinf/tanf differ in the last bit
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-prec-div=true", "-prec-sqrt=true", "-Xptxas", "-v")
-
-_lib = None
-_lib_lock = threading.Lock()
-build_log: Optional[str] = None
-
-
-def _nvcc() -> str:
-    found = os.environ.get("NVCC") or shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the scoring kernel is built from "
-                       f"{KERNEL_SOURCE} with the CUDA toolkit's nvcc")
+KERNEL_SOURCE = cuda_build.CSRC_DIR / "scoring.cu"
 
 
 def build_library() -> pathlib.Path:
-    """Compile ``csrc/scoring.cu`` into ``build/torch_kernels`` (once per
-    source and flag set) and return the shared library's path."""
-    global build_log
-    source = KERNEL_SOURCE.read_bytes()
-    tag = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / f"libcrp_scoring_{tag[:16]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(KERNEL_SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, out)
-    return out
+    """Compile ``csrc/scoring.cu`` (once per source and flag set, see
+    ``ops.cuda_build``) and return the shared library's path."""
+    return cuda_build.build(KERNEL_SOURCE)
+
+
+def _bind(lib: ctypes.CDLL):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.crp_score_candidates.argtypes = [
+        p, p, p, p, p, i, p, i, p, i, i, p, i, i, i, p, p, p, p]
+    lib.crp_score_fleet.argtypes = [
+        p, p, p, p, p, i, p, i, p, i, i, p, i, i, i, i, p, p, p, p]
+    lib.crp_score_candidates.restype = ctypes.c_int
+    lib.crp_score_fleet.restype = ctypes.c_int
 
 
 def _library() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build_library()))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.crp_score_candidates.argtypes = [
-                p, p, p, p, p, i, p, i, p, i, i, p, i, i, i, p, p, p, p]
-            lib.crp_score_fleet.argtypes = [
-                p, p, p, p, p, i, p, i, p, i, i, p, i, i, i, i, p, p, p, p]
-            lib.crp_score_candidates.restype = ctypes.c_int
-            lib.crp_score_fleet.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+    return cuda_build.load(KERNEL_SOURCE, _bind)
 
 
 def _check_kernel_operands(inp, who):

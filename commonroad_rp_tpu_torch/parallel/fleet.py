@@ -9,8 +9,9 @@ fleet replanning loop on the fused fleet scorer is
 ``parallel.replanning_scan.make_fleet_scan``.
 
 Not ported yet: the XLA fleet path (``make_fleet_step``,
-``make_fleet_rollout``, ``_single_problem_cycle``), which scores through the
-conformance checks (ROADMAP queue 1 item 3) and shards over a mesh (item 10).
+``make_fleet_rollout``, ``_single_problem_cycle``), which runs the
+conformance checks per problem (an [F, ...] form of the collision kernel)
+and shards over a mesh (ROADMAP queue 1 items 7 and 10).
 """
 
 from __future__ import annotations

@@ -26,10 +26,13 @@ only while the unclamped step is inside the prediction span.
 version on the CPU); ``ops.scoring.score_prepared_reference`` runs the plain
 version on any device, to hold the kernel's scan against it.
 
-Not ported: the lazy exact refinement of the facade scan (``segments``
-boundary, continuous collision checks), which needs the conformance checks
-(ROADMAP queue 1 item 3), and the fleet mesh (queue 1 item 10).  A CUDA graph
-over the cycle is later work (ROADMAP queue 1 item 6).
+The facade scan's exact refinement (``segments`` boundary, continuous
+collision checks) is the JAX scan's lazy winner loop in a form that reads
+nothing from the device: the ``REFINE_WIDTH`` cheapest selectable
+candidates, in selection order, are re-rolled and checked at once, and the
+colliding ones are masked before the selection (``refine_cheapest``).  Not
+ported: the fleet mesh (ROADMAP queue 1 item 10).  A CUDA graph over the
+cycle is later work (ROADMAP queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -44,13 +47,20 @@ from commonroad_rp_tpu_torch.ops import frenet as frenet_ops
 from commonroad_rp_tpu_torch.ops import grid as grid_ops
 from commonroad_rp_tpu_torch.ops import kinematics as kin_ops
 from commonroad_rp_tpu_torch.ops import scoring
-from commonroad_rp_tpu_torch.ops.collision import (CorridorArrays,
+from commonroad_rp_tpu_torch.ops.collision import (BoundaryArrays,
+                                                   CorridorArrays,
                                                    ObstacleArrays)
 from commonroad_rp_tpu_torch.ops.cycle import CANDIDATE_FIELDS
 from commonroad_rp_tpu_torch.parallel.fleet import FleetCarry, FleetScene
 
 _F32 = torch.float32
 _DYNAMIC_SLOTS = (scoring._S_X0_THETA, scoring._S_LOW_VEL)
+# candidates checked per cycle by the facade scan's exact refinement: the
+# bundled scenarios' scans need at most 4 re-selections in a cycle (the
+# T-junction with the segments boundary, pinned by
+# tests/test_torch_refinement.py); a cycle needing more than the width
+# raises after the scan
+REFINE_WIDTH = 32
 
 
 class ReplanningCarry(NamedTuple):
@@ -163,6 +173,24 @@ def _obstacle_window_tables(obstacles_full: ObstacleArrays, T: int, device):
 def _window(table, rows):
     """[M, T, C] window of a [M, n_rows + 1, C] table at rows [T]."""
     return table[:, rows]
+
+
+def window_obstacle_arrays(obs: torch.Tensor, poly, half_ext: torch.Tensor,
+                           radius, n_poly_verts: int) -> ObstacleArrays:
+    """One cycle's obstacle window as ObstacleArrays (the continuous pass's
+    operand): ``obs`` [M, T, 7] and ``poly`` [Mp, T, 2V + 1] (or None) are
+    windows of the tables of ``_obstacle_window_tables`` at
+    ``window_rows``, whose validity column already clears the steps past
+    the prediction span (the JAX scan's ``window_valid & in_span``)."""
+    T = obs.shape[1]
+    poly_verts = poly_valid = None
+    if poly is not None:
+        V = n_poly_verts
+        poly_verts = poly[..., :2 * V].reshape(poly.shape[0], T, V, 2)
+        poly_valid = poly[..., 2 * V] > 0.5
+    return ObstacleArrays(pose=obs[..., :3], half_ext=half_ext,
+                          valid=obs[..., 5] > 0.5, radius=radius,
+                          poly_verts=poly_verts, poly_valid=poly_valid)
 
 
 # ---------------------------------------------------------------------------
@@ -446,6 +474,43 @@ def make_fleet_scan(scene: FleetScene, static_grid: grid_ops.StaticGrid,
 # the facade scan behind ReactivePlanner.plan_scan
 # ---------------------------------------------------------------------------
 
+def refine_cheapest(masked: torch.Tensor, kin: torch.Tensor,
+                    goal_valid: torch.Tensor, level_ids: torch.Tensor,
+                    n_levels: int, width: int, reroll, colliding):
+    """The lazy winner refinement without device reads (mirror of the JAX
+    facade scan's ``while_loop``, pallas_fleet.py:647-677).
+
+    The lazy loop selects a winner (``cycle.select_across_levels``),
+    re-rolls it, and masks it to +inf if the exact checks find a collision,
+    until a winner passes: it visits the selectable candidates in selection
+    order (first level with a finite cost, then cost, then index) and stops
+    at the first that passes.  Here the first ``width`` of that order are
+    re-rolled (``reroll(idx) -> RolloutResult``) and checked
+    (``colliding(rollout) -> [width]``) at once, and the colliding ones are
+    masked.  The selection over the result is the lazy loop's winner, and
+    the colliding candidates before it are the ones the loop masked, so the
+    rejection counters agree too (a colliding candidate after the winner is
+    no cheaper than it, or lies in another level).  Returns (masked,
+    reselections, overflow) as device tensors: ``reselections`` is the lazy
+    loop's count of masked winners (the colliding run at the head of the
+    order), and ``overflow`` is true when all ``width`` candidates collided
+    and more selectable ones remain, where the lazy loop would go on.
+    """
+    width = min(width, masked.shape[0])
+    inf = torch.full((), np.inf, dtype=masked.dtype, device=masked.device)
+    sel = torch.where(torch.isnan(masked), inf, masked)
+    finite = torch.isfinite(sel)
+    level_key = torch.where(finite, level_ids.to(torch.int64), n_levels)
+    order = torch.argsort(sel, stable=True)
+    order = order[torch.argsort(level_key[order], stable=True)]
+    idx = order[:width]
+    bad = colliding(reroll(idx)) & finite[idx]
+    masked = masked.index_put((idx,), torch.where(bad, inf, masked[idx]))
+    reselections = torch.sum(torch.cumprod(bad.to(torch.int32), 0))
+    overflow = (torch.sum(finite) > width) & torch.all(bad)
+    return masked, reselections, overflow
+
+
 def make_facade_replanning_scan(ref: frenet_ops.RefPathTables,
                                 corridor: CorridorArrays,
                                 obstacles_full: ObstacleArrays,
@@ -493,14 +558,18 @@ def make_facade_replanning_scan(ref: frenet_ops.RefPathTables,
     orientation frozen, v = 0, a[1] = -v0/dt, kappa from the carried
     steering curvature, cost 0) and the scan continues.
 
+    ``boundary`` (exact 'segments' road-boundary SAT) and ``continuous``
+    (swept-OBB pass, reference :1049-1058) refine the scorer's selection
+    (:func:`refine_cheapest` over the ``REFINE_WIDTH`` cheapest candidates);
+    the scorer itself masks kinematics, obstacles and the corridor bands.
+
     Returns ``run(carry, desired_speed=None) -> (carry, metrics)`` with
     metrics = (found [C], best_cost [C], n_inf_kin [C], n_coll [C],
     states [C, 14, replan_offset + 1] -- CANDIDATE_FIELDS rows for offsets
-    0..replan_offset of each cycle's winner).
+    0..replan_offset of each cycle's winner, reselections [C] -- winners the
+    refinement masked, refine_overflow [C] -- the refinement needed more
+    than ``REFINE_WIDTH`` re-selections).
     """
-    if (boundary is not None and boundary.segments.shape[0] > 0) \
-            or continuous:
-        raise NotImplementedError(cycle_ops._ROADMAP_SEGMENTS)
     device = ref.s.device
     T = n_steps + 1
     n_levels = len(corridor_grids) if corridor_grids is not None \
@@ -542,6 +611,16 @@ def make_facade_replanning_scan(ref: frenet_ops.RefPathTables,
         obstacles_full, T, device)
     no_obs = torch.zeros((0, T, scoring._OBS_COLS), dtype=_F32, device=device)
     no_poly = torch.zeros((0, T, 3), dtype=_F32, device=device)
+    colliding = cycle_ops.exact_refinement(
+        None if boundary is None else BoundaryArrays(
+            boundary.segments.to(device=device, dtype=_F32),
+            boundary.valid.to(device)), continuous)
+    half_all = obstacles_full.half_ext.to(device=device, dtype=_F32)
+    radius_all = None if obstacles_full.radius is None \
+        else obstacles_full.radius.to(device=device, dtype=_F32)
+    no_reselections = torch.zeros((), dtype=torch.int64, device=device)
+    no_overflow = torch.zeros((), dtype=torch.bool, device=device)
+
     f32 = lambda x: float(np.float32(x))
     template = _scan_scalar_row(veh32, dt, f32(desired_speed),
                                 f32(desired_d), f32(w_a), ref_s_last,
@@ -601,6 +680,18 @@ def make_facade_replanning_scan(ref: frenet_ops.RefPathTables,
             goal_valid=gv.to(_F32), table=packed, obs=obs, poly=poly,
             scalars=scalars, n_steps=n_steps, n_poly_verts=V, flags=flags))
 
+        reselections, overflow = no_reselections, no_overflow
+        if colliding is not None:
+            window = window_obstacle_arrays(
+                obs, None if poly_tab is None else poly, half_all,
+                radius_all, V)
+            masked, reselections, overflow = refine_cheapest(
+                masked, kin, gv, level_ids, n_levels, REFINE_WIDTH,
+                lambda idx: kin_ops.rollout(
+                    cl[idx], ca[idx], tl[idx], ref32, veh32,
+                    carry.orientation, dt, n_steps, low_vel),
+                lambda ro: colliding(ro, window, veh32))
+
         (found, best_idx, best_cost, _stat_level, n_inf_kin,
          n_coll) = cycle_ops.select_across_levels(masked, kin, gv,
                                                   level_ids, n_levels)
@@ -654,7 +745,8 @@ def make_facade_replanning_scan(ref: frenet_ops.RefPathTables,
             kappa=keep(states[12, r], carry.kappa),
             px=keep(states[7, r], carry.px),
             py=keep(states[8, r], carry.py))
-        return new_carry, (step_alive, best_cost, n_inf_kin, n_coll, states)
+        return new_carry, (step_alive, best_cost, n_inf_kin, n_coll, states,
+                           reselections, overflow)
 
     def run(carry: FacadeScanCarry, desired_speed_val: float | None = None):
         scalars_run = template

@@ -4,13 +4,18 @@ The replanning loop of the reference's run script (reference:
 run_planner.py:53-115) on the PyTorch planner: on the host, one ``plan()``
 per cycle (default), or on the device, chunks of cycles per ``plan_scan``
 (``--scan``), or a stop-at-goal mission through ``plan_scan`` only
-(``--mission``).  Usage, from the repository root:
+(``--mission``).  ``--dtype float64`` plans through the float64 conformance
+level program instead of the fused float32 scorer, and ``--evaluate`` runs
+the physics certificate (``utils.evaluation.run_evaluation``) on the driven
+states.  Usage, from the repository root:
 
     python -m commonroad_rp_tpu_torch.run_planner [--scenario ZAM_Over-1_1]
                                                   [--device cuda|cpu]
+                                                  [--dtype float32|float64]
                                                   [--max-steps N]
                                                   [--scan] [--mission]
                                                   [--stop-at DS]
+                                                  [--evaluate]
 """
 
 from __future__ import annotations
@@ -254,7 +259,16 @@ def main():
     parser.add_argument("--scenario", default="ZAM_Over-1_1")
     parser.add_argument("--device", default=None, choices=["cuda", "cpu"],
                         help="default: cuda when available, else cpu")
+    parser.add_argument("--dtype", default=None,
+                        choices=["float32", "float64"],
+                        help="planner dtype: float32 (default) scores on the "
+                             "fused kernel, float64 runs the conformance "
+                             "level program")
     parser.add_argument("--max-steps", type=int, default=300)
+    parser.add_argument("--evaluate", action="store_true",
+                        help="run the solution-feasibility evaluation "
+                             "(input reconstruction, KS simulation, "
+                             "collision report) on the driven states")
     parser.add_argument("--scan", action="store_true",
                         help="drive the replanning loop as plan_scan "
                              "dispatches of 12 cycles each, with no device "
@@ -273,6 +287,11 @@ def main():
     from commonroad_rp_tpu_torch.utils.logger import initialize_logger
 
     config = load_config(args.scenario)
+    if args.dtype == "float64" and (args.scan or args.mission):
+        parser.error("--scan and --mission run the fused float32 scorer; "
+                     "drop --dtype float64")
+    if args.dtype:
+        config.debug.kernel_dtype = args.dtype
     if args.stop_at is not None:
         config.sampling.longitudinal_mode = "stopping"
     initialize_logger(config)
@@ -338,6 +357,13 @@ def main():
         line += (f" p50_cycle={ordered[len(ordered) // 2]:.4f}s "
                  f"min_cycle={ordered[0]:.4f}s max_cycle={ordered[-1]:.4f}s")
     print(f"{line} device={planner.device}", flush=True)
+    if args.evaluate:
+        from commonroad_rp_tpu_torch.utils.evaluation import run_evaluation
+        _, feasibility = run_evaluation(planner.config,
+                                        planner.record_state_list,
+                                        planner.record_input_list)
+        print(f"state transitions feasible: "
+              f"{sum(feasibility)}/{len(feasibility)}", flush=True)
     return 0 if reached else 1
 
 

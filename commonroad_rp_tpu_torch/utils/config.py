@@ -100,12 +100,13 @@ class DebugConfiguration:
     multiproc: bool = True
     num_workers: int = 6
     # Port extension: dtype of the device planning kernels.  "auto" resolves
-    # to float32 at planner construction; the port runs only the float32
-    # fused-scorer path (float64 raises NotImplementedError, ROADMAP queue 1).
+    # to float32 at planner construction (the fused scorer's path);
+    # "float64" plans through the conformance level program
+    # (ops.cycle.evaluate_level), the JAX package's default off the TPU.
     kernel_dtype: str = "auto"
     # Port extension: score candidates with the fused scorer
-    # (ops.scoring).  None resolves to True; False raises
-    # NotImplementedError (the conformance path is not ported yet).
+    # (ops.scoring).  None resolves to True; False plans through the
+    # conformance level program in kernel_dtype.
     fast_scoring: Optional[bool] = None
 
 

@@ -8,6 +8,12 @@ or the re-roll's.  The selected index, the rejection counters, the selected
 level and the re-roll verdict match exactly, the winner's cost to rtol 2e-4
 (float32 sums in another order), its [14, T] state arrays to 1e-4, and the
 reason rows exactly.
+
+The lazy winner refinement (the exact ``segments`` boundary SAT and the
+continuous swept-OBB pass, checked per winner, colliding winners masked and
+re-selected) is held against the JAX package's ``while_loop`` on ZAM_Over's
+first cycle at the same bar, with identical masked-cost patterns and at
+least one re-selection in each mode.
 """
 
 import functools
@@ -20,6 +26,7 @@ import torch
 import jax.numpy as jnp
 
 from commonroad_rp_tpu.models.planner import ReactivePlanner as JaxPlanner
+from commonroad_rp_tpu.ops import collision as jax_collision
 from commonroad_rp_tpu.ops import cycle as jax_cycle
 from commonroad_rp_tpu.utils.config import \
     ReactivePlannerConfiguration as JaxConfig
@@ -67,6 +74,8 @@ def _first_cycle(repo_root, name):
                                   for j, b in enumerate(batches)]),
         ref=planner._co.tables, veh=ctx["veh"], obstacles=ctx["obstacles"],
         corridor=planner._corridor_or_unbounded(ctx["corridor"]),
+        boundary=ctx["boundary"],
+        unbounded=planner._corridor_or_unbounded(None),
         x0_orientation=np.float32(planner.x_0.orientation),
         cost_params=ctx["cost_params"], dt=planner.dt, n_steps=planner.N,
         low_vel_mode=planner._low_vel_mode,
@@ -74,21 +83,21 @@ def _first_cycle(repo_root, name):
         constraint_flags=ctx["flags"], n_levels=len(batches))
 
 
-def _run_jax(c):
+def _run_jax(c, boundary=None, continuous=False):
     f32 = jnp.float32
     out = jax_cycle.evaluate_levels_fast(
         jnp.asarray(c["coeffs_lon"], f32), jnp.asarray(c["coeffs_lat"], f32),
         jnp.asarray(c["traj_len"]), jnp.asarray(c["goal_valid"]),
         jnp.asarray(c["level_ids"]), c["ref"], c["veh"], c["obstacles"],
         c["corridor"], jnp.asarray(c["x0_orientation"], f32),
-        c["cost_params"], None, dt=c["dt"], n_steps=c["n_steps"],
+        c["cost_params"], boundary, dt=c["dt"], n_steps=c["n_steps"],
         low_vel_mode=c["low_vel_mode"], cost_structure=c["cost_structure"],
         constraint_flags=c["constraint_flags"], n_levels=c["n_levels"],
-        interpret=True)
+        continuous=continuous, interpret=True)
     return {k: np.asarray(v) for k, v in out._asdict().items()}
 
 
-def _run_port(c):
+def _run_port(c, boundary=None, continuous=False):
     cl, ca, tl, gv, lv = interop.candidates(
         c["coeffs_lon"], c["coeffs_lat"], c["traj_len"], c["goal_valid"],
         c["level_ids"])
@@ -98,16 +107,16 @@ def _run_port(c):
         interop.obstacles(c["obstacles"], dtype=torch.float32),
         interop.corridor(c["corridor"], dtype=torch.float32),
         float(c["x0_orientation"]), interop.cost_params(c["cost_params"]),
+        None if boundary is None
+        else interop.boundary(boundary, dtype=torch.float32),
         dt=c["dt"], n_steps=c["n_steps"], low_vel_mode=c["low_vel_mode"],
         cost_structure=c["cost_structure"],
-        constraint_flags=c["constraint_flags"], n_levels=c["n_levels"])
+        constraint_flags=c["constraint_flags"], n_levels=c["n_levels"],
+        continuous=continuous)
     return {k: v.numpy() for k, v in out._asdict().items()}
 
 
-@pytest.mark.parametrize("name", SCENARIOS)
-def test_evaluate_levels_fast_matches(repo_root, name):
-    c = _first_cycle(repo_root, name)
-    want, got = _run_jax(c), _run_port(c)
+def _assert_cycles_match(want, got):
     ws, gs = want["scalars"], got["scalars"]
     assert bool(got["found"]) == bool(want["found"])
     # idx, n_inf_kin, n_coll, re-roll flag, level: exact
@@ -125,6 +134,62 @@ def test_evaluate_levels_fast_matches(repo_root, name):
         np.testing.assert_array_equal(np.isfinite(g), np.isfinite(w))
         fin = np.isfinite(w)
         np.testing.assert_allclose(g[fin], w[fin], rtol=2e-4, atol=1e-2)
+
+
+@pytest.mark.parametrize("name", SCENARIOS)
+def test_evaluate_levels_fast_matches(repo_root, name):
+    c = _first_cycle(repo_root, name)
+    _assert_cycles_match(_run_jax(c), _run_port(c))
+
+
+def _with_corner_disc(c, winner, radius=1.0):
+    """``c`` with one more obstacle: a static disc diagonally off the
+    front-left corner of ``winner``'s last ego box ([14, T] packed states),
+    0.85 ``radius`` ahead and 0.85 ``radius`` outside.  The exact disc test
+    misses that box by 0.2 ``radius``, while the continuous pass covers the
+    disc by its bounding square, which reaches 0.15 ``radius`` into the
+    corner: only the swept pass rejects that candidate."""
+    veh = interop.vehicle(c["veh"])
+    x, y, theta = (float(winner[i, -1]) for i in (7, 8, 9))
+    major = np.array([np.cos(theta), np.sin(theta)])
+    minor = np.array([-np.sin(theta), np.cos(theta)])
+    corner = np.array([x, y]) + veh.wb_rear_axle * major \
+        + veh.half_length * major + veh.half_width * minor
+    center = corner + 0.85 * radius * (major + minor)
+    obs = c["obstacles"]
+    M, T = obs.pose.shape[:2]
+    disc = np.broadcast_to(np.float32([center[0], center[1], theta]),
+                           (1, T, 3))
+    radii = np.zeros(M, np.float32) if obs.radius is None \
+        else np.asarray(obs.radius)
+    return dict(c, obstacles=jax_collision.ObstacleArrays(
+        pose=jnp.concatenate([obs.pose, jnp.asarray(disc, obs.pose.dtype)]),
+        half_ext=jnp.concatenate([obs.half_ext,
+                                  jnp.zeros((1, 2), obs.half_ext.dtype)]),
+        valid=jnp.concatenate([obs.valid, jnp.ones((1, T), bool)]),
+        radius=jnp.asarray(np.append(radii, np.float32(radius))),
+        poly_verts=obs.poly_verts, poly_valid=obs.poly_valid))
+
+
+@pytest.mark.parametrize("mode", ["segments", "continuous"])
+def test_evaluate_levels_fast_refinement_matches(repo_root, mode):
+    """The fused cycle's lazy winner refinement, both packages: ZAM_Over's
+    road boundary as exact segments (the corridor bands unbounded, as the
+    planners pass them in that mode), or the continuous pass with a disc
+    that only the swept check sees."""
+    c = _first_cycle(repo_root, "ZAM_Over-1_1")
+    if mode == "segments":
+        c = dict(c, corridor=c["unbounded"])
+        refine = dict(boundary=c["boundary"])
+    else:
+        c = _with_corner_disc(c, _run_port(c)["optimal"])
+        refine = dict(continuous=True)
+    unrefined = _run_port(c)
+    want, got = _run_jax(c, **refine), _run_port(c, **refine)
+    _assert_cycles_match(want, got)
+    reselected = np.isfinite(unrefined["costs"]) & ~np.isfinite(got["costs"])
+    assert reselected.sum() >= 1, "degenerate: no winner was re-selected"
+    assert got["scalars"][0] != unrefined["scalars"][0]
 
 
 def test_evaluate_level_fast_single_level_matches(repo_root):

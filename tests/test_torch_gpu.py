@@ -1,4 +1,5 @@
-"""The CUDA scoring kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels (scorers and OBB collision) against their plain PyTorch
+versions, and the conformance level program, on the card.
 
 Marked ``gpu``: without a card every test skips.  On a machine with one,
 run (from the repository root; no JAX needed):
@@ -10,6 +11,7 @@ import pytest
 import torch
 
 import chip_smoke
+from commonroad_rp_tpu_torch.ops import collision_kernel
 from commonroad_rp_tpu_torch.ops import cycle as cycle_ops
 from commonroad_rp_tpu_torch.ops import scoring
 from commonroad_rp_tpu_torch.run_fleet import heterogeneous_fleet, make_scan
@@ -120,3 +122,62 @@ def test_plan_scan_on_card_one_launch_per_cycle(cuda):
     info = planner.plan_scan(9)
     assert info["goal_reached"] and info["steps"] == 27
     assert scoring.score_candidates.launches == info["cycles_run"] == 9
+
+
+def _collision_kernel_vs_plain(ops):
+    before = collision_kernel.obb_collision.launches
+    got = collision_kernel.obb_collision(*ops)
+    want = collision_kernel.obb_collision_reference(*ops)
+    torch.cuda.synchronize()
+    assert collision_kernel.obb_collision.launches == before + 1
+    assert got.dtype == torch.bool and got.device.type == "cuda"
+    differ = torch.nonzero(got != want).flatten()
+    tol = chip_smoke.MARGIN_TOL[str(ops[0].dtype).split(".")[-1]]
+    margins = chip_smoke.sat_margins(torch, *ops)[differ]
+    assert bool(torch.all(margins < tol)), margins
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_steps", [20, 60])
+def test_collision_kernel_matches_plain_synthetic(cuda, dtype, n_steps):
+    _collision_kernel_vs_plain(chip_smoke.collision_scene(torch, n_steps,
+                                                          dtype, cuda))
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "float64"])
+def test_collision_kernel_matches_plain_first_cycle_levels(cuda, dtype_name):
+    levels = chip_smoke.level_collision_operands(torch, "ZAM_Over-1_1",
+                                                 dtype_name)
+    assert len(levels) == 3
+    for ops in levels:
+        _collision_kernel_vs_plain(ops)
+
+
+def test_collision_kernel_rejects_mixed_devices(cuda):
+    cx, cy, theta, obstacles, hl, hw = chip_smoke.collision_scene(
+        torch, 20, torch.float32, cuda)
+    with pytest.raises(ValueError):
+        collision_kernel.obb_collision(cx, cy.cpu(), theta, obstacles, hl,
+                                       hw)
+    with pytest.raises(ValueError):
+        collision_kernel.obb_collision(cx, cy, theta.double(), obstacles, hl,
+                                       hw)
+
+
+def test_conformance_golden_and_drive_on_card(cuda):
+    config = load_config("ZAM_Over-1_1")
+    config.debug.kernel_dtype = "float64"
+    planner = make_planner(config, "cuda")
+    planner.set_desired_velocity(current_speed=planner.x_0.velocity)
+    golden = chip_smoke.GOLDEN_FIRST_CYCLE["ZAM_Over-1_1"]
+    end = planner.plan()[0].state_list[-1]
+    assert planner.optimal_cost == pytest.approx(golden["cost"], rel=1e-9)
+    assert end.velocity == pytest.approx(golden["end_velocity"], abs=1e-9)
+    assert (planner.infeasible_count_kinematics,
+            planner.infeasible_count_collision) == golden["counters"]
+
+    planner = make_planner(config, "cuda")
+    collision_kernel.obb_collision.launches = 0
+    result = drive_to_goal(planner, max_steps=100)
+    assert result["goal_reached"] and result["steps"] == 27
+    assert collision_kernel.obb_collision.launches == result["plan_calls"]

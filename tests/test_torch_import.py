@@ -28,7 +28,9 @@ def _modules():
 
 def test_every_port_module_imports_without_jax():
     modules = _modules()
-    assert "commonroad_rp_tpu_torch.ops.scoring" in modules
+    for name in ("ops.scoring", "ops.collision_kernel", "ops.cost",
+                 "ops.cuda_build", "utils.evaluation"):
+        assert f"commonroad_rp_tpu_torch.{name}" in modules
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['commonroad_rp_tpu'] = None; import importlib; "
             f"[importlib.import_module(m) for m in {modules!r}]; "

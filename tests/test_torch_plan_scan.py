@@ -7,7 +7,8 @@
   within rtol 2e-3, recorded states within atol 5e-3
   (``tests/test_fast_scoring.py:291-294``).
 * Stopping mode through both packages' ``plan_scan``.
-* The scope errors, the cache of built scans, the stop-at-goal mission of
+* The scope errors (the fused path only: the conformance level program
+  has no scan), the cache of built scans, the stop-at-goal mission of
   ``tests/test_mission.py`` through ``plan_scan`` alone, and corridor
   sampling through ``plan_scan`` against the port's host loop
   (``tests/test_corridor_sampling.py:247-297``).
@@ -175,10 +176,11 @@ def test_plan_scan_scope_errors(repo_root):
         planner.plan_scan(2)
     planner.config.planning.factor = 1
     planner.x_0.time_step = 0
-    planner.config.planning.continuous_collision_check = True
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    # the conformance level program has no scan, as in the JAX package
+    planner.config.debug.fast_scoring = False
+    with pytest.raises(ValueError, match="fused-kernel scope"):
         planner.plan_scan(2)
-    planner.config.planning.continuous_collision_check = False
+    planner.config.debug.fast_scoring = True
     planner.set_cost_function(DefaultCostFunctionFailSafe())
     with pytest.raises(ValueError, match="fused-kernel scope"):
         planner.plan_scan(2)

@@ -129,11 +129,31 @@ def test_port_drives_to_goal_in_27_steps(repo_root):
     ("planning", "boundary_mode", "segments"),
     ("planning", "continuous_collision_check", True)])
 def test_unported_configurations_raise(repo_root, setting):
+    """The four configurations that raised before the conformance level
+    program was ported now plan (the name is that test's): the first two
+    through ``evaluate_level`` (in float32 and float64), the other two on
+    the fused path with the lazy winner refinement.  An unknown dtype or
+    boundary mode still raises.  This only checks that each path runs; the
+    comparisons with the JAX package are
+    ``test_torch_conformance.test_plan_float32_conformance_matches_jax``
+    (``fast_scoring: False``), ``test_torch_conformance.test_golden_first_cycle``
+    (``kernel_dtype: float64``) and
+    ``test_torch_refinement.test_fused_plan_mode_matches_jax`` (``segments``,
+    continuous)."""
     config = load_config(SCENARIO, repo_root)
     section, key, value = setting
     setattr(getattr(config, section), key, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ReactivePlanner(config, device="cpu")
+    planner = make_planner(config, device="cpu")
+    assert planner._kernel_ok() == (section == "planning")
+    assert planner._dtype == (torch.float64 if value == "float64"
+                              else torch.float32)
+    planner.set_desired_velocity(current_speed=planner.x_0.velocity)
+    assert planner.plan() is not None
+    assert planner.infeasible_count_kinematics > 0
+    if key in ("kernel_dtype", "boundary_mode"):
+        setattr(getattr(config, section), key, "bogus")
+        with pytest.raises(ValueError, match=f"unknown {key}"):
+            ReactivePlanner(config, device="cpu")
 
 
 def test_draw_traj_set_and_custom_cost_raise(repo_root):
@@ -147,7 +167,8 @@ def test_draw_traj_set_and_custom_cost_raise(repo_root):
         structure = ("custom",)
 
     planner = ReactivePlanner(load_config(SCENARIO, repo_root), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the JAX package evaluates no other cost structure on any path
+    with pytest.raises(ValueError, match="unknown cost structure"):
         planner.set_cost_function(Custom())
     planner.set_cost_function(DefaultCostFunctionFailSafe())   # supported
 
