@@ -51,7 +51,30 @@ Phases (any failure raises and ends the run with a non-zero exit code):
    p50/p90 (and with the plain obstacle pass in the kernel's place), and
    the four scenarios through ``segments`` and continuous ``plan_scan`` to
    their goals, with no device read between cycles and the largest
-   per-cycle re-selection count of the scan's exact refinement.
+   per-cycle re-selection count of the scan's exact refinement;
+11. the XLA fleet path (``parallel.fleet.make_fleet_rollout``) on the card:
+   the bench shape (16 copies of ZAM_Over-1_1, K=2754, T=21, 10 cycles) with
+   one fleet collision-kernel launch per cycle and ms/cycle; the fleet form
+   of the collision kernel (``obb_collision_fleet``) against its plain
+   version in float32 and float64, 0 differing candidates; the 12-problem
+   heterogeneous fleet through the XLA path and the fused fleet scan at the
+   bars of tests/test_torch_xla_fleet.py; ``run_fleet --xla``'s 1024-problem
+   fleet for 150 cycles beside the fused scan's goal counts (phase 8), with
+   ms/cycle, candidate-evals/s, the kernel's time, the busy share and the
+   peak device memory; every rollout with no device read between cycles;
+12. the NCCL dry run: ``dryrun_multichip(1)`` (a world-size-1 NCCL group
+   through two XLA fleet cycles and one fused fleet-scan cycle, global
+   success count = F, three ``fleet_all_reduce`` calls per cycle) and the
+   n=1 row of ``measure_scaling``;
+13. the T=61 launch-overhead probe (``probes.t61_overhead``): phases A, C and
+   D, 150 launches each; the probe kernel against its plain version
+   (exactly equal) and beside one ``torch.add``.
+
+Every kernel's entry in the JSON line carries its launches on its path, its
+time beside its plain version's, the least time the card could take for the
+same work (``bound_ms``: the larger of the bytes over 3.35 TB/s and the
+operations over the card's peak for their type, from this run's inputs) and,
+where one PyTorch call computes the same function, that call's time.
 
 The card's name and power limit, then a JSON object of per-kernel results,
 come on the two lines before the last; the last line is ``{"ok": true,
@@ -92,6 +115,20 @@ SCAN_ATOL, SCAN61_ATOL = 2e-3, 5e-3
 MARGIN_TOL = {"float32": 1e-5, "float64": 1e-12}
 TIMED_COLLISION_CASES = ("synthetic", "ZAM_Over-1_1 level",
                          "ZAM_Tjunction-1_42_T-1 level")
+# published peaks of one H100 SXM (NVIDIA's data sheet, dense, at the 700 W
+# limit): float32 and float64 outside the tensor cores, device memory rate
+PEAK_OPS = {"float32": 67e12, "float64": 34e12}
+PEAK_BYTES = 3.35e12
+# operations of the fused scorer that every candidate-step runs whatever the
+# data (cost sums, the extension), and those an active step adds (rollout,
+# table lookup, Werling transform, kinematic checks), counted in
+# csrc/scoring.cu with a transcendental as one operation; each halving of a
+# binary table search adds 3.  The corridor and obstacle tests, which stop at
+# a candidate's first collision, are not counted: the bound is a lower bound
+SCORER_STEP_OPS, SCORER_ACTIVE_OPS = 60, 190
+# collision kernel (csrc/collision.cu): one evaluated ego step (heading
+# cos/sin) and one evaluated valid (step, row) test
+COLLISION_STEP_OPS, COLLISION_PAIR_OPS = 2, 40
 # steps to the goal on the JAX package's float64 conformance path (ramp and
 # T-junction pinned in tests/test_planner_e2e.py, the other two recorded
 # from the JAX package on the CPU): the same as its fast path's
@@ -494,6 +531,8 @@ def main():
         # operands prepared once: the times are the kernel's and the plain
         # version's alone, without the wrapper's input layout
         inp = scoring.prepare_inputs(*args, **kw)
+        if label == "main":
+            main_bound = scorer_bound(torch, inp)
         before = scoring.score_candidates.launches
         k_ms = cuda_time_ms(torch, lambda: scoring._launch(inp), KERNEL_REPS)
         p_ms = cuda_time_ms(torch, lambda: scoring._score_plain(inp),
@@ -517,42 +556,46 @@ def main():
     fleet1024 = phase_fleet1024(torch)
     collision = phase_collision_kernel(torch)
     conformance = phase_conformance(torch)
+    xla = phase_xla_fleet(torch, fleet1024)
+    phase_nccl_dryrun(torch)
+    probe = phase_probe(torch)
 
     k_ms, p_ms = timing["main"]
+    entry = lambda name, source, replaces, launches, max_abs_err, ms, \
+        plain_ms, bound, library_ms=None: {
+            "name": name, "route": "cuda",
+            "source": f"commonroad_rp_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": library_ms}
     log(smi)
-    log(json.dumps({"kernels": [{
-        "name": "score_candidates",
-        "route": "cuda",
-        "source": "commonroad_rp_tpu_torch/csrc/scoring.cu",
-        "replaces": "commonroad_rp_tpu/ops/pallas_cycle.py:490",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms}, {
-        "name": "score_candidates (plan_scan, T=61)",
-        "route": "cuda",
-        "source": "commonroad_rp_tpu_torch/csrc/scoring.cu",
-        "replaces": "commonroad_rp_tpu/ops/pallas_cycle.py:420",
-        "launches": scan["launches61"],
-        "max_abs_err": scan["max_err61"],
-        "ms": scan["ms61"],
-        "plain_ms": scan["plain_ms61"]}, {
-        "name": "score_fleet",
-        "route": "cuda",
-        "source": "commonroad_rp_tpu_torch/csrc/scoring.cu",
-        "replaces": "commonroad_rp_tpu/ops/pallas_cycle.py:455",
-        "launches": fleet1024["launches"],
-        "max_abs_err": max(fleet_k["max_err"], fleet1024["max_err"]),
-        "ms": fleet1024["ms"],
-        "plain_ms": fleet1024["plain_ms"]}, {
-        "name": "obb_collision",
-        "route": "cuda",
-        "source": "commonroad_rp_tpu_torch/csrc/collision.cu",
-        "replaces": "commonroad_rp_tpu/ops/pallas_kernels.py:33",
-        "launches": conformance["launches"],
-        "max_abs_err": collision["max_err"],
-        "ms": collision["ms"],
-        "plain_ms": collision["plain_ms"]}]}))
+    log(json.dumps({"kernels": [
+        entry("score_candidates", "scoring.cu",
+              "commonroad_rp_tpu/ops/pallas_cycle.py:490", launches,
+              max_err, k_ms, p_ms, main_bound),
+        entry("score_candidates (plan_scan, T=61)", "scoring.cu",
+              "commonroad_rp_tpu/ops/pallas_cycle.py:420",
+              scan["launches61"], scan["max_err61"], scan["ms61"],
+              scan["plain_ms61"], scan["bound61"]),
+        entry("score_fleet", "scoring.cu",
+              "commonroad_rp_tpu/ops/pallas_cycle.py:455",
+              fleet1024["launches"],
+              max(fleet_k["max_err"], fleet1024["max_err"]),
+              fleet1024["ms"], fleet1024["plain_ms"], fleet1024["bound"]),
+        entry("obb_collision", "collision.cu",
+              "commonroad_rp_tpu/ops/pallas_kernels.py:33",
+              conformance["launches"], collision["max_err"],
+              collision["ms"], collision["plain_ms"], collision["bound"]),
+        entry("obb_collision_fleet", "collision.cu",
+              "commonroad_rp_tpu/ops/pallas_kernels.py:33",
+              xla["launches"], 0.0, xla["ms"], xla["plain_ms"],
+              (xla["bound_ms"], xla["bound_by"])),
+        entry("trivial_probe", "scoring.cu",
+              "scripts/t61_overhead_probe.py:200", probe["launches"],
+              probe["max_err"], probe["ms"], probe["plain_ms"],
+              (probe["bound_ms"], probe["bound_by"]),
+              probe["library_ms"])]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -666,6 +709,7 @@ def phase_plan_scan(torch):
     max_err61 = compare(torch, "plan_scan T=61 union", out_k, out_p,
                         prepared_in_domain(torch, inp61))
     ms61, plain_ms61 = time_prepared(torch, inp61, KERNEL_REPS, PLAIN_REPS)
+    bound61 = scorer_bound(torch, inp61)
     log(f"time plan_scan T=61 union: K={inp61.coeffs_lon.shape[0]} kernel "
         f"{ms61:.4f} ms, plain {plain_ms61:.4f} ms")
 
@@ -699,7 +743,7 @@ def phase_plan_scan(torch):
         log(f"plan_scan {label} device busy share over 12 cycles: "
             f"{device_busy_share(torch, lambda: run(carry, ds))}")
     return dict(launches61=launches61, max_err61=max_err61, ms61=ms61,
-                plain_ms61=plain_ms61)
+                plain_ms61=plain_ms61, bound61=bound61)
 
 
 def phase_fleet1024(torch):
@@ -707,7 +751,9 @@ def phase_fleet1024(torch):
     from commonroad_rp_tpu_torch.ops import scoring
     from commonroad_rp_tpu_torch.run_fleet import (goal_counts,
                                                    heterogeneous_fleet,
-                                                   make_scan)
+                                                   make_scan,
+                                                   member_outcomes,
+                                                   winner_trace)
 
     F, cycles = 1024, 150
     t0 = time.time()
@@ -738,7 +784,8 @@ def phase_fleet1024(torch):
         f"first scan {first:.3f} s, warm {', '.join(f'{w:.3f}' for w in walls)}"
         f" s; {F * K * cycles / wall:.6g} candidate-evals/s (warm, best of "
         f"2), {wall / cycles * 1e3:.3f} ms/cycle")
-    counts = goal_counts(metrics, goals, base_idx)
+    outcomes = member_outcomes(metrics, goals, base_idx)
+    counts = goal_counts(metrics, goals, base_idx, outcomes=outcomes)
     for name, c in counts.items():
         log(f"fleet1024 {name}: {c['reached']}/{c['total']} reached"
             f"{', misses ' + str(c['misses']) if c['misses'] else ''} "
@@ -755,6 +802,7 @@ def phase_fleet1024(torch):
                       prepared_in_domain(torch, inp))
     del out_p
     ms, plain_ms = time_prepared(torch, inp, 20, 3)
+    bound = scorer_bound(torch, inp)
     log(f"time fleet F=1024: kernel {ms:.4f} ms "
         f"({F * K / ms * 1e3:.6g} candidate-evals/s), plain {plain_ms:.4f} "
         "ms")
@@ -762,7 +810,10 @@ def phase_fleet1024(torch):
     log(f"fleet1024 device busy share over a 3-cycle scan: "
         f"{device_busy_share(torch, lambda: run3(carry))}")
     return dict(launches=n_launch, max_err=max_err, ms=ms,
-                plain_ms=plain_ms)
+                plain_ms=plain_ms, bound=bound, outcomes=outcomes,
+                trace=winner_trace(metrics),
+                cost=metrics[1].cpu().numpy(),
+                fleet=(scene, carry, goals, base_idx))
 
 
 def collision_scene(torch, n_steps, dtype, device):
@@ -932,8 +983,10 @@ def phase_collision_kernel(torch):
                 "(profiler)")
     ck.obb_collision.launches = counted
     k_ms, p_ms = timing["ZAM_Over-1_1 level 1 float64"]
+    bound = collision_bound(torch, as_fleet_collision(
+        torch, cases["ZAM_Over-1_1 level 1 float64"]))[:2]
     # the masks are bool: the error is 1 where any candidate differs
-    return dict(max_err=max_err, ms=k_ms, plain_ms=p_ms)
+    return dict(max_err=max_err, ms=k_ms, plain_ms=p_ms, bound=bound)
 
 
 def phase_conformance(torch):
@@ -1062,6 +1115,390 @@ def phase_conformance(torch):
                 name], f"plan_scan {key}={value} {name}: goal not reached "
                 f"in {EXPECTED_STEPS[name]} steps")
     return dict(launches=launches, p50=q[0], p90=q[1])
+
+
+def bound_of(ops, nbytes, dtype_name="float32"):
+    """(bound ms, bound_by): the larger of the operations over the card's
+    peak for their type and the bytes over its memory rate."""
+    t_ops = ops / PEAK_OPS[dtype_name] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def scorer_bound(torch, inp):
+    """Bound of one scorer launch on prepared operands (one problem or a
+    fleet): this run's active steps (``traj_len``); every operand read
+    once, the three [.., K] rows written once."""
+    from commonroad_rp_tpu_torch.ops import scoring
+
+    if not isinstance(inp, scoring.FleetScorerInputs):
+        inp = scoring._as_fleet(inp)
+    T = inp.n_steps + 1
+    F, K = inp.traj_len.shape
+    halvings = int(np.ceil(np.log2(inp.tables.shape[1])))
+    active = float(torch.clamp(inp.traj_len, max=T).sum())
+    ops = F * K * T * SCORER_STEP_OPS + active * (SCORER_ACTIVE_OPS
+                                                  + 3 * halvings)
+    nbytes = 4 * (sum(getattr(inp, name).numel() for name in
+                      inp._fields[:8]) + 3 * F * K)       # the operands
+    return bound_of(ops, nbytes)
+
+
+
+def map_collision_ops(ops, fn):
+    """``fn`` applied to every tensor of fleet collision operands (cx, cy,
+    theta, box rows, ehl, ehw); None stays None."""
+    g = lambda a: None if a is None else fn(a)
+    cx, cy, theta, obstacles, ehl, ehw = ops
+    return (g(cx), g(cy), g(theta), type(obstacles)(*map(g, obstacles)),
+            g(ehl), g(ehw))
+
+
+def as_fleet_collision(torch, ops):
+    """Single-problem collision operands ([T, K] poses, [M, ...] rows, host
+    scalar extents) as a fleet of one."""
+    cx, cy, theta, obstacles, ehl, ehw = ops
+    ext = lambda x: torch.full((1,), float(x), dtype=cx.dtype,
+                               device=cx.device)
+    return (cx[None], cy[None], theta[None],
+            type(obstacles)(*(None if a is None else a[None]
+                              for a in obstacles)), ext(ehl), ext(ehw))
+
+
+def collision_work(torch, ops):
+    """(evaluated ego steps, evaluated valid (step, row) tests) of the
+    collision kernel's early-exit loops on fleet-form operands, replayed
+    with the plain version one (step, row) at a time in the kernel's
+    order."""
+    from commonroad_rp_tpu_torch.ops import collision_kernel as ck
+
+    cx, cy, theta, obstacles, ehl, ehw = ops
+    F, T, K = cx.shape
+    M = obstacles.pose.shape[1]
+    done = torch.zeros((F, K), dtype=torch.bool, device=cx.device)
+    steps = torch.zeros((), dtype=torch.int64, device=cx.device)
+    pairs = torch.zeros_like(steps)
+    for t in range(T):
+        steps += torch.sum(~done)
+        at = lambda a: a[:, t:t + 1].contiguous()
+        for m in range(M):
+            live = ~done & obstacles.valid[:, m, t, None]
+            pairs += torch.sum(live)
+            row = lambda a: None if a is None else a[:, m:m + 1].contiguous()
+            one = type(obstacles)(
+                pose=row(obstacles.pose)[:, :, t:t + 1].contiguous(),
+                half_ext=row(obstacles.half_ext),
+                valid=row(obstacles.valid)[:, :, t:t + 1].contiguous(),
+                radius=row(obstacles.radius))
+            hit = ck.obb_collision_fleet_reference(at(cx), at(cy), at(theta),
+                                                   one, ehl, ehw)
+            done = done | (hit & live)
+    return int(steps), int(pairs)
+
+
+def collision_bound(torch, ops):
+    """(bound ms, bound_by, evaluated steps, evaluated pair tests) of one
+    fleet collision launch: the early exit's work on these operands, the
+    poses of the evaluated steps and every row read once, the mask written
+    once."""
+    cx, _, _, obstacles, _, _ = ops
+    F, T, K = cx.shape
+    M = obstacles.pose.shape[1]
+    size = cx.element_size()
+    steps, pairs = collision_work(torch, ops)
+    nbytes = (steps * 3 * size + F * M * T * (3 * size + 1)
+              + F * M * 3 * size + 2 * F * size + F * K)
+    return bound_of(steps * COLLISION_STEP_OPS + pairs * COLLISION_PAIR_OPS,
+                    nbytes, str(cx.dtype).split(".")[-1]) + (steps, pairs)
+
+
+def captured_fleet_collision(run_once):
+    """The fleet collision kernel's operands of the first call in
+    ``run_once()`` (the plain version answers while capturing)."""
+    from commonroad_rp_tpu_torch.ops import collision as collision_ops
+    from commonroad_rp_tpu_torch.ops import collision_kernel as ck
+
+    captured = []
+
+    def capture(*ops):
+        captured.append(ops)
+        return ck.obb_collision_fleet_reference(*ops)
+
+    collision_ops.obb_collision_fleet = capture
+    try:
+        run_once()
+    finally:
+        collision_ops.obb_collision_fleet = ck.obb_collision_fleet
+    return captured[0]
+
+
+def compare_fleet_collision(torch, label, ops, chunk=128):
+    """The fleet collision kernel against its plain version (in chunks of
+    ``chunk`` problems) on these operands, in float32 and float64: raises
+    unless 0 candidates differ.  Launches made here are not counted."""
+    from commonroad_rp_tpu_torch.ops import collision_kernel as ck
+
+    counted = ck.obb_collision_fleet.launches
+    F, T, K = ops[0].shape
+    for dtype in (torch.float32, torch.float64):
+        d_ops = map_collision_ops(ops, lambda a: a.to(dtype)
+                                  if a.is_floating_point() else a)
+        got = ck.obb_collision_fleet(*d_ops)
+        want = torch.cat([ck.obb_collision_fleet_reference(
+            *map_collision_ops(d_ops, lambda a: a[f0:f0 + chunk]))
+            for f0 in range(0, F, chunk)])
+        torch.cuda.synchronize()
+        differ = int((got != want).sum())
+        log(f"fleet collision {label} {str(dtype).split('.')[-1]}: F={F} "
+            f"T={T} K={K} M={ops[3].pose.shape[1]} hits={int(want.sum())} "
+            f"differing candidates={differ}")
+        check(differ == 0, f"fleet collision {label}: the kernel and its "
+              f"plain version differ on {differ} candidates")
+    ck.obb_collision_fleet.launches = counted
+
+
+def reset_launch_counts():
+    """Every kernel wrapper's launch count to 0 (before a main-path run)."""
+    from commonroad_rp_tpu_torch.ops import collision_kernel as ck
+    from commonroad_rp_tpu_torch.ops import scoring
+
+    for wrapper in (scoring.score_candidates, scoring.score_fleet,
+                    scoring.trivial_probe, ck.obb_collision,
+                    ck.obb_collision_fleet):
+        wrapper.launches = 0
+
+
+def phase_xla_fleet(torch, fused):
+    """11. The XLA fleet path on the card: the bench shape, the fleet
+    collision kernel against its plain version, the 12-problem fleet
+    against the fused scan, and fleet1024 beside the fused scan's goal
+    counts (``fused``: phase 8's outcomes and trace)."""
+    from commonroad_rp_tpu_torch.ops import collision_kernel as ck
+    from commonroad_rp_tpu_torch.ops import grid as grid_ops
+    from commonroad_rp_tpu_torch.parallel import fleet
+    from commonroad_rp_tpu_torch.parallel.dryrun import (over_problem,
+                                                         shared_vehicle)
+    from commonroad_rp_tpu_torch.run_fleet import (
+        DT, LEVEL, N_STEPS, SCENARIOS, VEHICLE_TYPES, goal_counts,
+        heterogeneous_fleet, make_scan, make_xla_rollout, member_outcomes,
+        winner_trace)
+
+    # ---- bench shape (bench.py:670-694): 16 x ZAM_Over, level 3, 10 cycles
+    F, cycles = 16, 10
+    scene, carry = fleet.build_fleet_scene(
+        [over_problem(N_STEPS, horizon_pad=60, root=HERE)] * F, N_STEPS,
+        device="cuda")
+    static_grid = grid_ops.make_static_grid(LEVEL, 0.4, N_STEPS * DT, DT,
+                                            -3.0, 3.0, 4)
+    K = static_grid.size
+    bench = lambda n: fleet.make_fleet_rollout(
+        None, shared_vehicle(), static_grid, DT, N_STEPS, replan_offset=3,
+        low_vel_threshold=4.0, horizon=N_STEPS * DT, n_cycles=n,
+        device="cuda")
+    run = bench(cycles)
+    reset_launch_counts()
+    _, metrics = no_sync(torch, lambda: run(carry, scene))
+    torch.cuda.synchronize()
+    check(ck.obb_collision_fleet.launches == cycles
+          and ck.obb_collision.launches == 0,
+          f"XLA fleet F=16: {ck.obb_collision_fleet.launches} fleet "
+          f"collision launches for {cycles} cycles")
+    walls = []
+    for _ in range(3):
+        t0 = time.time()
+        run(carry, scene)
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+    wall = min(walls)
+    log(f"XLA fleet F={F} (bench shape): K={K} T={N_STEPS + 1} {cycles} "
+        f"cycles, {cycles} fleet collision launches, successes per cycle "
+        f"{metrics.fleet_success.tolist()}; {wall / cycles * 1e3:.3f} "
+        f"ms/cycle, {F * K * cycles / wall:.6g} candidate-evals/s (warm, "
+        "best of 3)")
+    ops16 = captured_fleet_collision(lambda: bench(1)(carry, scene))
+    compare_fleet_collision(torch, "bench F=16 first cycle", ops16)
+    ms16 = cuda_time_ms(torch, lambda: ck._launch_fleet(*ops16), KERNEL_REPS)
+    plain16 = cuda_time_ms(
+        torch, lambda: ck.obb_collision_fleet_reference(*ops16), PLAIN_REPS)
+    ck.obb_collision_fleet.launches = 0
+    log(f"time fleet collision F=16: kernel {ms16:.4f} ms, plain "
+        f"{plain16:.4f} ms")
+
+    # ---- the 12-problem heterogeneous fleet: XLA path against fused scan
+    scene12, carry12, _, _ = heterogeneous_fleet(12, 10, device="cuda",
+                                                 root=HERE)
+    run_x, _ = make_xla_rollout(10, 1, "cuda")
+    final_x, m_x = no_sync(torch, lambda: run_x(carry12, scene12))
+    run_f, _ = make_scan(scene12, 10)
+    final_f, m_f = run_f(carry12)
+    compare_fleet_collision(torch, "F=12 first cycle", captured_fleet_collision(
+        lambda: make_xla_rollout(1, 1, "cuda")[0](carry12, scene12)))
+    h = lambda t: t.cpu().numpy()
+    np.testing.assert_array_equal(h(m_x.found), h(m_f[0]))
+    np.testing.assert_allclose(h(final_x.x0_lon), h(final_f.x0_lon),
+                               rtol=2e-4, atol=2e-3)
+    np.testing.assert_allclose(h(final_x.velocity), h(final_f.velocity),
+                               atol=2e-3)
+    np.testing.assert_allclose(h(m_x.best_cost), h(m_f[1]), rtol=2e-3)
+    np.testing.assert_array_equal(h(m_x.fleet_success), h(m_f[4]))
+    np.testing.assert_allclose(h(m_x.fleet_mean_cost), h(m_f[5]), rtol=2e-3)
+    log(f"F=12 heterogeneous, 10 cycles: XLA path and fused scan agree "
+        f"(found identical, alive {int(m_x.found[-1].sum())}/12 at the end; "
+        f"max |x0_lon diff| "
+        f"{float((final_x.x0_lon - final_f.x0_lon).abs().max()):.3e}, max "
+        f"|best cost diff| "
+        f"{float((m_x.best_cost - m_f[1]).nan_to_num(0, 0, 0).abs().max()):.3e})")
+
+    # ---- full width: run_fleet --xla's 1024-problem fleet, 150 cycles
+    F, cycles = 1024, 150
+    scene, carry, goals, base_idx = fused["fleet"]          # phase 8's fleet
+    run, K = make_xla_rollout(cycles, 1, "cuda")
+    M = scene.obs_pose.shape[1]
+    log(f"XLA fleet{F}: phase 8's fleet, K={K}, "
+        f"T={N_STEPS + 1}, M={M}, Mp={scene.poly_verts.shape[1]}; reckoned "
+        f"peak: about 16 [F, K, T] float32 arrays of {F * K * 21 / 1e6:.1f}M "
+        f"elements, {16 * F * K * 21 * 4 / 1e9:.1f} GB")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.time()
+    _, metrics = no_sync(torch, lambda: run(carry, scene))
+    torch.cuda.synchronize()
+    first = time.time() - t0
+    launches = ck.obb_collision_fleet.launches
+    check(launches == cycles and ck.obb_collision.launches == 0,
+          f"XLA fleet1024: {launches} fleet collision launches for {cycles} "
+          "cycles")
+    peak = torch.cuda.max_memory_allocated()
+    # device-bound (busy share below): the first run is a warm one, eager
+    # PyTorch compiles nothing and the kernels were built in phase 2
+    log(f"XLA fleet1024: {cycles} cycles, {launches} fleet collision "
+        f"launches, no device read between cycles; {first:.3f} s: "
+        f"{first / cycles * 1e3:.3f} ms/cycle, "
+        f"{F * K * cycles / first:.6g} candidate-evals/s; peak device memory "
+        f"{peak / 1e9:.3f} GB (max_memory_allocated)")
+    outcomes = member_outcomes(metrics, goals, base_idx)
+    counts = goal_counts(metrics, goals, base_idx, outcomes=outcomes)
+    fused_counts = goal_counts(None, goals, base_idx,
+                               outcomes=fused["outcomes"])
+    for name in SCENARIOS:
+        c, fc = counts[name], fused_counts[name]
+        log(f"XLA fleet1024 {name}: {c['reached']}/{c['total']} reached"
+            f"{', misses ' + str(c['misses']) if c['misses'] else ''} "
+            f"(fused scan: {fc['reached']}/{fc['total']}"
+            f"{', misses ' + str(fc['misses']) if fc['misses'] else ''}; "
+            f"JAX package on the TPU: {JAX_FLEET1024[name]})")
+    check(all(c["reached"] > 0 for c in counts.values()),
+          "XLA fleet1024: a scenario reached no goal")
+    differ = [f for f in range(F) if outcomes[f] != fused["outcomes"][f]]
+    log(f"XLA fleet1024: {len(differ)} members whose outcome differs from "
+        "the fused scan's")
+    trace_x = [t.cpu().numpy() for t in winner_trace(metrics)]
+    trace_f = [t.cpu().numpy() for t in fused["trace"]]
+    cost_x, cost_f = metrics.best_cost.cpu().numpy(), fused["cost"]
+    for f in differ[:20]:
+        apart = (trace_x[0][:, f] != trace_f[0][:, f]) | (
+            np.hypot(trace_x[1][:, f] - trace_f[1][:, f],
+                     trace_x[2][:, f] - trace_f[2][:, f]) > 0.05)
+        c = int(np.argmax(apart)) if apart.any() else None
+        where = "never apart" if c is None else (
+            f"first apart at cycle {c}: alive {bool(trace_x[0][c, f])}/"
+            f"{bool(trace_f[0][c, f])}, best cost {cost_x[c, f]:.6g}/"
+            f"{cost_f[c, f]:.6g} (XLA/fused)")
+        log(f"  member {f} ({SCENARIOS[base_idx[f] // len(VEHICLE_TYPES)]}, "
+            f"vehicle {VEHICLE_TYPES[base_idx[f] % len(VEHICLE_TYPES)]}): "
+            f"XLA {outcomes[f]}, fused {fused['outcomes'][f]}; {where}")
+
+    ops = captured_fleet_collision(
+        lambda: make_xla_rollout(1, 1, "cuda")[0](carry, scene))
+    compare_fleet_collision(torch, "fleet1024 first cycle", ops)
+    ms = cuda_time_ms(torch, lambda: ck._launch_fleet(*ops), 50)
+    plain_ms = cuda_time_ms(torch, lambda: [
+        ck.obb_collision_fleet_reference(
+            *map_collision_ops(ops, lambda a: a[f0:f0 + 128]))
+        for f0 in range(0, F, 128)], 3)
+    dev_ms = device_kernel_ms(torch, lambda: ck._launch_fleet(*ops),
+                              "obb_collision_fleet_kernel")
+    bound_ms, bound_by, steps, pairs = collision_bound(torch, ops)
+    ck.obb_collision_fleet.launches = launches
+    log(f"time fleet collision F={F}: kernel {ms:.4f} ms (device time "
+        f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}), plain "
+        f"{plain_ms:.4f} ms (8 calls of 128 problems); bound {bound_ms:.6f} "
+        f"ms by {bound_by} ({steps} evaluated steps, {pairs} pair tests)")
+    run3, _ = make_xla_rollout(3, 1, "cuda")
+    log(f"XLA fleet1024 device busy share over a 3-cycle rollout: "
+        f"{device_busy_share(torch, lambda: run3(carry, scene))}")
+    return dict(launches=launches, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_nccl_dryrun(torch):
+    """12. dryrun_multichip(1): a world-size-1 NCCL group through both fleet
+    paths, then the n=1 row of the scaling sweep."""
+    from commonroad_rp_tpu_torch.parallel import dryrun, mesh, scaling
+
+    calls = mesh.fleet_all_reduce.calls
+    elements = mesh.fleet_all_reduce.elements
+    dryrun.dryrun_multichip(1, device="cuda")
+    calls = mesh.fleet_all_reduce.calls - calls
+    elements = mesh.fleet_all_reduce.elements - elements
+    log(f"NCCL dry run: {calls} fleet_all_reduce calls of {elements} "
+        "elements in all over 3 cycles (2 XLA, 1 fused)")
+    check(calls == elements == 3 * 3,
+          "NCCL dry run: not three one-element all-reduces per cycle")
+    report = scaling.measure_scaling("cuda")
+    for row in report["sweep"]:
+        log(f"measure_scaling on {report['device']}: n={row['devices']} "
+            f"F={row['problems']} K={report['candidates_per_cycle']} "
+            f"{row['throughput_evals_per_sec']:.6g} candidate-evals/s, "
+            f"{row['time_s'] * 1e3:.3f} ms per {report['cycles']}-cycle "
+            f"rollout, efficiency {row['efficiency']:.3f}")
+
+
+def phase_probe(torch):
+    """13. The T=61 launch-overhead probe: phases A, C and D, the probe
+    kernel against its plain version and one torch.add."""
+    from commonroad_rp_tpu_torch.ops import scoring
+    from commonroad_rp_tpu_torch.probes import t61_overhead
+
+    ops = t61_overhead.probe_operands(60, "cuda", HERE)
+    inp = scoring.prepare_inputs(*ops["args"], 20.0, 0.0, 5.0,
+                                 ops["ref_s_last"], n_steps=60)
+    v = torch.full((), 20.0, dtype=torch.float32, device="cuda")
+    got = scoring.trivial_probe(inp, v)
+    want = scoring.trivial_probe_reference(inp, v)
+    torch.cuda.synchronize()
+    max_err = float((got - want).abs().max())
+    check(bool(torch.equal(got, want)),
+          f"probe kernel differs from its plain version by {max_err}")
+    reps, n_scan = 5, 150
+    reset_launch_counts()
+    phases = t61_overhead.run_phases(ops, n_scan, reps, "cuda")
+    launches = scoring.trivial_probe.launches
+    check(launches == scoring.score_candidates.launches
+          == (reps + 1) * n_scan,
+          f"probe: {launches} probe and {scoring.score_candidates.launches} "
+          f"scorer launches for {reps + 1} runs of {n_scan}")
+    for name, (us, rate) in phases.items():
+        log(f"probe T=61 K={ops['K']} {name}: {us:.1f} us/launch, "
+            f"{rate:.2f} M cands/s (best of {reps} runs of {n_scan} launches, "
+            "one synchronize per run)")
+    K = ops["K"]
+    ms = cuda_time_ms(torch, lambda: scoring.trivial_probe(inp, v),
+                      KERNEL_REPS)
+    plain_ms = cuda_time_ms(
+        torch, lambda: scoring.trivial_probe_reference(inp, v), KERNEL_REPS)
+    c = v + inp.table[0, 0] + (inp.obs[0, 0, 0] if inp.obs.shape[0] else 0.0)
+    library_ms = cuda_time_ms(
+        torch, lambda: torch.add(inp.coeffs_lon[:, 0], c), KERNEL_REPS)
+    scoring.trivial_probe.launches = launches
+    bound_ms, bound_by = bound_of(3 * K, 8 * K + 12)
+    log(f"time probe kernel K={K}: {ms:.4f} ms per call, plain {plain_ms:.4f} "
+        f"ms, torch.add {library_ms:.4f} ms; bound {bound_ms:.6f} ms by "
+        f"{bound_by}")
+    return dict(launches=launches, max_err=max_err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                phases=phases)
 
 
 def device_kernel_ms(torch, fn, name, reps=20):

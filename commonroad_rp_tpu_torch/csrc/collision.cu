@@ -18,6 +18,15 @@
 // The ego centers arrive already shifted wb_rear_axle ahead of the rear axle
 // (the caller shifts; this kernel must not shift again).
 //
+// Two forms: obb_collision_kernel takes one problem ([T, K] poses, host
+// scalar ego extents: the conformance level program); the fleet form
+// obb_collision_fleet_kernel takes F problems in one launch ([F, T, K] poses,
+// [F, M, T] rows, per-problem ego extents [F] on the device: the XLA fleet
+// path's check_collisions, jax.vmap of the single-problem pass in
+// commonroad_rp_tpu/parallel/fleet.py:138-140) and puts the problem index in
+// blockIdx.y.  Its plain version is
+// commonroad_rp_tpu_torch/ops/collision_kernel.py::obb_collision_fleet_reference.
+//
 // Templated over float and double: the float instance is what the TPU kernel
 // computes (kernel_dtype float32 with fast_scoring off); the double instance
 // serves the float64 conformance path, whose goldens hold to 1e-9.
@@ -34,7 +43,10 @@
 // transcendentals: two per (t, k) for the ego heading and two per (t, k, m)
 // for the obstacle heading, which every thread recomputes.  Bytes are
 // negligible (3 values per (t, k) once, the obstacle table from cache).  The
-// early exit skips the rest of a colliding candidate.  Later work: stage the
+// early exit skips the rest of a colliding candidate.  The fleet form at the
+// XLA fleet path's full width (F = 1024, K = 2754: 2.82M threads) fills the
+// card; it reads 3 values per (f, t, k), 12 bytes per candidate-step in
+// float32, once.  Later work: stage the
 // obstacle cos/sin per step in shared memory once per block, and fuse the
 // pass into the rollout so the ego poses never leave registers.
 //
@@ -61,15 +73,14 @@ __device__ __forceinline__ S relu_nan(S x) {
   return (x > S(0) || x != x) ? x : S(0);
 }
 
+// Candidate k of one problem against its box/disc rows; every pointer is
+// that problem's base.  Leaves both loops at the first hit.
 template <typename S>
-__global__ void __launch_bounds__(256) obb_collision_kernel(
-    const S* __restrict__ cx, const S* __restrict__ cy,
+__device__ __forceinline__ bool candidate_hits(
+    int k, const S* __restrict__ cx, const S* __restrict__ cy,
     const S* __restrict__ theta, const S* __restrict__ pose,
     const S* __restrict__ half_ext, const uint8_t* __restrict__ valid,
-    const S* __restrict__ radius, S ehl, S ehw, int K, int T, int M,
-    uint8_t* __restrict__ out) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= K) return;
+    const S* __restrict__ radius, S ehl, S ehw, int K, int T, int M) {
   bool hit = false;
   for (int t = 0; t < T && !hit; ++t) {
     const S ex = cx[t * K + k];
@@ -109,7 +120,64 @@ __global__ void __launch_bounds__(256) obb_collision_kernel(
       if (hit) break;
     }
   }
-  out[k] = hit ? 1 : 0;
+  return hit;
+}
+
+template <typename S>
+__global__ void __launch_bounds__(256) obb_collision_kernel(
+    const S* __restrict__ cx, const S* __restrict__ cy,
+    const S* __restrict__ theta, const S* __restrict__ pose,
+    const S* __restrict__ half_ext, const uint8_t* __restrict__ valid,
+    const S* __restrict__ radius, S ehl, S ehw, int K, int T, int M,
+    uint8_t* __restrict__ out) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= K) return;
+  out[k] = candidate_hits<S>(k, cx, cy, theta, pose, half_ext, valid, radius,
+                             ehl, ehw, K, T, M) ? 1 : 0;
+}
+
+// Fleet form: problem f = blockIdx.y, every operand offset by its problem's
+// stride ([F, T, K] poses, [F, M, T, 3] obstacle rows, [F] ego extents read
+// from the device); all problems share the padded sizes T and M
+// (parallel/fleet.py pads the rows invalid with half extents 1: only valid
+// keeps them out).
+template <typename S>
+__global__ void __launch_bounds__(256) obb_collision_fleet_kernel(
+    const S* __restrict__ cx, const S* __restrict__ cy,
+    const S* __restrict__ theta, const S* __restrict__ pose,
+    const S* __restrict__ half_ext, const uint8_t* __restrict__ valid,
+    const S* __restrict__ radius, const S* __restrict__ ehl,
+    const S* __restrict__ ehw, int K, int T, int M,
+    uint8_t* __restrict__ out) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= K) return;
+  const size_t f = blockIdx.y;
+  const size_t tk = f * (size_t)T * K;
+  const size_t mt = f * (size_t)M * T;
+  out[f * (size_t)K + k] =
+      candidate_hits<S>(k, cx + tk, cy + tk, theta + tk, pose + mt * 3,
+                        half_ext + f * (size_t)M * 2, valid + mt,
+                        radius != nullptr ? radius + f * (size_t)M : nullptr,
+                        __ldg(ehl + f), __ldg(ehw + f), K, T, M)
+          ? 1 : 0;
+}
+
+template <typename S>
+int launch_fleet(const void* cx, const void* cy, const void* theta,
+                 const void* pose, const void* half_ext, const void* valid,
+                 const void* radius, const void* ehl, const void* ehw, int F,
+                 int K, int T, int M, void* out, void* stream) {
+  if (K <= 0 || F <= 0) return 0;
+  if (F > 65535) return (int)cudaErrorInvalidConfiguration;
+  const int threads = 256;
+  const dim3 blocks((K + threads - 1) / threads, F);
+  obb_collision_fleet_kernel<S><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      static_cast<const S*>(cx), static_cast<const S*>(cy),
+      static_cast<const S*>(theta), static_cast<const S*>(pose),
+      static_cast<const S*>(half_ext), static_cast<const uint8_t*>(valid),
+      static_cast<const S*>(radius), static_cast<const S*>(ehl),
+      static_cast<const S*>(ehw), K, T, M, static_cast<uint8_t*>(out));
+  return (int)cudaGetLastError();
 }
 
 template <typename S>
@@ -147,4 +215,25 @@ extern "C" int crp_obb_collision_f64(
     double ehw, int K, int T, int M, void* out, void* stream) {
   return launch<double>(cx, cy, theta, pose, half_ext, valid, radius, ehl,
                         ehw, K, T, M, out, stream);
+}
+
+// Fleet form: cx, cy, theta: [F, T, K]; pose: [F, M, T, 3]; half_ext:
+// [F, M, 2]; valid: [F, M, T] (bool bytes); radius: [F, M] or null; ehl, ehw:
+// [F] (device arrays); out: [F, K] uint8.  All contiguous.
+extern "C" int crp_obb_collision_fleet_f32(
+    const void* cx, const void* cy, const void* theta, const void* pose,
+    const void* half_ext, const void* valid, const void* radius,
+    const void* ehl, const void* ehw, int F, int K, int T, int M, void* out,
+    void* stream) {
+  return launch_fleet<float>(cx, cy, theta, pose, half_ext, valid, radius, ehl,
+                             ehw, F, K, T, M, out, stream);
+}
+
+extern "C" int crp_obb_collision_fleet_f64(
+    const void* cx, const void* cy, const void* theta, const void* pose,
+    const void* half_ext, const void* valid, const void* radius,
+    const void* ehl, const void* ehw, int F, int K, int T, int M, void* out,
+    void* stream) {
+  return launch_fleet<double>(cx, cy, theta, pose, half_ext, valid, radius,
+                              ehl, ehw, F, K, T, M, out, stream);
 }

@@ -38,6 +38,17 @@
 // Numerics: built without fast math, with IEEE division and square root and
 // without FMA contraction (-fmad=false), so each float32 operation rounds as
 // the plain version's separate tensor operations do.
+//
+// trivial_kernel is the launch-overhead probe: it replaces trivial_kernel of
+// scripts/t61_overhead_probe.py (:200, launched at :207), a Pallas kernel
+// with the scorer's operand family and no compute.  Here it reads the
+// scorer's operands (ScorerInputs, ops/scoring.py) and computes
+// out[k] = (coeffs_lon[k, 0] + v) + table[0, 0] + obs0 (obs0 = obs[0, 0, 0],
+// or 0 without obstacles), one thread per candidate in blocks of 256, and is
+// launched through the same library and ctypes route as score_kernel, so the
+// probe times the launch path the scorer pays.  The TPU's bf16 pair and band
+// stacks have no counterpart in the port, so their terms are not read.  It is
+// bound by launch latency: 8 bytes per candidate of traffic.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -485,7 +496,30 @@ __global__ void __launch_bounds__(256) fleet_score_kernel(
             T, flags, out_masked + fk, out_kin + fk, out_reason + fk);
 }
 
+__global__ void __launch_bounds__(256) trivial_kernel(
+    const float* __restrict__ coeffs_lon, const float* __restrict__ table,
+    const float* __restrict__ obs, int M, const float* __restrict__ v, int K,
+    float* __restrict__ out) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= K) return;
+  const float obs0 = M > 0 ? __ldg(obs) : 0.0f;
+  out[k] = (__ldg(coeffs_lon + k * 6) + __ldg(v)) + __ldg(table) + obs0;
+}
+
 }  // namespace
+
+// coeffs_lon: [K, 6]; table: [P, 12]; obs: [M, T, 7]; v: [1] on the device;
+// out: [K].  All float32, contiguous.
+extern "C" int crp_trivial(const float* coeffs_lon, const float* table,
+                           const float* obs, int M, const float* v, int K,
+                           float* out, void* stream) {
+  if (K <= 0) return 0;
+  const int threads = 256;
+  const int blocks = (K + threads - 1) / threads;
+  trivial_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      coeffs_lon, table, obs, M, v, K, out);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int crp_score_candidates(
     const float* coeffs_lon, const float* coeffs_lat, const float* traj_len,

@@ -22,7 +22,8 @@ from commonroad_rp_tpu_torch.ops.cycle import CostParams
 from commonroad_rp_tpu_torch.ops.frenet import RefPathTables
 from commonroad_rp_tpu_torch.ops.kinematics import (RolloutResult,
                                                     VehicleArrays)
-from commonroad_rp_tpu_torch.parallel.fleet import FleetCarry, FleetScene
+from commonroad_rp_tpu_torch.parallel.fleet import (CycleMetrics,
+                                                    FleetCarry, FleetScene)
 from commonroad_rp_tpu_torch.parallel.replanning_scan import (
     FacadeScanCarry, ReplanningCarry)
 
@@ -104,6 +105,13 @@ def fleet_scene(scene, device="cpu", dtype=None) -> FleetScene:
 def fleet_carry(carry, device="cpu") -> FleetCarry:
     """A JAX ``parallel.fleet.FleetCarry`` as the port's."""
     return _convert(carry, FleetCarry, device, None)
+
+
+def cycle_metrics(metrics, device="cpu") -> CycleMetrics:
+    """A JAX ``parallel.fleet.CycleMetrics`` as the port's (``orientation``
+    and ``velocity``, which the JAX metrics lack, stay None)."""
+    return CycleMetrics(*(tensor(getattr(metrics, name), device)
+                          for name in metrics._fields))
 
 
 def facade_carry(carry, device="cpu") -> FacadeScanCarry:

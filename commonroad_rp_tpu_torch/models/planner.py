@@ -65,14 +65,14 @@ _CONSTRAINT_ORDER = ("velocity", "acceleration", "kappa", "kappa_dot",
 
 
 def resolve_device(device=None) -> torch.device:
-    """``cuda`` when a card is present and no device is named, else ``cpu``;
-    a named CUDA device without a card raises."""
-    if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    device = torch.device(device)
+    """The planner's device: ``cuda`` when none is named.  A CUDA device
+    without a card raises (nothing carries on on the CPU unasked); the CPU
+    runs only when named (``device="cpu"``)."""
+    device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but "
-                           "torch.cuda.is_available() is false")
+                           "torch.cuda.is_available() is false; pass "
+                           "device='cpu' to run on the CPU")
     return device
 
 

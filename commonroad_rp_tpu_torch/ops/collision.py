@@ -12,6 +12,16 @@ is the CUDA kernel of ``ops.collision_kernel`` on the card), [T x B x K]
 segment tests, the corridor band probes (``check_corridor``) and the swept
 pass (``check_collisions_continuous``), in the tables' dtype (float32 or
 float64).  The fused scorer (``ops.scoring``) covers the float32 main path.
+
+``check_collisions`` and ``check_corridor`` also take a fleet: rollout states
+[F, K, T] with a leading problem axis, the scene tables of
+``parallel.fleet.FleetScene`` ([F, M, T, ...] rows, [F, P] corridor bands
+and reference arclengths) and per-problem vehicle extents [F] -- what
+``jax.vmap`` of the single-problem functions gives (the XLA fleet path,
+``commonroad_rp_tpu/parallel/fleet.py:138-144``).  The fleet's box/disc pass
+is one launch of the fleet form of the collision kernel; the polygon pass and
+the corridor probes stay tensor code over [F, T, K] arrays, one polygon piece
+and vertex at a time, so no [F, T, Mp, V, K] or [F, T, K, P] array is built.
 """
 
 from __future__ import annotations
@@ -21,7 +31,8 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from commonroad_rp_tpu_torch.ops.collision_kernel import obb_collision
+from commonroad_rp_tpu_torch.ops.collision_kernel import (obb_collision,
+                                                          obb_collision_fleet)
 from commonroad_rp_tpu_torch.utils.scenario import (Circle, Polygon, Rectangle,
                                               Scenario)
 
@@ -340,6 +351,10 @@ def check_corridor(s: torch.Tensor, d: torch.Tensor, theta_cl: torch.Tensor,
     """
     from commonroad_rp_tpu_torch.ops.frenet import searchsorted_right
 
+    if s.dim() == 3:
+        return _check_corridor_fleet(s, d, theta_cl, ref_s, corridor,
+                                     half_length, half_width, wb_rear_axle,
+                                     active)
     P = ref_s.shape[0]
     # step-major internally (the rollout's storage)
     s_t, d_t, theta_t = s.T, d.T, theta_cl.T
@@ -640,6 +655,13 @@ def check_collisions(x: torch.Tensor, y: torch.Tensor, theta: torch.Tensor,
     the card, its plain version on the CPU); the polygon and road-boundary
     passes are plain tensor code over [T, Mp|B, K].
     """
+    if x.dim() == 3:
+        if boundary is not None:
+            raise ValueError("check_collisions: the fleet form checks no "
+                             "road-boundary segments (the fleet path bounds "
+                             "the road with check_corridor)")
+        return _check_collisions_fleet(x, y, theta, obstacles, half_length,
+                                       half_width, wb_rear_axle)
     # step-major: the rollout's [K, T] arrays are views of [T, K] storage
     theta_t = theta.T.contiguous()                           # [T, K]
     cx = (x.T + wb_rear_axle * torch.cos(theta_t)).contiguous()
@@ -668,3 +690,133 @@ def check_collisions(x: torch.Tensor, y: torch.Tensor, theta: torch.Tensor,
             hit_b.reshape(-1, hit_b.shape[-1]), dim=0)
 
     return collides
+
+
+# ---------------------------------------------------------------------------
+# fleet forms: a leading problem axis F (jax.vmap of the functions above)
+# ---------------------------------------------------------------------------
+
+def _per_problem(value, like: torch.Tensor) -> torch.Tensor:
+    """A vehicle value -- a Python float, a 0-d tensor or per-problem [F] --
+    shaped [F, 1, 1] (or left a float) to broadcast against [F, T, K]."""
+    if isinstance(value, torch.Tensor) and value.dim() == 1:
+        return value.to(like.dtype).reshape(-1, 1, 1)
+    return value
+
+
+def per_problem_vector(value, like: torch.Tensor) -> torch.Tensor:
+    """A vehicle value (a Python float, a 0-d or an [F] tensor) as a
+    contiguous [F] tensor on ``like``'s device and in its dtype, F =
+    ``like.shape[0]`` (a fill for a Python float: no host-to-device copy)."""
+    F = like.shape[0]
+    if isinstance(value, torch.Tensor):
+        return value.to(like.dtype).expand(F).contiguous()
+    return torch.full((F,), float(value), dtype=like.dtype, device=like.device)
+
+
+def _poly_obb_overlap_fleet(vt, pvalid, cx, cy, e_cos, e_sin, ehl,
+                            ehw) -> torch.Tensor:
+    """:func:`_poly_obb_overlap_tmajor` with a leading problem axis, reduced
+    over steps and pieces: the hit mask [F, K].
+
+    vt: [F, T, Mp, V, 2] world vertices; pvalid: [F, T, Mp]; cx/cy/e_cos/
+    e_sin: [F, T, K]; ehl/ehw: [F, 1, 1] (or floats).  Each piece and vertex
+    is one [F, T, K] step of a Python loop (Mp and V are a few), with the
+    single-problem form's arithmetic element for element."""
+    F, T, Mp, V, _ = vt.shape
+    edges = torch.roll(vt, -1, dims=3) - vt                    # [F, T, Mp, V, 2]
+    nx = -edges[..., 1]
+    ny = edges[..., 0]
+    vert_proj = (nx[..., None] * vt[..., 0][..., None, :] +
+                 ny[..., None] * vt[..., 1][..., None, :])     # [F, T, Mp, V, V]
+    lo_n = torch.amin(vert_proj, dim=-1)
+    hi_n = torch.amax(vert_proj, dim=-1)
+    hit = torch.zeros((F, cx.shape[-1]), dtype=torch.bool, device=cx.device)
+    for m in range(Mp):
+        bounds = None
+        for v in range(V):
+            rel_x = vt[:, :, m, v, 0, None] - cx                # [F, T, K]
+            rel_y = vt[:, :, m, v, 1, None] - cy
+            proj = (rel_x * e_cos + rel_y * e_sin,
+                    -rel_x * e_sin + rel_y * e_cos)
+            bounds = [(p, p) for p in proj] if bounds is None else [
+                (torch.minimum(lo, p), torch.maximum(hi, p))
+                for (lo, hi), p in zip(bounds, proj)]
+        (maj_lo, maj_hi), (min_lo, min_hi) = bounds
+        sep = (maj_lo > ehl) | (maj_hi < -ehl)
+        sep = sep | (min_lo > ehw) | (min_hi < -ehw)
+        for e in range(V):
+            nx_e = nx[:, :, m, e, None]                         # [F, T, 1]
+            ny_e = ny[:, :, m, e, None]
+            c_proj = nx_e * cx + ny_e * cy
+            r_ego = (ehl * torch.abs(nx_e * e_cos + ny_e * e_sin) +
+                     ehw * torch.abs(-nx_e * e_sin + ny_e * e_cos))
+            sep = sep | (c_proj - r_ego > hi_n[:, :, m, e, None]) | \
+                (c_proj + r_ego < lo_n[:, :, m, e, None])
+        hit = hit | torch.any(~sep & pvalid[:, :, m, None], dim=1)
+    return hit
+
+
+def _check_collisions_fleet(x, y, theta, obstacles: ObstacleArrays,
+                            half_length, half_width,
+                            wb_rear_axle) -> torch.Tensor:
+    """Collision masks [F, K] for F problems' trajectories [F, K, T]
+    against ``obstacles`` with leading problem axes (pose [F, M, T, 3],
+    half_ext [F, M, 2], valid [F, M, T], radius [F, M] or None, poly_verts
+    [F, Mp, T, V, 2] or None, poly_valid [F, Mp, T]); vehicle values are
+    floats, 0-d or [F] tensors."""
+    theta_t = theta.transpose(1, 2).contiguous()             # [F, T, K]
+    wb = _per_problem(wb_rear_axle, theta_t)
+    cx = (x.transpose(1, 2) + wb * torch.cos(theta_t)).contiguous()
+    cy = (y.transpose(1, 2) + wb * torch.sin(theta_t)).contiguous()
+    box = ObstacleArrays(
+        pose=obstacles.pose.contiguous(),
+        half_ext=obstacles.half_ext.contiguous(),
+        valid=obstacles.valid.contiguous(),
+        radius=None if obstacles.radius is None
+        else obstacles.radius.contiguous())
+    collides = obb_collision_fleet(
+        cx, cy, theta_t, box, per_problem_vector(half_length, theta_t),
+        per_problem_vector(half_width, theta_t))
+    if obstacles.poly_verts is not None and obstacles.poly_verts.shape[1]:
+        collides = collides | _poly_obb_overlap_fleet(
+            obstacles.poly_verts.transpose(1, 2),
+            obstacles.poly_valid.transpose(1, 2), cx, cy,
+            torch.cos(theta_t), torch.sin(theta_t),
+            _per_problem(half_length, theta_t),
+            _per_problem(half_width, theta_t))
+    return collides
+
+
+def _check_corridor_fleet(s, d, theta_cl, ref_s, corridor: CorridorArrays,
+                          half_length, half_width, wb_rear_axle,
+                          active=None) -> torch.Tensor:
+    """Road-boundary violation masks [F, K] for rollout states [F, K, T]
+    against per-problem bands [F, P] over arclengths [F, P]."""
+    from commonroad_rp_tpu_torch.ops.frenet import (searchsorted_right,
+                                                    take_rows)
+
+    P = ref_s.shape[-1]
+    s_t, d_t, theta_t = (a.transpose(1, 2) for a in (s, d, theta_cl))
+    wb = _per_problem(wb_rear_axle, s_t)
+    hl = _per_problem(half_length, s_t)
+    hw = _per_problem(half_width, s_t)
+    s_center = s_t + wb * torch.cos(theta_t)
+    d_center = d_t + wb * torch.sin(theta_t)
+    lat_ext = (hw * torch.abs(torch.cos(theta_t)) +
+               hl * torch.abs(torch.sin(theta_t)))
+    lon_ext = (hl * torch.abs(torch.cos(theta_t)) +
+               hw * torch.abs(torch.sin(theta_t)))
+
+    bands = torch.stack([corridor.d_lo, corridor.d_hi], dim=-1)     # [F, P, 2]
+    violate = torch.zeros(s_t.shape, dtype=torch.bool, device=s.device)
+    for offset in (-1.0, 0.0, 1.0):
+        s_probe = s_center + offset * lon_ext
+        seg = torch.clamp(searchsorted_right(ref_s, s_probe) - 1, 0, P - 1)
+        rows = take_rows(bands, seg, batched=True)                  # [F, T, K, 2]
+        lo, hi = rows[..., 0], rows[..., 1]
+        violate = violate | (d_center + lat_ext > hi) | \
+            (d_center - lat_ext < lo)
+    if active is not None:
+        violate = violate & active.transpose(1, 2)
+    return torch.any(violate, dim=1)

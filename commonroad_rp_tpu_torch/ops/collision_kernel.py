@@ -14,6 +14,13 @@ float64 instance, built with nvcc on first use, bound through ctypes) for
 tensors on the card and raises if it cannot; for tensors on the CPU it runs
 the plain PyTorch version ``obb_collision_reference``.
 ``obb_collision.launches`` counts kernel launches only.
+
+``obb_collision_fleet`` is the fleet form of the same pass (the XLA fleet
+path's ``check_collisions``, ``jax.vmap`` of the single-problem pass at
+``commonroad_rp_tpu/parallel/fleet.py:138-140``): F problems' poses
+[F, T, K] against their rows [F, M, T] in one launch, with per-problem ego
+extents [F]; plain version ``obb_collision_fleet_reference``, launch count
+``obb_collision_fleet.launches``.
 """
 
 from __future__ import annotations
@@ -80,6 +87,57 @@ def obb_collision_reference(cx: torch.Tensor, cy: torch.Tensor,
     return torch.any(hit.reshape(-1, K), dim=0)
 
 
+def obb_collision_fleet_reference(cx: torch.Tensor, cy: torch.Tensor,
+                                  theta: torch.Tensor,
+                                  obstacles: ObstacleArrays, half_length,
+                                  half_width) -> torch.Tensor:
+    """Plain PyTorch version of the fleet kernel (same arguments and output
+    as :func:`obb_collision_fleet`): :func:`obb_collision_reference` with a
+    leading problem axis, dense [F, T, M, K] separating-axis tests."""
+    F, _, K = cx.shape
+    if obstacles.pose.shape[1] == 0:
+        return torch.zeros((F, K), dtype=torch.bool, device=cx.device)
+    per = lambda x: torch.as_tensor(x, dtype=cx.dtype, device=cx.device) \
+        .reshape(-1, 1, 1, 1)                                # [F|1, 1, 1, 1]
+    e_cos = torch.cos(theta)[:, :, None, :]                  # [F, T, 1, K]
+    e_sin = torch.sin(theta)[:, :, None, :]
+    ex = cx[:, :, None, :]
+    ey = cy[:, :, None, :]
+    ehl, ehw = per(half_length), per(half_width)
+
+    pose = obstacles.pose.transpose(1, 2)                    # [F, T, M, 3]
+    ox = pose[..., 0:1]                                      # [F, T, M, 1]
+    oy = pose[..., 1:2]
+    otheta = pose[..., 2:3]
+    ohl = obstacles.half_ext[:, None, :, 0:1]                # [F, 1, M, 1]
+    ohw = obstacles.half_ext[:, None, :, 1:2]
+
+    o_cos = torch.cos(otheta)
+    o_sin = torch.sin(otheta)
+    dx = ox - ex                                             # [F, T, M, K]
+    dy = oy - ey
+    rel_cos = torch.abs(e_cos * o_cos + e_sin * o_sin)
+    rel_sin = torch.abs(o_sin * e_cos - o_cos * e_sin)
+
+    lx = torch.abs(dx * e_cos + dy * e_sin)
+    ly = torch.abs(-dx * e_sin + dy * e_cos)
+    sep = lx > ehl + ohl * rel_cos + ohw * rel_sin
+    sep = sep | (ly > ehw + ohl * rel_sin + ohw * rel_cos)
+    sep = sep | (torch.abs(dx * o_cos + dy * o_sin) >
+                 ohl + ehl * rel_cos + ehw * rel_sin)
+    sep = sep | (torch.abs(-dx * o_sin + dy * o_cos) >
+                 ohw + ehl * rel_sin + ehw * rel_cos)
+    hit = ~sep
+    if obstacles.radius is not None:
+        r = obstacles.radius[:, None, :, None]               # [F, 1, M, 1]
+        qx = torch.clamp(lx - ehl, min=0.0)
+        qy = torch.clamp(ly - ehw, min=0.0)
+        disc_hit = qx * qx + qy * qy <= r * r
+        hit = torch.where(r > 0, disc_hit, hit)
+    hit = hit & obstacles.valid.transpose(1, 2)[..., None]
+    return torch.any(hit.reshape(F, -1, K), dim=1)
+
+
 def _bind(lib: ctypes.CDLL):
     p, i = ctypes.c_void_p, ctypes.c_int
     for name, scalar in (("crp_obb_collision_f32", ctypes.c_float),
@@ -87,31 +145,44 @@ def _bind(lib: ctypes.CDLL):
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, p, p, p, p, scalar, scalar, i, i, i, p, p]
         fn.restype = ctypes.c_int
+    for name in ("crp_obb_collision_fleet_f32", "crp_obb_collision_fleet_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, p, p]
+        fn.restype = ctypes.c_int
 
 
-def _check_operands(cx, cy, theta, obstacles):
+def _check_operands(cx, cy, theta, obstacles, extents=(),
+                    who="obb_collision"):
+    """Raise unless every operand is contiguous, on ``cx``'s device, in its
+    dtype (float32 or float64; ``valid`` bool), of the kernel's shapes: [T, K]
+    poses and [M, ...] rows, or with a leading problem axis [F, ...] (then
+    ``extents`` are the [F] ego half extents)."""
     dtype, device = cx.dtype, cx.device
     if dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"obb_collision: dtype {dtype}; the kernel takes "
+        raise ValueError(f"{who}: dtype {dtype}; the kernel takes "
                          "float32 or float64")
-    T, K = cx.shape
-    M = obstacles.pose.shape[0]
-    expect = [("cx", cx, (T, K)), ("cy", cy, (T, K)),
-              ("theta", theta, (T, K)), ("pose", obstacles.pose, (M, T, 3)),
-              ("half_ext", obstacles.half_ext, (M, 2))]
+    lead = tuple(cx.shape[:-2])                      # () or (F,)
+    T, K = cx.shape[-2:]
+    M = obstacles.pose.shape[len(lead)]
+    expect = [("cx", cx, lead + (T, K)), ("cy", cy, lead + (T, K)),
+              ("theta", theta, lead + (T, K)),
+              ("pose", obstacles.pose, lead + (M, T, 3)),
+              ("half_ext", obstacles.half_ext, lead + (M, 2))]
     if obstacles.radius is not None:
-        expect.append(("radius", obstacles.radius, (M,)))
+        expect.append(("radius", obstacles.radius, lead + (M,)))
+    expect += [(name, t, lead) for name, t in
+               zip(("half_length", "half_width"), extents)]
     for name, t, shape in expect:
         if t.dtype != dtype or t.device != device or \
                 tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"obb_collision: {name} must be a contiguous "
+            raise ValueError(f"{who}: {name} must be a contiguous "
                              f"{dtype} tensor of shape {shape} on {device}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     valid = obstacles.valid
     if valid.dtype != torch.bool or valid.device != device or \
-            tuple(valid.shape) != (M, T) or not valid.is_contiguous():
-        raise ValueError(f"obb_collision: valid must be a contiguous bool "
-                         f"tensor of shape {(M, T)} on {device}")
+            tuple(valid.shape) != lead + (M, T) or not valid.is_contiguous():
+        raise ValueError(f"{who}: valid must be a contiguous bool "
+                         f"tensor of shape {lead + (M, T)} on {device}")
 
 
 def _launch(cx, cy, theta, obstacles, half_length, half_width):
@@ -163,4 +234,60 @@ def obb_collision(cx: torch.Tensor, cy: torch.Tensor, theta: torch.Tensor,
     return _launch(cx, cy, theta, obstacles, half_length, half_width)
 
 
+def _launch_fleet(cx, cy, theta, obstacles, half_length, half_width):
+    _check_operands(cx, cy, theta, obstacles, (half_length, half_width),
+                    "obb_collision_fleet")
+    F, T, K = cx.shape
+    M = obstacles.pose.shape[1]
+    out = torch.empty((F, K), dtype=torch.uint8, device=cx.device)
+    lib = cuda_build.load(KERNEL_SOURCE, _bind)
+    fn = lib.crp_obb_collision_fleet_f32 if cx.dtype == torch.float32 \
+        else lib.crp_obb_collision_fleet_f64
+    radius = obstacles.radius
+    stream = torch.cuda.current_stream(cx.device).cuda_stream
+    rc = fn(cx.data_ptr(), cy.data_ptr(), theta.data_ptr(),
+            obstacles.pose.data_ptr(), obstacles.half_ext.data_ptr(),
+            obstacles.valid.data_ptr(),
+            None if radius is None else radius.data_ptr(),
+            half_length.data_ptr(), half_width.data_ptr(), F, K, T, M,
+            out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"fleet collision kernel launch failed: CUDA "
+                           f"error {rc}")
+    obb_collision_fleet.launches += 1
+    return out.to(torch.bool)
+
+
+def obb_collision_fleet(cx: torch.Tensor, cy: torch.Tensor,
+                        theta: torch.Tensor, obstacles: ObstacleArrays,
+                        half_length: torch.Tensor,
+                        half_width: torch.Tensor) -> torch.Tensor:
+    """Collision masks [F, K] (bool) of F problems' ego OBBs against their
+    box/disc groups, in one launch.
+
+    ``cx``/``cy``/``theta`` [F, T, K]: ego OBB centers (already shifted
+    ``wb_rear_axle`` ahead of the rear axle) and headings, contiguous, in the
+    rows' dtype (float32 or float64); ``obstacles``: pose [F, M, T, 3], half
+    extents [F, M, 2], valid [F, M, T] (bool), optional disc radii [F, M]
+    (padded rows are kept out by ``valid`` alone; the polygon group is not
+    read); ``half_length``/``half_width``: the per-problem ego half extents,
+    [F] tensors on the same device.  With M = 0 nothing is launched.
+
+    CUDA inputs launch the kernel (``obb_collision_fleet.launches`` counts
+    the launches) and raise if it cannot be built or launched; CPU inputs
+    run :func:`obb_collision_fleet_reference`.
+    """
+    device = cx.device
+    if device.type == "cpu":
+        return obb_collision_fleet_reference(cx, cy, theta, obstacles,
+                                             half_length, half_width)
+    if device.type != "cuda":
+        raise ValueError(f"obb_collision_fleet: unsupported device {device}")
+    if obstacles.pose.shape[1] == 0:
+        return torch.zeros(cx.shape[0], cx.shape[2], dtype=torch.bool,
+                           device=device)
+    return _launch_fleet(cx, cy, theta, obstacles, half_length, half_width)
+
+
 obb_collision.launches = 0
+obb_collision_fleet.launches = 0

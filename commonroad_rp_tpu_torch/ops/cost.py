@@ -20,12 +20,20 @@ def default_cost(rollout: RolloutResult, w_a, desired_d,
 
     ``desired_speed``/``desired_s`` are None when unset (velocity cost and
     stopping cost are then omitted, matching the reference's None checks).
-    Returns [K] costs.
+    Returns [K] costs; for a fleet's rollout ([F, K, T] arrays) [F, K]
+    costs, with per-problem targets [F] (``jax.vmap`` of the JAX function).
     """
-    # step-major: the rollout's [K, T] arrays are views of [T, K] storage
-    v, a = rollout.v.T, rollout.a.T
-    s, d, theta_cl = rollout.s.T, rollout.d.T, rollout.theta_cl.T
+    # step-major: the rollout's [(F,) K, T] arrays are views of [T, (F,) K]
+    # storage
+    v, a = rollout.v.movedim(-1, 0), rollout.a.movedim(-1, 0)
+    s, d = rollout.s.movedim(-1, 0), rollout.d.movedim(-1, 0)
+    theta_cl = rollout.theta_cl.movedim(-1, 0)
     T = v.shape[0]
+    if v.dim() == 3:
+        per = lambda x: x.reshape(-1, 1) \
+            if isinstance(x, torch.Tensor) and x.dim() == 1 else x
+        desired_speed, desired_s = per(desired_speed), per(desired_s)
+        desired_d = per(desired_d)
 
     # acceleration costs (:54)
     costs = torch.sum((w_a * a) ** 2, dim=0)

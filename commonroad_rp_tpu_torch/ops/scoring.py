@@ -764,8 +764,10 @@ def _bind(lib: ctypes.CDLL):
         p, p, p, p, p, i, p, i, p, i, i, p, i, i, i, p, p, p, p]
     lib.crp_score_fleet.argtypes = [
         p, p, p, p, p, i, p, i, p, i, i, p, i, i, i, i, p, p, p, p]
+    lib.crp_trivial.argtypes = [p, p, p, i, p, i, p, p]
     lib.crp_score_candidates.restype = ctypes.c_int
     lib.crp_score_fleet.restype = ctypes.c_int
+    lib.crp_trivial.restype = ctypes.c_int
 
 
 def _library() -> ctypes.CDLL:
@@ -894,5 +896,52 @@ def score_fleet(coeffs_lon, coeffs_lat, traj_len, goal_valid, packed_tables,
         has_desired_s=has_desired_s))
 
 
+# ---------------------------------------------------------------------------
+# the launch-overhead probe: a kernel with the scorer's operands, no compute
+# ---------------------------------------------------------------------------
+
+def trivial_probe_reference(inp: ScorerInputs, v) -> torch.Tensor:
+    """Plain PyTorch version of the probe kernel (same arguments and output
+    as :func:`trivial_probe`): (coeffs_lon[:, 0] + v) + table[0, 0] + obs0,
+    obs0 = obs[0, 0, 0] or 0 without obstacles -- the function of the TPU
+    probe's ``trivial_kernel`` (scripts/t61_overhead_probe.py:200) on the
+    port's operands."""
+    cl0 = inp.coeffs_lon[:, 0]
+    obs0 = inp.obs[0, 0, 0] if inp.obs.shape[0] else cl0.new_zeros(())
+    return (cl0 + v) + inp.table[0, 0] + obs0
+
+
+def trivial_probe(inp: ScorerInputs, v: torch.Tensor) -> torch.Tensor:
+    """[K] float32 from prepared scorer operands and a float32 scalar ``v``
+    (a 0-d or [1] tensor on the operands' device): the launch-overhead
+    probe of ``probes.t61_overhead``.
+
+    CUDA operands launch ``trivial_kernel`` of ``csrc/scoring.cu`` through
+    the scorer's library (``trivial_probe.launches`` counts the launches)
+    and raise if it cannot be built or launched; CPU operands run
+    :func:`trivial_probe_reference`."""
+    device = inp.coeffs_lon.device
+    if device.type == "cpu":
+        return trivial_probe_reference(inp, v)
+    if device.type != "cuda":
+        raise ValueError(f"trivial_probe: unsupported device {device}")
+    _check_kernel_operands(inp, "trivial_probe")
+    if v.dtype != torch.float32 or v.device != device or v.numel() != 1:
+        raise ValueError("trivial_probe: v must be one float32 value on "
+                         f"{device}")
+    K = inp.coeffs_lon.shape[0]
+    out = torch.empty(K, dtype=torch.float32, device=device)
+    v = v.reshape(1).contiguous()
+    rc = _library().crp_trivial(
+        inp.coeffs_lon.data_ptr(), inp.table.data_ptr(), inp.obs.data_ptr(),
+        inp.obs.shape[0], v.data_ptr(), K, out.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"probe kernel launch failed: CUDA error {rc}")
+    trivial_probe.launches += 1
+    return out
+
+
 score_candidates.launches = 0
 score_fleet.launches = 0
+trivial_probe.launches = 0

@@ -1,29 +1,39 @@
-"""Fleet planning state: many independent planning problems stacked.
+"""Fleet planning: many independent planning problems replanned in lockstep.
 
-Counterpart of the host half of ``commonroad_rp_tpu/parallel/fleet.py``:
-``FleetScene`` (per-problem scene tables with a leading fleet axis F),
-``FleetCarry`` (per-problem planner state between cycles), ``pad_fleet``,
-``build_fleet_scene`` and ``problem_from_planner_setup``.  The assembly is
-host-side numpy; each leaf is uploaded once to the fleet's device.  The
-fleet replanning loop on the fused fleet scorer is
+Counterpart of ``commonroad_rp_tpu/parallel/fleet.py``: ``FleetScene``
+(per-problem scene tables with a leading fleet axis F), ``FleetCarry``
+(per-problem planner state between cycles), ``pad_fleet``,
+``build_fleet_scene`` and ``problem_from_planner_setup`` (host-side numpy
+assembly, each leaf uploaded once to the fleet's device), and the XLA fleet
+path: ``_single_problem_cycle``, ``make_fleet_step`` and
+``make_fleet_rollout``.
+
+The XLA fleet path evaluates every candidate of every problem densely --
+grid generation, the K-wide rollout, the cost, ``check_collisions`` (one
+launch of the fleet form of the collision kernel per cycle) and
+``check_corridor`` -- and advances ``replan_offset`` steps along each
+problem's optimum.  ``jax.vmap`` over problems becomes one batched program
+over the leading axis; ``shard_map`` over the fleet mesh becomes one process
+per slice of the fleet (``parallel.mesh.shard_fleet``), whose three per-cycle
+aggregates are summed by ``parallel.mesh.fleet_all_reduce``; ``lax.scan``
+becomes a Python loop that reads nothing from the device between cycles.
+The fleet replanning loop on the fused fleet scorer is
 ``parallel.replanning_scan.make_fleet_scan``.
-
-Not ported yet: the XLA fleet path (``make_fleet_step``,
-``make_fleet_rollout``, ``_single_problem_cycle``), which runs the
-conformance checks per problem (an [F, ...] form of the collision kernel)
-and shards over a mesh (ROADMAP queue 1 items 7 and 10).
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from commonroad_rp_tpu_torch.ops import collision as collision_ops
+from commonroad_rp_tpu_torch.ops import cost as cost_ops
 from commonroad_rp_tpu_torch.ops import frenet as frenet_ops
+from commonroad_rp_tpu_torch.ops import grid as grid_ops
 from commonroad_rp_tpu_torch.ops import kinematics as kin_ops
+from commonroad_rp_tpu_torch.parallel.mesh import fleet_all_reduce
 
 
 class FleetScene(NamedTuple):
@@ -60,10 +70,235 @@ class FleetCarry(NamedTuple):
     py: torch.Tensor                       # [F] cartesian y (rear axle)
 
 
+class CycleMetrics(NamedTuple):
+    """Per-cycle outputs of the XLA fleet path, stacked over cycles by
+    ``make_fleet_rollout``.  The first six fields are the JAX package's;
+    ``orientation``/``velocity`` (the selected next heading and speed, as the
+    fused fleet scan's metrics carry them) feed the host-side goal check of
+    ``run_fleet --xla``."""
+
+    found: torch.Tensor                    # [F] bool
+    best_cost: torch.Tensor                # [F]
+    x: torch.Tensor                        # [F] selected next x position
+    y: torch.Tensor                        # [F]
+    fleet_success: torch.Tensor            # scalar: sum of found over the fleet
+    fleet_mean_cost: torch.Tensor          # scalar
+    orientation: Optional[torch.Tensor] = None   # [F]
+    velocity: Optional[torch.Tensor] = None      # [F]
+
+
 def _host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def _window(table: torch.Tensor, time_step: torch.Tensor, T: int):
+    """``dynamic_slice_in_dim(table, time_step, T, axis=1)`` per problem
+    over [F, M, T_scene, ...] tables (the start clamped to [0, T_scene - T])
+    and the mask [F, 1, T] of window steps inside the span (``time_step + t
+    < T_scene``): one gather, no device read."""
+    F, M, n = table.shape[:3]
+    ts = time_step.to(torch.int64)[:, None]                    # [F, 1]
+    ar = torch.arange(T, device=table.device)
+    rows = torch.clamp(ts, 0, n - T) + ar                      # [F, T]
+    index = rows.reshape((F, 1, T) + (1,) * (table.dim() - 3)).expand(
+        (F, M, T) + tuple(table.shape[3:]))
+    return torch.gather(table, 2, index), ((ts + ar) < n)[:, None, :]
+
+
+def _single_problem_cycle(carry_lon, carry_lat, orientation, velocity,
+                          time_step, alive,
+                          ref: frenet_ops.RefPathTables,
+                          obs_pose, obs_half, obs_valid, obs_radius,
+                          poly_verts, poly_valid,
+                          corridor_lo, corridor_hi, desired_speed,
+                          veh: kin_ops.VehicleArrays,
+                          kappa=None, px=None, py=None,
+                          *, static_grid: grid_ops.StaticGrid,
+                          dt: float, n_steps: int, replan_offset: int,
+                          low_vel_threshold: float, horizon: float,
+                          standstill_lookahead: int = 10):
+    """One planning cycle for every problem of the fleet (or of this rank's
+    slice) at once: the JAX function under ``jax.vmap``, as one batched
+    program over the leading problem axis F.
+
+    Every argument carries that axis (carry [F, 3] / [F], scene tables
+    [F, ...], vehicle leaves [F]).  With ``kappa``/``px``/``py`` given (the
+    FleetCarry pose fields), the standstill fallback (reactive_planner.py:
+    638-653) engages on device: at v ~ 0 with no feasible candidate (or a
+    winner still slow at the lookahead step) the member freezes its pose at
+    v = 0 / cost 0 and stays alive.  Without them failure deadens the
+    member.  Returns (carry fields, (found, best cost, x, y, orientation,
+    velocity)), each [F]."""
+    dtype = carry_lon.dtype
+    F = carry_lon.shape[0]
+
+    # velocity window (reactive_planner.py:332-334)
+    v_min = torch.clamp(velocity - 0.125 * horizon * veh.a_max, min=0.0)
+    v_max = torch.maximum(v_min + 5.0, velocity + 2.0)
+    low_vel = velocity < low_vel_threshold
+
+    coeffs_lon, coeffs_lat, traj_len = grid_ops.velocity_keeping_candidates(
+        carry_lon, carry_lat, v_min, v_max, low_vel, static_grid)
+    rollout = kin_ops.rollout(coeffs_lon, coeffs_lat, traj_len, ref, veh,
+                              orientation, dt, n_steps, low_vel)
+    costs = cost_ops.default_cost(rollout, w_a=5.0, desired_d=0.0,
+                                  desired_speed=desired_speed)     # [F, K]
+
+    # obstacle windows starting at each problem's current scenario step;
+    # the start clamps as dynamic_slice's does, so windows past the
+    # prediction span would repeat stale poses -- those steps are invalid
+    T = n_steps + 1
+    window_pose, _ = _window(obs_pose, time_step, T)
+    window_valid, in_span = _window(obs_valid, time_step, T)
+    poly_w = poly_valid_w = None
+    if poly_verts.shape[1] > 0:
+        poly_w, _ = _window(poly_verts, time_step, T)
+        poly_valid_w, in_span_p = _window(poly_valid, time_step, T)
+        poly_valid_w = poly_valid_w & in_span_p
+    obstacles = collision_ops.ObstacleArrays(
+        pose=window_pose, half_ext=obs_half, valid=window_valid & in_span,
+        radius=obs_radius, poly_verts=poly_w, poly_valid=poly_valid_w)
+    collides = collision_ops.check_collisions(
+        rollout.x, rollout.y, rollout.theta_gl, obstacles, None,
+        veh.half_length, veh.half_width, veh.wb_rear_axle)
+    corridor = collision_ops.CorridorArrays(d_lo=corridor_lo, d_hi=corridor_hi)
+    collides = collides | collision_ops.check_corridor(
+        rollout.s, rollout.d, rollout.theta_cl, ref.s, corridor,
+        veh.half_length, veh.half_width, veh.wb_rear_axle)
+
+    ok = rollout.feasible & ~collides
+    inf = torch.full((), np.inf, dtype=dtype, device=costs.device)
+    masked = torch.where(ok, costs, inf)
+    best = torch.argmin(masked, dim=1)                             # [F]
+    found = torch.any(ok, dim=1)
+
+    # advance replan_offset steps along the optimum (run_planner.py:94-107;
+    # curvilinear carry from the trajectory arrays as in run_planner.py:85)
+    r = replan_offset
+    problem = torch.arange(F, device=best.device)
+    at = lambda arr, step=r: arr[problem, best, step]
+    new_lon = torch.stack([at(rollout.s), at(rollout.s_dot),
+                           at(rollout.s_ddot)], dim=1)
+    new_lat = torch.stack([at(rollout.d), at(rollout.d_dot),
+                           at(rollout.d_ddot)], dim=1)
+    new_orientation = at(rollout.theta_gl)
+    new_velocity = at(rollout.v)
+    new_x = at(rollout.x)
+    new_y = at(rollout.y)
+    new_kappa = at(rollout.kappa_gl)
+    best_cost = masked[problem, best]
+
+    if kappa is not None:
+        # device-side standstill fallback (reactive_planner.py:638-653)
+        lookahead = min(standstill_lookahead, n_steps)
+        standstill = ((velocity <= 0.05)
+                      & (~found | (at(rollout.v, lookahead) <= 0.05)))
+        new_lon = torch.where(standstill[:, None], carry_lon, new_lon)
+        new_lat = torch.where(standstill[:, None], carry_lat, new_lat)
+        new_orientation = torch.where(standstill, orientation,
+                                      new_orientation)
+        new_velocity = torch.where(standstill, 0.0, new_velocity)
+        new_x = torch.where(standstill, px, new_x)
+        new_y = torch.where(standstill, py, new_y)
+        new_kappa = torch.where(standstill, kappa, new_kappa)
+        best_cost = torch.where(standstill, 0.0, best_cost)
+        found = found | standstill
+
+    step_alive = alive & found
+    keep = lambda new, old: torch.where(
+        step_alive.reshape((F,) + (1,) * (new.dim() - 1)), new, old)
+    out_carry = (keep(new_lon, carry_lon), keep(new_lat, carry_lat),
+                 keep(new_orientation, orientation),
+                 keep(new_velocity, velocity),
+                 torch.where(step_alive, time_step + r, time_step),
+                 step_alive,
+                 keep(new_kappa, kappa) if kappa is not None else None,
+                 keep(new_x, px) if px is not None else None,
+                 keep(new_y, py) if py is not None else None)
+    # dead members (incl. pad_fleet padding) report found=False / inf cost so
+    # fleet aggregates count live problems only
+    metrics = (step_alive, torch.where(step_alive, best_cost, inf),
+               new_x, new_y, new_orientation, new_velocity)
+    return out_carry, metrics
+
+
+def make_fleet_step(group, veh: Optional[kin_ops.VehicleArrays],
+                    static_grid: grid_ops.StaticGrid, dt: float, n_steps: int,
+                    replan_offset: int, low_vel_threshold: float,
+                    horizon: float, device="cuda"):
+    """The one-cycle fleet step: ``step(carry: FleetCarry, scene: FleetScene)
+    -> (FleetCarry, CycleMetrics)``.
+
+    Vehicle parameters come from scene.veh ([F] leaves: heterogeneous
+    fleets); ``veh``, if given, overrides them with one shared parameter set
+    (floats or 0-d tensors).  ``group`` is a ``torch.distributed`` process
+    group over the fleet axis (``parallel.mesh``), or None for one process:
+    under a group, ``carry`` and ``scene`` are this rank's slice
+    (``parallel.mesh.shard_fleet``), and the three fleet aggregates (success
+    count, cost sum, finite count: ``psum`` in the JAX package) are three
+    one-element ``fleet_all_reduce`` calls.  The grid's constants are
+    uploaded to ``device`` here, before any cycle.
+    """
+    grid_ops.upload_constants(static_grid, torch.device(device))
+
+    def step(carry: FleetCarry, scene: FleetScene):
+        # one shared parameter set as [F] leaves (fills: no host-to-device
+        # copy inside a cycle)
+        veh_f = scene.veh if veh is None else kin_ops.VehicleArrays(*(
+            collision_ops.per_problem_vector(x, carry.velocity)
+            for x in veh))
+        out_carry, (found, best_cost, x, y, theta, v) = _single_problem_cycle(
+            carry.x0_lon, carry.x0_lat, carry.orientation, carry.velocity,
+            carry.time_step, carry.alive, scene.ref, scene.obs_pose,
+            scene.obs_half, scene.obs_valid, scene.obs_radius,
+            scene.poly_verts, scene.poly_valid, scene.corridor_lo,
+            scene.corridor_hi, scene.desired_speed, veh_f,
+            carry.kappa, carry.px, carry.py, static_grid=static_grid, dt=dt,
+            n_steps=n_steps, replan_offset=replan_offset,
+            low_vel_threshold=low_vel_threshold, horizon=horizon)
+        n_success = torch.sum(found.to(torch.int32))
+        finite = torch.isfinite(best_cost)
+        cost_sum = torch.sum(torch.where(finite, best_cost, 0.0))
+        n_finite = torch.sum(finite.to(torch.int32))
+        if group is not None:
+            # fleet-level aggregates over the ranks of the fleet axis
+            n_success = fleet_all_reduce(n_success, group)
+            cost_sum = fleet_all_reduce(cost_sum, group)
+            n_finite = fleet_all_reduce(n_finite, group)
+        mean_cost = cost_sum / torch.clamp(n_finite, min=1)
+        metrics = CycleMetrics(found=found, best_cost=best_cost, x=x, y=y,
+                               fleet_success=n_success,
+                               fleet_mean_cost=mean_cost, orientation=theta,
+                               velocity=v)
+        return FleetCarry(*out_carry), metrics
+
+    return step
+
+
+def make_fleet_rollout(group, veh: Optional[kin_ops.VehicleArrays],
+                       static_grid: grid_ops.StaticGrid, dt: float,
+                       n_steps: int, replan_offset: int,
+                       low_vel_threshold: float, horizon: float,
+                       n_cycles: int, device="cuda"):
+    """The full replanning loop: ``run(carry, scene) -> (carry,
+    CycleMetrics)`` runs ``n_cycles`` fleet steps (:func:`make_fleet_step`)
+    in a Python loop that reads nothing from the device, and stacks each
+    metric over cycles after the loop (leading cycle axis), as ``lax.scan``
+    does."""
+    step = make_fleet_step(group, veh, static_grid, dt, n_steps,
+                           replan_offset, low_vel_threshold, horizon, device)
+
+    def run(carry: FleetCarry, scene: FleetScene):
+        metrics = []
+        for _ in range(n_cycles):
+            carry, m = step(carry, scene)
+            metrics.append(m)
+        return carry, CycleMetrics(*(torch.stack(column)
+                                     for column in zip(*metrics)))
+
+    return run
 
 
 def pad_fleet(scene: FleetScene, carry: FleetCarry,
@@ -97,7 +332,7 @@ def pad_fleet(scene: FleetScene, carry: FleetCarry,
 
 def build_fleet_scene(problems: List[dict], n_steps: int,
                       dtype=torch.float32,
-                      device="cpu") -> Tuple[FleetScene, FleetCarry]:
+                      device="cuda") -> Tuple[FleetScene, FleetCarry]:
     """Stack per-problem scene tables and initial carries with padding.
 
     ``problems`` entries carry: 'ref_tables' (RefPathTables), 'obstacles'

@@ -30,9 +30,11 @@ The facade scan's exact refinement (``segments`` boundary, continuous
 collision checks) is the JAX scan's lazy winner loop in a form that reads
 nothing from the device: the ``REFINE_WIDTH`` cheapest selectable
 candidates, in selection order, are re-rolled and checked at once, and the
-colliding ones are masked before the selection (``refine_cheapest``).  Not
-ported: the fleet mesh (ROADMAP queue 1 item 10).  A CUDA graph over the
-cycle is later work (ROADMAP queue 1 item 6).
+colliding ones are masked before the selection (``refine_cheapest``).
+``make_fleet_scan(mesh=group)`` runs one rank's slice of the fleet under a
+``torch.distributed`` process group (``parallel.mesh``), its three per-cycle
+aggregates summed by ``parallel.mesh.fleet_all_reduce``.  A CUDA graph over
+the cycle is later work (ROADMAP queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ from commonroad_rp_tpu_torch.ops.collision import (BoundaryArrays,
                                                    ObstacleArrays)
 from commonroad_rp_tpu_torch.ops.cycle import CANDIDATE_FIELDS
 from commonroad_rp_tpu_torch.parallel.fleet import FleetCarry, FleetScene
+from commonroad_rp_tpu_torch.parallel.mesh import fleet_all_reduce
 
 _F32 = torch.float32
 _DYNAMIC_SLOTS = (scoring._S_X0_THETA, scoring._S_LOW_VEL)
@@ -309,11 +312,15 @@ def make_fleet_scan(scene: FleetScene, static_grid: grid_ops.StaticGrid,
     fallback (reactive_planner.py:638-653) runs per problem on the device:
     a blocked member at v ~ 0 freezes its pose at zero velocity and cost 0
     and stays alive.
+
+    ``mesh`` is a ``torch.distributed`` process group over the fleet axis
+    (``parallel.mesh``), or None for one process: under a group, ``scene``
+    and the carry are this rank's slice (``parallel.mesh.shard_fleet``), and
+    the fleet success count, cost sum and found count are summed over the
+    group by three one-element ``fleet_all_reduce`` calls per cycle (the JAX
+    scan's ``psum``, pallas_fleet.py:335-343); the mean divides by the
+    global found count, at least 1.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_fleet_scan(mesh=...): sharding the fleet over several "
-            "devices (torch.distributed) is ROADMAP queue 1 item 10")
     stopping = longitudinal_mode == "stopping"
     if longitudinal_mode not in ("velocity_keeping", "stopping"):
         raise ValueError(f"unknown longitudinal mode {longitudinal_mode!r}")
@@ -458,9 +465,15 @@ def make_fleet_scan(scene: FleetScene, static_grid: grid_ops.StaticGrid,
         # dead members (incl. pad_fleet padding) drop out of the aggregates
         n_success = torch.sum(step_alive.to(torch.int32))
         cost_sum = torch.sum(torch.where(step_alive, best_cost, 0.0))
+        n_found = n_success
+        if mesh is not None:
+            n_success = fleet_all_reduce(n_success, mesh)
+            cost_sum = fleet_all_reduce(cost_sum, mesh)
+            n_found = fleet_all_reduce(
+                torch.sum(step_alive.to(torch.int32)), mesh)
         metrics = (step_alive, torch.where(step_alive, best_cost, inf),
                    new_x, new_y, n_success,
-                   cost_sum / torch.clamp(n_success, min=1),
+                   cost_sum / torch.clamp(n_found, min=1),
                    n_kin_infeasible, n_colliding, new_theta, new_v)
         return new_carry, metrics
 

@@ -7,16 +7,20 @@ lateral offset and desired speed jittered from ``numpy.random
 .default_rng(seed)``, sampling level 3 (K = 2754 candidates per problem at
 T = 21), replanned at replanning frequency 1 by
 ``parallel.replanning_scan.make_fleet_scan`` -- one fleet-scorer launch per
-cycle -- and checked on the host against each scenario's goal region from
-the recorded winner states.  Usage, from the repository root:
+cycle -- or, with ``--xla``, by the XLA fleet path
+``parallel.fleet.make_fleet_rollout`` with each problem's own vehicle (the
+default path of ``scripts/fleet_scale_demo.py``: dense rollout, cost and
+checks, one launch of the fleet collision kernel per cycle), and checked on
+the host against each scenario's goal region from the recorded winner
+states.  Usage, from the repository root:
 
     python -m commonroad_rp_tpu_torch.run_fleet [--fleet-size 1024]
-        [--cycles 150] [--device cuda|cpu]
+        [--cycles 150] [--xla] [--device cuda|cpu]
 
 Prints the per-scenario goal counts with each miss classified (dead: the
 member's carry died; timing: it entered the goal position outside the
 admissible time window; velocity: outside the velocity interval; planning:
-it never touched the goal position), and the warm scan's candidate
+it never touched the goal position), and the warm run's candidate
 evaluations per second.
 """
 
@@ -37,7 +41,7 @@ N_STEPS, DT, LEVEL = 20, 0.1, 3
 
 
 def heterogeneous_fleet(fleet_size: int, cycles: int, freq: int = 1,
-                        seed: int = 0, device="cpu",
+                        seed: int = 0, device="cuda",
                         root: pathlib.Path = REPO_ROOT):
     """(scene, carry, goals, base_index): ``fleet_size`` problems cycling
     through the 12 (scenario, vehicle) bases with bench.py's jitter
@@ -98,18 +102,43 @@ def make_scan(scene, cycles: int, freq: int = 1, **kwargs):
     return run, static_grid.size
 
 
-def goal_counts(metrics, goals, base_idx, freq: int = 1) -> dict:
-    """Per-scenario goal counts and miss classes from the scan's metrics
-    (alive, x, y, theta, v per cycle), as bench.py:436-519 counts them."""
+def make_xla_rollout(cycles: int, freq: int = 1, device="cuda"):
+    """The XLA fleet path of the run: level 3, replan offset ``freq``, each
+    problem's own vehicle (``veh=None``); ``run(carry, scene)``."""
+    from commonroad_rp_tpu_torch.ops import grid
+    from commonroad_rp_tpu_torch.parallel import fleet
+
+    static_grid = grid.make_static_grid(LEVEL, 0.4, N_STEPS * DT, DT,
+                                        -3.0, 3.0, 4)
+    run = fleet.make_fleet_rollout(
+        None, None, static_grid, DT, N_STEPS, replan_offset=freq,
+        low_vel_threshold=4.0, horizon=N_STEPS * DT, n_cycles=cycles,
+        device=device)
+    return run, static_grid.size
+
+
+def winner_trace(metrics):
+    """(alive, x, y, theta, v) per cycle, each [C, F], from either fleet
+    path's stacked metrics: the XLA path's ``CycleMetrics`` or the fused
+    scan's tuple."""
+    from commonroad_rp_tpu_torch.parallel.fleet import CycleMetrics
+
+    if isinstance(metrics, CycleMetrics):
+        return (metrics.found, metrics.x, metrics.y, metrics.orientation,
+                metrics.velocity)
+    return tuple(metrics[i] for i in (0, 2, 3, 8, 9))
+
+
+def member_outcomes(metrics, goals, base_idx, freq: int = 1) -> list:
+    """Each member's outcome from a fleet run's metrics (alive, x, y, theta,
+    v per cycle: ``winner_trace``), as bench.py:436-519 classifies it:
+    'reached', or the miss class 'dead', 'planning', 'timing' or
+    'velocity'."""
     from commonroad_rp_tpu_torch.models.state import ReactivePlannerState
 
-    alive = metrics[0].cpu().numpy()                         # [C, F]
-    xs, ys = metrics[2].cpu().numpy(), metrics[3].cpu().numpy()
-    thetas, vs = metrics[8].cpu().numpy(), metrics[9].cpu().numpy()
+    alive, xs, ys, thetas, vs = (a.cpu().numpy()
+                                 for a in winner_trace(metrics))  # [C, F]
     cycles, fleet_size = alive.shape
-    reached = {name: [0, 0] for name in SCENARIOS}
-    misses = {name: {"timing": 0, "velocity": 0, "planning": 0, "dead": 0}
-              for name in SCENARIOS}
 
     def position_hits(goal, states):
         hits = []
@@ -129,10 +158,9 @@ def goal_counts(metrics, goals, base_idx, freq: int = 1) -> dict:
                     break
         return hits
 
+    outcomes = []
     for f in range(fleet_size):
         goal, wb_rear = goals[base_idx[f]]
-        name = SCENARIOS[base_idx[f] // len(VEHICLE_TYPES)]
-        reached[name][1] += 1
         states, died = [], False
         for c in range(cycles):
             if not alive[c, f]:
@@ -145,30 +173,50 @@ def goal_counts(metrics, goals, base_idx, freq: int = 1) -> dict:
                 acceleration=0.0, yaw_rate=0.0,
                 steering_angle=0.0).shift_positions_to_center(wb_rear))
         if any(goal.is_reached(st) for st in states):
-            reached[name][0] += 1
+            outcomes.append("reached")
             continue
         hits = position_hits(goal, states)
         if not hits:
-            misses[name]["dead" if died else "planning"] += 1
+            outcomes.append("dead" if died else "planning")
             continue
         timing = any(gs.time_step is not None
                      and not gs.time_step.contains(states[i].time_step)
                      for i, gs in hits)
-        misses[name]["timing" if timing else "velocity"] += 1
-    return {name: dict(reached=reached[name][0], total=reached[name][1],
-                       misses={k: v for k, v in misses[name].items() if v})
-            for name in SCENARIOS}
+        outcomes.append("timing" if timing else "velocity")
+    return outcomes
 
 
-def main():
+def goal_counts(metrics, goals, base_idx, freq: int = 1,
+                outcomes=None) -> dict:
+    """Per-scenario goal counts and miss classes of a fleet run (from its
+    metrics, or from its ``member_outcomes``)."""
+    if outcomes is None:
+        outcomes = member_outcomes(metrics, goals, base_idx, freq)
+    counts = {name: dict(reached=0, total=0, misses={}) for name in SCENARIOS}
+    for f, outcome in enumerate(outcomes):
+        c = counts[SCENARIOS[base_idx[f] // len(VEHICLE_TYPES)]]
+        c["total"] += 1
+        if outcome == "reached":
+            c["reached"] += 1
+        else:
+            c["misses"][outcome] = c["misses"].get(outcome, 0) + 1
+    return counts
+
+
+def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--fleet-size", type=int, default=1024)
     parser.add_argument("--cycles", type=int, default=150)
     parser.add_argument("--freq", type=int, default=1)
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--device", default=None, choices=["cuda", "cpu"],
-                        help="default: cuda when available, else cpu")
-    args = parser.parse_args()
+    parser.add_argument("--xla", action="store_true",
+                        help="the XLA fleet path (make_fleet_rollout, each "
+                             "problem's own vehicle) instead of the fused "
+                             "fleet scan")
+    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                        help="default: cuda (raises without a card; the "
+                             "CPU runs only when named)")
+    args = parser.parse_args(argv)
 
     import torch
 
@@ -179,10 +227,16 @@ def main():
     t0 = time.time()
     scene, carry, goals, base_idx = heterogeneous_fleet(
         args.fleet_size, args.cycles, args.freq, args.seed, device)
-    run, K = make_scan(scene, args.cycles, args.freq)
+    if args.xla:
+        run_xla, K = make_xla_rollout(args.cycles, args.freq, device)
+        run = lambda c: run_xla(c, scene)
+    else:
+        run, K = make_scan(scene, args.cycles, args.freq)
     print(f"fleet of {args.fleet_size} problems built in "
           f"{time.time() - t0:.1f} s on {device}: K={K} per problem, "
-          f"{args.fleet_size * K} candidates per cycle", flush=True)
+          f"{args.fleet_size * K} candidates per cycle, "
+          f"{'XLA fleet path' if args.xla else 'fused fleet scan'}",
+          flush=True)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     for label in ("first", "warm"):
         t0 = time.time()

@@ -43,7 +43,7 @@ def load_config(scenario: str, root: pathlib.Path = REPO_ROOT):
     return config
 
 
-def make_planner(config, device=None):
+def make_planner(config, device="cuda"):
     """Planner on the first route's reference path, desired speed unset."""
     from commonroad_rp_tpu_torch.models.planner import ReactivePlanner
     from commonroad_rp_tpu_torch.utils.route import RoutePlanner
@@ -254,11 +254,12 @@ def drive_mission(planner, config, max_steps: int = 400, chunk: int = 12,
                 scan_infos=scan_infos)
 
 
-def main():
+def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--scenario", default="ZAM_Over-1_1")
-    parser.add_argument("--device", default=None, choices=["cuda", "cpu"],
-                        help="default: cuda when available, else cpu")
+    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                        help="default: cuda (raises without a card; the "
+                             "CPU runs only when named)")
     parser.add_argument("--dtype", default=None,
                         choices=["float32", "float64"],
                         help="planner dtype: float32 (default) scores on the "
@@ -282,7 +283,7 @@ def main():
                              "plan_scan to the goal region, then stopping-"
                              "mode plan_scan to a standstill at the goal "
                              "(implies --scan)")
-    args = parser.parse_args()
+    args = parser.parse_args(argv)
 
     from commonroad_rp_tpu_torch.utils.logger import initialize_logger
 

@@ -83,7 +83,7 @@ def _fleets(repo_root):
                               RoutePlanner, fleet.problem_from_planner_setup)
     return (jax_fleet.build_fleet_scene(jax_problems, N_STEPS,
                                         dtype=jnp.float32),
-            fleet.build_fleet_scene(port_problems, N_STEPS))
+            fleet.build_fleet_scene(port_problems, N_STEPS, device="cpu"))
 
 
 def _flat_leaves(scene, carry):
@@ -358,7 +358,7 @@ def test_fleet_scan_dead_member_freezes(repo_root):
     and its carry freezes while the rest of the fleet advances."""
     good = _over_problem(repo_root)
     bad = dict(good, corridor=_squeezed(good["corridor"]))
-    scene, carry = fleet.build_fleet_scene([good, bad], N_STEPS)
+    scene, carry = fleet.build_fleet_scene([good, bad], N_STEPS, device="cpu")
     run, g = _scan(scene, 1, 3)
     final, metrics = run(carry)
 
@@ -381,7 +381,7 @@ def test_fleet_standstill_fallback(repo_root):
     """A blocked member at v ~ 0 plans the standstill fallback on the
     device: pose frozen, v = 0, cost 0, and it stays alive."""
     problem = _over_problem(repo_root, velocity=0.04)
-    scene, carry = fleet.build_fleet_scene([problem], N_STEPS)
+    scene, carry = fleet.build_fleet_scene([problem], N_STEPS, device="cpu")
     scene = scene._replace(
         corridor_lo=torch.full_like(scene.corridor_lo, 0.001),
         corridor_hi=torch.full_like(scene.corridor_hi, 0.002))
@@ -406,7 +406,7 @@ def test_fleet_stopping_mode(repo_root):
         p = dict(_over_problem(repo_root, velocity=v0))
         p["desired_speed"] = 0.0
         problems.append(p)
-    scene, carry = fleet.build_fleet_scene(problems, N_STEPS)
+    scene, carry = fleet.build_fleet_scene(problems, N_STEPS, device="cpu")
     s0 = np.asarray(problems[0]["x0_lon"])[0]
     desired_s = np.asarray([s0 + 8.0, s0 + 7.0], np.float32)
     s_window = np.stack([desired_s - 1.0, desired_s + 1.0], axis=1)
@@ -422,7 +422,12 @@ def test_fleet_stopping_mode(repo_root):
 
 
 def test_pad_fleet_and_scope(repo_root):
-    """pad_fleet appends dead members that never count; a mesh raises."""
+    """pad_fleet appends dead members that never count, also when the scan
+    runs under a process group (``mesh``: a gloo group of one)."""
+    import torch.distributed as dist
+
+    from commonroad_rp_tpu_torch.parallel.mesh import make_fleet_group
+
     _, (scene, carry) = _fleets(repo_root)
     scene_p, carry_p, F = fleet.pad_fleet(scene, carry, 4)
     assert F == 3 and carry_p.alive.tolist() == [True, True, True, False]
@@ -430,8 +435,16 @@ def test_pad_fleet_and_scope(repo_root):
     run, _ = _scan(scene_p, 1, 1)
     _, metrics = run(carry_p)
     assert not bool(metrics[0][0, 3]) and int(metrics[4][0]) <= 3
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _scan(scene, 1, 1, mesh=object())
+    dist.init_process_group("gloo", store=dist.HashStore(), world_size=1,
+                            rank=0)
+    try:
+        run_g, _ = _scan(scene_p, 1, 1, mesh=make_fleet_group())
+        _, metrics_g = run_g(carry_p)
+    finally:
+        dist.destroy_process_group()
+    assert not bool(metrics_g[0][0, 3])
+    assert int(metrics_g[4][0]) == int(metrics[4][0])
+    torch.testing.assert_close(metrics_g[5], metrics[5], rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("time_step", [0, 7, 150, 178, 200])

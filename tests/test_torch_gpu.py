@@ -1,5 +1,6 @@
-"""The CUDA kernels (scorers and OBB collision) against their plain PyTorch
-versions, and the conformance level program, on the card.
+"""The CUDA kernels (scorers, OBB collision in both forms, the probe kernel)
+against their plain PyTorch versions, the conformance level program and the
+XLA fleet path, on the card.
 
 Marked ``gpu``: without a card every test skips.  On a machine with one,
 run (from the repository root; no JAX needed):
@@ -181,3 +182,38 @@ def test_conformance_golden_and_drive_on_card(cuda):
     result = drive_to_goal(planner, max_steps=100)
     assert result["goal_reached"] and result["steps"] == 27
     assert collision_kernel.obb_collision.launches == result["plan_calls"]
+
+
+def test_fleet_collision_kernel_and_xla_fleet_on_card(cuda):
+    """The fleet form of the collision kernel against its plain version on
+    the 12-problem fleet's first XLA cycle (both dtypes, 0 differing
+    candidates), and the XLA fleet path against the fused fleet scan with
+    one fleet collision launch per cycle."""
+    from commonroad_rp_tpu_torch.run_fleet import make_xla_rollout
+
+    scene, carry, _, _ = heterogeneous_fleet(12, 4, device=cuda)
+    chip_smoke.compare_fleet_collision(
+        torch, "F=12", chip_smoke.captured_fleet_collision(
+            lambda: make_xla_rollout(1, 1, cuda)[0](carry, scene)))
+    run_x, _ = make_xla_rollout(4, 1, cuda)
+    collision_kernel.obb_collision_fleet.launches = 0
+    final_x, metrics_x = chip_smoke.no_sync(torch,
+                                            lambda: run_x(carry, scene))
+    assert collision_kernel.obb_collision_fleet.launches == 4
+    final_f, metrics_f = make_scan(scene, 4)[0](carry)
+    assert torch.equal(metrics_x.found, metrics_f[0])
+    torch.testing.assert_close(final_x.x0_lon, final_f.x0_lon, rtol=2e-4,
+                               atol=2e-3)
+
+
+def test_probe_kernel_matches_plain_exactly(cuda):
+    from commonroad_rp_tpu_torch.probes import t61_overhead
+
+    ops = t61_overhead.probe_operands(60, cuda)
+    inp = scoring.prepare_inputs(*ops["args"], 20.0, 0.0, 5.0,
+                                 ops["ref_s_last"], n_steps=60)
+    v = torch.full((), 20.5, dtype=torch.float32, device=cuda)
+    before = scoring.trivial_probe.launches
+    got = scoring.trivial_probe(inp, v)
+    assert scoring.trivial_probe.launches == before + 1
+    assert torch.equal(got, scoring.trivial_probe_reference(inp, v))

@@ -174,10 +174,22 @@ def test_draw_traj_set_and_custom_cost_raise(repo_root):
 
 
 def test_device_defaults_and_explicit_cuda(repo_root):
-    planner = ReactivePlanner(load_config(SCENARIO, repo_root))
-    want = "cuda" if torch.cuda.is_available() else "cpu"
-    assert planner.device.type == want
+    """The default device is the card: with one, the planner runs there;
+    without one, the default and an explicit ``cuda`` raise (nothing
+    carries on on the CPU unasked) and ``device="cpu"`` plans."""
     if torch.cuda.is_available():
-        pytest.skip("a card is present: explicit cuda is valid here")
-    with pytest.raises(RuntimeError, match="cuda"):
-        ReactivePlanner(load_config(SCENARIO, repo_root), device="cuda")
+        planner = ReactivePlanner(load_config(SCENARIO, repo_root))
+        assert planner.device.type == "cuda"
+        return
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ReactivePlanner(load_config(SCENARIO, repo_root), device=device)
+    # the command lines default to the card too
+    from commonroad_rp_tpu_torch import run_fleet, run_planner
+    for cli in (run_planner, run_fleet):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main([])
+    planner = make_planner(load_config(SCENARIO, repo_root), device="cpu")
+    assert planner.device.type == "cpu"
+    planner.set_desired_velocity(current_speed=planner.x_0.velocity)
+    assert planner.plan() is not None
