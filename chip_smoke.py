@@ -23,7 +23,10 @@ Phases (any failure raises and ends the run with a non-zero exit code):
    medians), and ``plan()`` p50/p90 over the drives' calls;
 6. the fleet kernel against its plain version on the card: the 12-problem
    fleet (4 scenarios x 3 vehicle types, level 3, T=21), first cycle, at
-   the bar of phase 3; then a 10-cycle fleet scan through the kernel
+   the bar of phase 3, and again with its tables padded to the most rows a
+   block's shared memory holds; the hostile operands of
+   ``probes.hostile_inputs`` (the table search's edge cases, the early
+   exits'); then a 10-cycle fleet scan through the kernel
    against the same scan through the plain version (identical ``alive``,
    states within 2e-3);
 7. ``plan_scan`` on the card: the four scenarios reach their goals in one
@@ -36,8 +39,11 @@ Phases (any failure raises and ends the run with a non-zero exit code):
 8. the 1024-problem heterogeneous fleet at full width (K=2754 per problem,
    150 cycles at replanning frequency 1): one fleet-kernel launch per
    cycle, no device read between cycles, per-scenario goal counts beside
-   the JAX package's, the fleet kernel's and the plain version's times,
-   candidate-evals/s of the warm scan and the device's busy share;
+   the JAX package's, the fleet kernel against the plain version, how the
+   first cycle's candidates
+   end (prefiltered, first violation, colliding, selectable), the fleet
+   kernel's and the plain version's times, candidate-evals/s of the warm
+   scan and the device's busy share;
 9. the OBB collision kernel (``csrc/collision.cu``) against its plain
    version in float32 and float64: synthetic scenes (K=3414, T=21 and 61,
    M=16 with disc rows and padded invalid rows) and every sampling level of
@@ -68,7 +74,9 @@ Phases (any failure raises and ends the run with a non-zero exit code):
    n=1 row of ``measure_scaling``;
 13. the T=61 launch-overhead probe (``probes.t61_overhead``): phases A, C and
    D, 150 launches each; the probe kernel against its plain version
-   (exactly equal) and beside one ``torch.add``.
+   (exactly equal), and the time of one ``scoring.trivial_probe`` call
+   beside one ``torch.add``, the same call through the same launch path with
+   nothing launched, and the event pair alone.
 
 Every kernel's entry in the JSON line carries its launches on its path, its
 time beside its plain version's, the least time the card could take for the
@@ -85,9 +93,11 @@ repository, the run fails before printing any of them.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import pathlib
+import re
 import shutil
 import statistics
 import subprocess
@@ -229,9 +239,14 @@ def build_all():
         paths = list(pool.map(cuda_build.build, sources))
     for source, path in zip(sources, paths):
         log(f"build: {path.relative_to(HERE)} (from {source.name})")
-        for line in (cuda_build.build_log(source) or "").splitlines():
-            if "ptxas" in line or "error" in line.lower():
+        build_log = cuda_build.build_log(source) or ""
+        for line in build_log.splitlines():
+            if "ptxas" in line or "spill" in line or "error" in line.lower():
                 log("  " + line.strip())
+        spilled = re.findall(r"([1-9]\d*) bytes spill (?:stores|loads)",
+                             build_log)
+        check(not spilled, f"{source.name}: ptxas reports register spills "
+              f"({', '.join(spilled)} bytes)")
     log(f"build: {len(sources)} libraries in {time.time() - t0:.1f} s")
 
 
@@ -327,17 +342,69 @@ def captured_operands(run_scan):
     return captured[0]
 
 
-def time_prepared(torch, inp, kernel_reps, plain_reps):
-    """(kernel ms, plain ms) on prepared operands, launches not counted."""
+@contextlib.contextmanager
+def uncounted():
+    """Launches made inside (to compare or time a kernel) leave the scorer
+    wrappers' counts as they were."""
     from commonroad_rp_tpu_torch.ops import scoring
 
-    counts = (scoring.score_candidates.launches, scoring.score_fleet.launches)
-    k_ms = cuda_time_ms(torch, lambda: scoring.score_prepared(inp),
-                        kernel_reps)
-    p_ms = cuda_time_ms(torch, lambda: scoring.score_prepared_reference(inp),
-                        plain_reps)
-    scoring.score_candidates.launches, scoring.score_fleet.launches = counts
+    wrappers = (scoring.score_candidates, scoring.score_fleet,
+                scoring.trivial_probe)
+    saved = [w.launches for w in wrappers]
+    try:
+        yield
+    finally:
+        for w, n in zip(wrappers, saved):
+            w.launches = n
+
+
+def time_prepared(torch, inp, kernel_reps, plain_reps):
+    """(kernel ms, plain ms) of ``score_prepared`` and its plain version on
+    prepared operands; launches not counted."""
+    from commonroad_rp_tpu_torch.ops import scoring
+
+    with uncounted():
+        k_ms = cuda_time_ms(torch, lambda: scoring.score_prepared(inp),
+                            kernel_reps)
+        p_ms = cuda_time_ms(
+            torch, lambda: scoring.score_prepared_reference(inp), plain_reps)
     return k_ms, p_ms
+
+
+def compare_largest_table(torch, label, inp, plain_out):
+    """The kernel on ``inp`` with every table padded to the most rows a
+    block's shared memory holds (``scoring.SHARED_BLOCK_LIMIT``; far above
+    the 48 KB a kernel gets unasked) against ``plain_out``, the plain
+    version's rows on ``inp``: the padding, copies of the last row at
+    arclengths stepping 1e6 further, leaves the scorer's function unchanged
+    (no query reaches the new rows' intervals).  One row more must raise.
+    Returns max |cost error|; launches not counted."""
+    from commonroad_rp_tpu_torch.ops import scoring
+
+    fleet = hasattr(inp, "tables")
+    tables = inp.tables if fleet else inp.table[None]
+    M, T = inp.obs.shape[-3:-1]
+    n_rows = (scoring.SHARED_BLOCK_LIMIT - scoring.shared_bytes(0, M, T)) // 4
+    pad = tables[:, -1:].repeat(1, n_rows + 1 - tables.shape[1], 1)
+    pad[..., 0] += 1e6 * torch.arange(1, pad.shape[1] + 1,
+                                      dtype=torch.float32,
+                                      device=tables.device)
+    padded = torch.cat([tables, pad], dim=1)
+    with_rows = lambda n: inp._replace(tables=padded[:, :n].contiguous()) \
+        if fleet else inp._replace(table=padded[0, :n].contiguous())
+    with uncounted():
+        out_k = scoring.score_prepared(with_rows(n_rows))
+        torch.cuda.synchronize()
+        try:
+            scoring.score_prepared(with_rows(n_rows + 1))
+        except ValueError as exc:
+            check("bytes of shared memory per block" in str(exc), str(exc))
+        else:
+            raise AssertionError(f"{label}: {n_rows + 1} table rows did not "
+                                 "raise")
+    return compare(torch, f"{label}, tables padded to {n_rows} rows "
+                   f"({scoring.shared_bytes(n_rows, M, T)} B shared)", out_k,
+                   plain_out, prepared_in_domain(torch, inp))
 
 
 def no_sync(torch, fn):
@@ -447,6 +514,7 @@ def main():
         raise RuntimeError(f"commonroad_rp_tpu_torch imported from "
                            f"{pkg_root}, not from this checkout {HERE}")
     logging_off()
+    started = time.time()
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -533,11 +601,7 @@ def main():
         inp = scoring.prepare_inputs(*args, **kw)
         if label == "main":
             main_bound = scorer_bound(torch, inp)
-        before = scoring.score_candidates.launches
-        k_ms = cuda_time_ms(torch, lambda: scoring._launch(inp), KERNEL_REPS)
-        p_ms = cuda_time_ms(torch, lambda: scoring._score_plain(inp),
-                            PLAIN_REPS)
-        scoring.score_candidates.launches = before
+        k_ms, p_ms = time_prepared(torch, inp, KERNEL_REPS, PLAIN_REPS)
         K = args[0].shape[0]
         timing[label] = (k_ms, p_ms)
         log(f"time {label}: K={K} T={kw['n_steps'] + 1} kernel "
@@ -551,14 +615,20 @@ def main():
     if opts.profile:
         profile_plans(torch, opts.profile)
 
-    fleet_k = phase_fleet_kernel(torch)
-    scan = phase_plan_scan(torch)
-    fleet1024 = phase_fleet1024(torch)
-    collision = phase_collision_kernel(torch)
-    conformance = phase_conformance(torch)
-    xla = phase_xla_fleet(torch, fleet1024)
-    phase_nccl_dryrun(torch)
-    probe = phase_probe(torch)
+    results = {}
+    for name, phase in (("fleet_k", phase_fleet_kernel),
+                        ("scan", phase_plan_scan),
+                        ("fleet1024", phase_fleet1024),
+                        ("collision", phase_collision_kernel),
+                        ("conformance", phase_conformance),
+                        ("xla", lambda t: phase_xla_fleet(t, results[
+                            "fleet1024"])),
+                        ("nccl", phase_nccl_dryrun), ("probe", phase_probe)):
+        log(f"[{time.time() - started:.0f} s] phase {name}")
+        results[name] = phase(torch)
+    log(f"[{time.time() - started:.0f} s] phases done")
+    fleet_k, scan, fleet1024, collision, conformance, xla, _, probe = \
+        results.values()
 
     k_ms, p_ms = timing["main"]
     entry = lambda name, source, replaces, launches, max_abs_err, ms, \
@@ -618,6 +688,9 @@ def phase_fleet_kernel(torch):
     torch.cuda.synchronize()
     max_err = compare(torch, "fleet F=12 first cycle", out_k, out_p,
                       prepared_in_domain(torch, inp))
+    max_err = max(max_err, compare_largest_table(
+        torch, "fleet F=12 first cycle", inp, out_p))
+    max_err = max(max_err, hostile_cases(torch))
     k_ms, p_ms = time_prepared(torch, inp, KERNEL_REPS, PLAIN_REPS)
     log(f"time fleet F=12: F x K={inp.coeffs_lon.shape[0]}x"
         f"{inp.coeffs_lon.shape[1]} T={inp.n_steps + 1} kernel {k_ms:.4f} "
@@ -645,6 +718,38 @@ def phase_fleet_kernel(torch):
         f"{worst:.3e}")
     check(worst <= SCAN_ATOL, f"fleet scan states differ by {worst}")
     return dict(max_err=max_err, ms12=k_ms, plain_ms12=p_ms)
+
+
+def hostile_cases(torch, seeds=(0, 1, 2)):
+    """The fleet kernel against its plain version on the hostile operands of
+    ``probes.hostile_inputs`` (the search's edge cases, the early exits');
+    returns max |cost error|."""
+    from commonroad_rp_tpu_torch.ops import scoring
+    from commonroad_rp_tpu_torch.probes import hostile_inputs
+
+    max_err = 0.0
+    for seed in seeds:
+        case = hostile_inputs.hostile_fleet(seed)
+        args, kwargs = hostile_inputs.score_fleet_arguments(
+            case, lambda a: torch.as_tensor(a, device="cuda"))
+        inp = scoring.prepare_fleet_inputs(*args, **kwargs)
+        with uncounted():
+            out_k = scoring.score_prepared(inp)
+            out_p = scoring.score_prepared_reference(inp)
+            torch.cuda.synchronize()
+        nan_group = torch.as_tensor(
+            case["group"] == hostile_inputs.GROUPS.index("nan"),
+            device="cuda")
+        check(all(bool(torch.isinf(row[nan_group]).all())
+                  for out in (out_k, out_p) for row in out[:2]),
+              "hostile: a candidate with a NaN coefficient has a cost")
+        label = f"hostile operands, seed {seed}"
+        max_err = max(max_err, compare(torch, label, out_k, out_p,
+                                       prepared_in_domain(torch, inp)))
+        reasons = int((out_k[2] != out_p[2]).sum())
+        log(f"{label}: reason codes differing anywhere (in or out of the "
+            f"domain): {reasons}")
+    return max_err
 
 
 def phase_plan_scan(torch):
@@ -746,6 +851,48 @@ def phase_plan_scan(torch):
                 plain_ms61=plain_ms61, bound61=bound61)
 
 
+def candidate_fates(torch, inp, plain_out, chunk: int = 128):
+    """{fate: count} over all candidates of fleet operands, from the plain
+    version's rows and the prefilter's two derivatives, and the share of
+    warps (32 neighbours in K) whose candidates all share one fate."""
+    from commonroad_rp_tpu_torch.ops import scoring
+
+    masked, kin, reason = plain_out
+    cl, sc = inp.coeffs_lon, inp.scalars
+    T = inp.n_steps + 1
+    step = torch.arange(T, dtype=torch.float32, device=cl.device)
+    pre = []
+    for f0 in range(0, cl.shape[0], chunk):
+        c = cl[f0:f0 + chunk, :, None, :]
+        tau = (step[None, None] * sc[f0:f0 + chunk, scoring._S_DT,
+                                     None, None])
+        tau2 = tau * tau
+        s_dot = (c[..., 1] + 2.0 * c[..., 2] * tau + 3.0 * c[..., 3] * tau2
+                 + 4.0 * c[..., 4] * (tau2 * tau)
+                 + 5.0 * c[..., 5] * (tau2 * tau2))
+        s_ddot = (2.0 * c[..., 2] + 6.0 * c[..., 3] * tau
+                  + 12.0 * c[..., 4] * tau2 + 20.0 * c[..., 5] * (tau2 * tau))
+        active = step[None, None] < inp.traj_len[f0:f0 + chunk, :, None]
+        a_max = sc[f0:f0 + chunk, scoring._S_A_MAX, None, None]
+        pre.append(torch.any(active & ((torch.abs(s_ddot) > a_max)
+                                       | (s_dot < -1e-5)), dim=-1))
+    pre = torch.cat(pre)
+    fate = torch.full(reason.shape, 4, dtype=torch.int64,
+                      device=reason.device)            # selectable
+    fate[torch.isinf(masked)] = 3                       # colliding
+    fate[torch.isinf(kin)] = 2                          # domain or goal
+    fate[(reason >= 0) & (reason <= 4)] = 1             # first violation
+    fate[pre] = 0
+    names = ("prefiltered", "first violation", "out of domain or goal",
+             "colliding", "selectable")
+    counts = {name: int((fate == i).sum()) for i, name in enumerate(names)}
+    F, K = fate.shape
+    full = fate[:, :K // 32 * 32].reshape(F, K // 32, 32)
+    uniform = (full == full[..., :1]).all(dim=-1)
+    dead = (full <= 1).all(dim=-1)
+    return counts, float(uniform.float().mean()), float(dead.float().mean())
+
+
 def phase_fleet1024(torch):
     """8. The 1024-problem heterogeneous fleet at full width."""
     from commonroad_rp_tpu_torch.ops import scoring
@@ -800,12 +947,18 @@ def phase_fleet1024(torch):
     torch.cuda.synchronize()
     max_err = compare(torch, "fleet1024 first cycle", out_k, out_p,
                       prepared_in_domain(torch, inp))
+    fates, one_fate, dead = candidate_fates(torch, inp, out_p)
+    log("fleet1024 first cycle, how candidates end: "
+        + ", ".join(f"{name} {n} ({n / (F * K):.3f})"
+                    for name, n in fates.items())
+        + f"; warps (32 neighbours in K) of one fate {one_fate:.3f}, "
+        f"prefiltered or violating throughout {dead:.3f}")
     del out_p
     ms, plain_ms = time_prepared(torch, inp, 20, 3)
     bound = scorer_bound(torch, inp)
     log(f"time fleet F=1024: kernel {ms:.4f} ms "
         f"({F * K / ms * 1e3:.6g} candidate-evals/s), plain {plain_ms:.4f} "
-        "ms")
+        f"ms")
     run3, _ = make_scan(scene, 3)
     log(f"fleet1024 device busy share over a 3-cycle scan: "
         f"{device_busy_share(torch, lambda: run3(carry))}")
@@ -1484,21 +1637,36 @@ def phase_probe(torch):
             f"{rate:.2f} M cands/s (best of {reps} runs of {n_scan} launches, "
             "one synchronize per run)")
     K = ops["K"]
-    ms = cuda_time_ms(torch, lambda: scoring.trivial_probe(inp, v),
-                      KERNEL_REPS)
-    plain_ms = cuda_time_ms(
-        torch, lambda: scoring.trivial_probe_reference(inp, v), KERNEL_REPS)
     c = v + inp.table[0, 0] + (inp.obs[0, 0, 0] if inp.obs.shape[0] else 0.0)
-    library_ms = cuda_time_ms(
-        torch, lambda: torch.add(inp.coeffs_lon[:, 0], c), KERNEL_REPS)
-    scoring.trivial_probe.launches = launches
+    cl0 = inp.coeffs_lon[:, 0]
+    args = (inp.coeffs_lon.data_ptr(), inp.table.data_ptr(),
+            inp.obs.data_ptr(), inp.obs.shape[0], v.data_ptr(), K)
+    with uncounted():
+        # one call between two CUDA events each, in turns so that the card's
+        # state is shared: the wrapper as the scans and plan() pay it,
+        # torch.add, the same launch path with nothing launched (crp_empty in
+        # the kernel's place), and the event pair around nothing
+        timed = {
+            "kernel": lambda: scoring.trivial_probe(inp, v),
+            "torch.add": lambda: torch.add(cl0, c),
+            "empty call": lambda: scoring._launch(
+                scoring.trivial_probe, "crp_empty", "empty call", inp, args,
+                (K,)),
+            "events alone": lambda: None,
+            "plain": lambda: scoring.trivial_probe_reference(inp, v)}
+        rounds = [{name: cuda_time_ms(torch, fn, KERNEL_REPS // 2)
+                   for name, fn in timed.items()} for _ in range(4)]
+    t = {name: statistics.median(r[name] for r in rounds) for name in timed}
     bound_ms, bound_by = bound_of(3 * K, 8 * K + 12)
-    log(f"time probe kernel K={K}: {ms:.4f} ms per call, plain {plain_ms:.4f} "
-        f"ms, torch.add {library_ms:.4f} ms; bound {bound_ms:.6f} ms by "
-        f"{bound_by}")
-    return dict(launches=launches, max_err=max_err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                phases=phases)
+    log(f"time probe kernel K={K}: {t['kernel']:.4f} ms per "
+        f"scoring.trivial_probe call, plain {t['plain']:.4f} ms, torch.add "
+        f"{t['torch.add']:.4f} ms; floor: the same launch path with nothing "
+        f"launched {t['empty call']:.4f} ms, the event pair alone "
+        f"{t['events alone']:.4f} ms; bound {bound_ms:.6f} ms by {bound_by} "
+        f"(medians of 4 rounds of {KERNEL_REPS // 2} calls, taken in turns)")
+    return dict(launches=launches, max_err=max_err, ms=t["kernel"],
+                plain_ms=t["plain"], library_ms=t["torch.add"],
+                bound_ms=bound_ms, bound_by=bound_by, phases=phases)
 
 
 def device_kernel_ms(torch, fn, name, reps=20):

@@ -9,35 +9,61 @@
 // all three computing _scoring_body.  The plain PyTorch versions are
 // commonroad_rp_tpu_torch/ops/scoring.py::score_candidates_reference and
 // ::score_fleet_reference.  The TPU's per-step table windows are a VMEM
-// schedule: here every table lookup is a binary search plus a load, so one
-// kernel serves both horizons.
+// schedule: here a table lookup is a search in shared memory, so one kernel
+// body serves both horizons.
 //
-// Design: one thread per candidate, with a serial loop over the T steps in
-// registers (score_one).  Every cross-step quantity of the scorer is a scan
-// -- the prefilter, the standstill heading hold, the previous heading and
-// curvature of the yaw-rate and curvature-rate checks, the first (step,
-// rank) violation, the values saved at the last valid step for the
-// constant-acceleration extension with its running position sums, and the
-// cost sums -- so one pass suffices: steps at or after traj_len extend from
-// the values saved at the last valid step.  Reference-table rows are found by
-// binary search (idx = count(s_row <= q) - 1) and read, like the obstacle
-// and polygon tables, from global memory through the read-only path.  The
-// fleet kernel puts the problem index in blockIdx.y and offsets every
-// operand by its problem's stride; all problems share the padded sizes P, M,
-// Mp and V (parallel/fleet.py pads them).
+// What bounds it on the card: the instruction count and the latency of
+// dependent loads, not bytes (a candidate's operands are 14 floats) and not
+// anything a tensor core computes (the body holds no matrix product).  A
+// candidate's T steps are a serial scan -- the standstill heading hold, the
+// previous heading and curvature of the rate checks, the first violation,
+// the values kept at the last valid step for the constant-acceleration
+// extension, the cost sums in step order -- so one thread scores one
+// candidate, a block serves one problem (blockIdx.y) and walks K-tiles of it,
+// and the design spends its effort on what a step costs and on which warps
+// run the long scan at all:
 //
-// What bounds it on the card: compute and latency, not bytes.  Each step runs
-// four binary searches (one lookup, three corridor probes), about ten
-// transcendentals, and two more per obstacle; the candidates' inputs are
-// 14 floats each.  A single problem (K ~ 3.4k, 256 threads per block) fills
-// only ~14 blocks of the H100's 132 SMs; the fleet kernel (F * K threads,
-// 2.82M for the 1024-problem fleet) fills the card.  Later changes: split a
-// candidate's steps across a warp (parallel scans over T) and stage the
-// tables and obstacles in shared memory.
+//  * Staged once per block in shared memory (stage_problem): the 17
+//    scalars, the table's arclength column as a dense [P] array and the
+//    obstacle rows [M, T] with cos(theta) and sin(theta) computed once per
+//    (row, step) -- the per-candidate obstacle loop calls no cosf/sinf.  The
+//    table's other columns and the polygon table are read where they lie,
+//    through the read-only path: a candidate touches a few neighbouring rows,
+//    which stay in L1, and staging them too measured no faster at the
+//    fleet's shape (a shared-memory row is 12 words wide, so a warp's loads
+//    of one column conflict).
+//  * Table rows are found by a hinted search (count_le_hint): s moves a few
+//    rows per step and the three corridor probes lie within the ego's extent
+//    of it, so the search gallops from the previous count and bisects the
+//    bracket it finds.  It returns count(s_row <= q), the integer a full
+//    bisection returns, for every q: the table's arclengths increase.
+//  * Each transcendental is computed once: cos/sin of the curvilinear and
+//    the global heading once per valid step, shared by the Werling transform,
+//    the corridor probes and the obstacle tests; the extension reuses the
+//    last valid step's four values (its headings are constant).
+//  * Work whose result is fixed is not done: a first pass over the two
+//    longitudinal derivatives decides the prefilter before anything else,
+//    and a prefiltered candidate ends there; a candidate ends at its first
+//    constraint violation (its rows are +inf and its reason is that
+//    violation's); one that left the projection domain or is goal-filtered
+//    skips the collision tests and ends where its valid steps end; the
+//    extension of a colliding candidate only sums its cost.  Every exit
+//    leaves the three outputs exactly as the full scan would.
+//  * The exits alone free few warps: seven candidates in ten of a fleet
+//    cycle end at a violation, nearly all at their second step, but a warp's
+//    32 neighbours in K rarely all do.  So a block of the fleet kernel first
+//    screens its candidates (the prefilter and the checks of the first
+//    kScreenSteps steps), queues the survivors in shared memory and runs the
+//    whole scan on the queue, in full warps (score_block).
 //
 // Numerics: built without fast math, with IEEE division and square root and
 // without FMA contraction (-fmad=false), so each float32 operation rounds as
-// the plain version's separate tensor operations do.
+// the plain version's separate tensor operations do.  Every item above moves
+// where a value comes from or whether it is computed, never the arithmetic
+// that produces an output.
+//
+// The constants below (threads and blocks per SM, screen steps, tiles per
+// block) are the fastest measured without register spills on an H100.
 //
 // trivial_kernel is the launch-overhead probe: it replaces trivial_kernel of
 // scripts/t61_overhead_probe.py (:200, launched at :207), a Pallas kernel
@@ -48,7 +74,8 @@
 // launched through the same library and ctypes route as score_kernel, so the
 // probe times the launch path the scorer pays.  The TPU's bf16 pair and band
 // stacks have no counterpart in the port, so their terms are not read.  It is
-// bound by launch latency: 8 bytes per candidate of traffic.
+// bound by launch latency: 8 bytes per candidate of traffic.  crp_empty takes
+// the same arguments and launches nothing: the floor of the binding itself.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -56,8 +83,22 @@
 
 namespace {
 
+// 128 threads and at least 5 blocks per SM: 96 registers, no spills
+constexpr int kThreads = 128;
+constexpr int kMinBlocks = 5;
+// The fleet kernel's screen: valid steps of the first pass, the most K-tiles
+// one block walks, the blocks a launch should have before a block walks more
+// than one tile (eight for each of the card's 132 SMs), and the candidates a
+// block screens before it scores those that go on.
+constexpr int kScreenSteps = 2;
+constexpr int kMaxTilesPerBlock = 8;
+constexpr int kBlocksWanted = 1056;
+constexpr int kQueue = kMaxTilesPerBlock * kThreads;
+
 constexpr int kCols = 12;      // packed table columns (ops/scoring.py)
 constexpr int kObsCols = 7;    // x, y, theta, half_len, half_wid, valid, radius
+// staged obstacle row: x, y, cos, sin | half_len, half_wid, valid, radius
+constexpr int kObsStaged = 8;
 
 // scalar slots (ops/scoring.py _S_*)
 enum {
@@ -65,6 +106,7 @@ enum {
   S_HALF_LEN, S_HALF_WID, S_X0_THETA, S_DT, S_LOW_VEL, S_DESIRED_V,
   S_DESIRED_D, S_W_A, S_REF_S_LAST, S_DESIRED_S, S_TABLE_S0, S_NUM
 };
+constexpr int kScalStaged = 20;  // S_NUM rounded up to a multiple of 4
 
 // flag bits (ops/scoring.py _F_*)
 constexpr int F_VELOCITY = 1, F_ACCELERATION = 2, F_KAPPA = 4,
@@ -101,13 +143,64 @@ __device__ __forceinline__ float atan_cephes(float x) {
   return sign * (y0 + poly);
 }
 
-// count(s_row <= q) over the table's arclength column
-__device__ __forceinline__ int count_le(const float* __restrict__ table, int P,
-                                        float q) {
-  int lo = 0, hi = P;
+// Dynamic shared-memory floats of one block: the scalars, the staged obstacle
+// rows and the arclength column (ops/scoring.py::shared_bytes computes the
+// same).
+inline long staged_floats(int P, int M, int T) {
+  return kScalStaged + (long)M * T * kObsStaged + P;
+}
+
+// One problem's data as a block sees it.
+struct Problem {
+  const float* scal;   // shared [S_NUM]
+  const float* obs;    // shared [M, T, kObsStaged]
+  const float* col;    // shared [P]: the table's arclengths
+  const float* rows;   // global [P, kCols]
+  const float* poly;   // global [Mp, T, 2V + 1]
+};
+
+// The block's threads load one problem into shared memory; ends with a
+// barrier.  The obstacle rows' cos/sin are computed here, once per (row,
+// step) and block.
+__device__ __forceinline__ Problem stage_problem(
+    float* smem, const float* __restrict__ table, int P,
+    const float* __restrict__ obs, int M, const float* __restrict__ poly,
+    const float* __restrict__ scal, int T) {
+  float* sh_scal = smem;
+  float* sh_obs = sh_scal + kScalStaged;
+  float* sh_col = sh_obs + M * T * kObsStaged;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  if (tid < S_NUM) sh_scal[tid] = __ldg(scal + tid);
+  for (int i = tid; i < M * T; i += nthr) {
+    const float* o = obs + (size_t)i * kObsCols;
+    const float theta = __ldg(o + 2);
+    float* r = sh_obs + i * kObsStaged;
+    r[0] = __ldg(o + 0);
+    r[1] = __ldg(o + 1);
+    r[2] = cosf(theta);
+    r[3] = sinf(theta);
+    r[4] = __ldg(o + 3);
+    r[5] = __ldg(o + 4);
+    r[6] = __ldg(o + 5);
+    r[7] = __ldg(o + 6);
+  }
+  for (int i = tid; i < P; i += nthr) sh_col[i] = __ldg(table + i * kCols);
+  __syncthreads();
+  Problem pb;
+  pb.scal = sh_scal;
+  pb.obs = sh_obs;
+  pb.col = sh_col;
+  pb.rows = table;
+  pb.poly = poly;
+  return pb;
+}
+
+// count(s_row <= q) over the arclength column, by bisection of [lo, hi]
+__device__ __forceinline__ int bisect_le(const float* col, int lo, int hi,
+                                         float q) {
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    if (__ldg(table + mid * kCols) <= q) {
+    if (col[mid] <= q) {
       lo = mid + 1;
     } else {
       hi = mid;
@@ -116,34 +209,79 @@ __device__ __forceinline__ int count_le(const float* __restrict__ table, int P,
   return lo;
 }
 
-// Scores candidate k of one problem; every pointer is that problem's base.
-__device__ __forceinline__ void score_one(
+// count(s_row <= q) from a hint (any earlier count in [0, P], or < 0 for
+// none): gallops from the hint, in the direction the row at the hint gives,
+// in steps of 1, 2, 4, ... until the count is bracketed, then bisects the
+// bracket.  The rows' arclengths increase, so "s_row <= q" holds on a prefix
+// of the rows and every bracket [lo, hi] below keeps lo <= count <= hi.
+__device__ __forceinline__ int count_le_hint(const float* col, int P, float q,
+                                             int hint) {
+  if (hint < 0) return bisect_le(col, 0, P, q);
+  int lo, hi, step = 1;
+  if (hint < P && col[hint] <= q) {   // count > hint
+    lo = hint + 1;
+    for (;;) {
+      const int i = lo + step - 1;
+      if (i >= P) {
+        hi = P;
+        break;
+      }
+      if (col[i] <= q) {
+        lo = i + 1;
+        step <<= 1;
+      } else {
+        hi = i;
+        break;
+      }
+    }
+  } else {                            // count <= hint
+    hi = hint;
+    for (;;) {
+      const int i = hi - step;
+      if (i < 0) {
+        lo = 0;
+        break;
+      }
+      if (col[i] <= q) {
+        lo = i + 1;
+        break;
+      }
+      hi = i;
+      step <<= 1;
+    }
+  }
+  return bisect_le(col, lo, hi, q);
+}
+
+// Scores candidate k of one problem; the candidate operands and the outputs
+// are that problem's bases.  kPass 0 is the whole scan.  kPass 1 is the screen: the prefilter and the
+// kinematic checks of the first kScreenSteps valid steps, nothing else; it
+// writes the outputs of a candidate that ends there and returns whether the
+// candidate goes on.  kPass 2 is the whole scan of a candidate that passed
+// the screen (it is not prefiltered).
+template <int kPass>
+__device__ __forceinline__ bool score_one(
     int k, const float* __restrict__ coeffs_lon,
     const float* __restrict__ coeffs_lat,
     const float* __restrict__ traj_len_in,
-    const float* __restrict__ goal_valid_in, const float* __restrict__ table,
-    int P, const float* __restrict__ obs, int M,
-    const float* __restrict__ poly, int Mp, int V,
-    const float* __restrict__ scal, int T, int flags,
-    float* __restrict__ out_masked, float* __restrict__ out_kin,
-    float* __restrict__ out_reason) {
+    const float* __restrict__ goal_valid_in, const Problem& pb, int P, int M,
+    int Mp, int V, int T, int flags, float* __restrict__ out_masked,
+    float* __restrict__ out_kin, float* __restrict__ out_reason) {
 
-  const float wheelbase = __ldg(scal + S_WHEELBASE);
-  const float wb_rear = __ldg(scal + S_WB_REAR);
-  const float a_max = __ldg(scal + S_A_MAX);
-  const float v_switch = __ldg(scal + S_V_SWITCH);
-  const float kappa_max = __ldg(scal + S_KAPPA_MAX);
-  const float v_delta_max = __ldg(scal + S_V_DELTA_MAX);
-  const float half_len = __ldg(scal + S_HALF_LEN);
-  const float half_wid = __ldg(scal + S_HALF_WID);
-  const float x0_theta = __ldg(scal + S_X0_THETA);
-  const float dt = __ldg(scal + S_DT);
-  const bool low_vel = __ldg(scal + S_LOW_VEL) > 0.5f;
-  const float desired_v = __ldg(scal + S_DESIRED_V);
-  const float desired_d = __ldg(scal + S_DESIRED_D);
-  const float w_a = __ldg(scal + S_W_A);
-  const float ref_s_last = __ldg(scal + S_REF_S_LAST);
-  const float desired_s = __ldg(scal + S_DESIRED_S);
+  const float* scal = pb.scal;
+  const float wheelbase = scal[S_WHEELBASE];
+  const float wb_rear = scal[S_WB_REAR];
+  const float a_max = scal[S_A_MAX];
+  const float kappa_max = scal[S_KAPPA_MAX];
+  const float half_len = scal[S_HALF_LEN];
+  const float half_wid = scal[S_HALF_WID];
+  const float dt = scal[S_DT];
+  const bool low_vel = scal[S_LOW_VEL] > 0.5f;
+  const float desired_v = scal[S_DESIRED_V];
+  const float desired_d = scal[S_DESIRED_D];
+  const float w_a = scal[S_W_A];
+  const float ref_s_last = scal[S_REF_S_LAST];
+  const float desired_s = scal[S_DESIRED_S];
   const bool has_v = flags & F_HAS_DESIRED_V;
   const bool has_s = flags & F_HAS_DESIRED_S;
 
@@ -155,36 +293,60 @@ __device__ __forceinline__ void score_one(
   }
   const float traj_len = __ldg(traj_len_in + k);
   const float last = traj_len - 1.0f;
+  const bool goal_ok = __ldg(goal_valid_in + k) > 0.5f;
+  // the valid steps are the t < n_act: (float)t < traj_len
+  const int n_act =
+      traj_len > 0.f ? (int)fminf(ceilf(traj_len), (float)T) : 0;
+
+  // ---- first pass, the prefilter alone: the two longitudinal derivatives
+  // of the valid steps (the expressions of the main pass)
+  bool pre_acc = false, pre_vel = false;
+  for (int t = 0; kPass != 2 && t < n_act; ++t) {
+    const float tau = (float)t * dt;
+    const float tau2 = tau * tau, tau3 = tau2 * tau, tau4 = tau2 * tau2;
+    const float s_dot = cl[1] + 2.0f * cl[2] * tau + 3.0f * cl[3] * tau2 +
+                        4.0f * cl[4] * tau3 + 5.0f * cl[5] * tau4;
+    const float s_ddot = 2.0f * cl[2] + 6.0f * cl[3] * tau +
+                         12.0f * cl[4] * tau2 + 20.0f * cl[5] * tau3;
+    pre_acc |= fabsf(s_ddot) > a_max;
+    // the main pass zeroes |s_dot| < kEps first, which this test never sees
+    pre_vel |= s_dot < -kEps;
+  }
+  const bool prefiltered = pre_acc || pre_vel;
 
   // scan state
-  bool pre_acc = false, pre_vel = false, domain_ok = true, collides = false;
-  int first_flat = -1;  // step * 5 + rank of the first violation
-  float s0 = 0.f, hold = x0_theta, prev_theta = 0.f, prev_kappa = 0.f;
-  // values at the last valid step (0 when there is none, as the masked sum
-  // of the TPU kernel gives)
-  float a_last = 0.f, v_last = 0.f, th_last = 0.f, x_last = 0.f, y_last = 0.f,
-        thcl_last = 0.f, sdot_last = 0.f, s_last = 0.f, d_last = 0.f,
-        ddot_last = 0.f;
-  float cos_last = 0.f, sin_last = 0.f, cum_x = 0.f, cum_y = 0.f;
-  bool ext_started = false;
+  bool domain_ok = true, collides = false;
+  int viol_rank = -1;  // rank of the first (step, rank) violation
+  float s0 = 0.f, hold = scal[S_X0_THETA], prev_theta = 0.f, prev_kappa = 0.f;
+  float cum_x = 0.f, cum_y = 0.f;
   float sum_a = 0.f, sum_v = 0.f, sum_s = 0.f, sum_d = 0.f, sum_th = 0.f;
   float v_mid = 0.f;
-
+  int hint = -1;
   const int t_mid = T / 2;
+  // Values of the current step.  After the last valid step they hold that
+  // step's (0 when there is none, as the masked sum of the TPU kernel
+  // gives) and the extension reads them: its headings are constant, so
+  // their cos/sin carry over too (cos 0 = 1, sin 0 = 0 when there is none).
   float s = 0.f, d = 0.f, v = 0.f, a = 0.f, theta_gl = 0.f, theta_cl = 0.f,
-        ego_x = 0.f, ego_y = 0.f;
+        ego_x = 0.f, ego_y = 0.f, s_dot = 0.f, d_dot = 0.f;
+  float cos_cl = 1.f, sin_cl = 0.f, e_cos = 1.f, e_sin = 0.f;
+  float a_last = 0.f, v_last = 0.f, x_last = 0.f, y_last = 0.f,
+        sdot_last = 0.f, s_last = 0.f, d_last = 0.f, ddot_last = 0.f;
 
-  for (int t = 0; t < T; ++t) {
+  const int t_end = kPass == 1 ? min(n_act, kScreenSteps) : T;
+  for (int t = 0; t < t_end && !prefiltered; ++t) {
     const float stepf = (float)t;
-    if (stepf < traj_len) {
+    // the collision tests can still change an output
+    bool live = kPass != 1 && !collides && domain_ok && goal_ok;
+    if (t < n_act) {
       // ---- rollout of s and d (low-velocity mode: d over travelled s)
       const float tt = stepf * dt;
       float tau = tt, tau2 = tau * tau, tau3 = tau2 * tau, tau4 = tau2 * tau2,
             tau5 = tau4 * tau;
       s = cl[0] + cl[1] * tau + cl[2] * tau2 + cl[3] * tau3 + cl[4] * tau4 +
           cl[5] * tau5;
-      float s_dot = cl[1] + 2.0f * cl[2] * tau + 3.0f * cl[3] * tau2 +
-                    4.0f * cl[4] * tau3 + 5.0f * cl[5] * tau4;
+      s_dot = cl[1] + 2.0f * cl[2] * tau + 3.0f * cl[3] * tau2 +
+              4.0f * cl[4] * tau3 + 5.0f * cl[5] * tau4;
       const float s_ddot = 2.0f * cl[2] + 6.0f * cl[3] * tau +
                            12.0f * cl[4] * tau2 + 20.0f * cl[5] * tau3;
       if (t == 0) s0 = s;
@@ -195,21 +357,23 @@ __device__ __forceinline__ void score_one(
       tau5 = tau4 * tau;
       d = ca[0] + ca[1] * tau + ca[2] * tau2 + ca[3] * tau3 + ca[4] * tau4 +
           ca[5] * tau5;
-      float d_dot = ca[1] + 2.0f * ca[2] * tau + 3.0f * ca[3] * tau2 +
-                    4.0f * ca[4] * tau3 + 5.0f * ca[5] * tau4;
+      d_dot = ca[1] + 2.0f * ca[2] * tau + 3.0f * ca[3] * tau2 +
+              4.0f * ca[4] * tau3 + 5.0f * ca[5] * tau4;
       const float d_ddot = 2.0f * ca[2] + 6.0f * ca[3] * tau +
                            12.0f * ca[4] * tau2 + 20.0f * ca[5] * tau3;
       if (fabsf(s_dot) < kEps) s_dot = 0.f;
       if (fabsf(d_dot) < kEps) d_dot = 0.f;
-      pre_acc |= fabsf(s_ddot) > a_max;
-      pre_vel |= s_dot < -kEps;
 
       // ---- reference-table rows idx, idx + 1
-      int idx = (s != s) ? -1 : count_le(table, P, s) - 1;
+      int idx = -1;
+      if (s == s) {
+        hint = count_le_hint(pb.col, P, s, hint);
+        idx = hint - 1;
+      }
       idx = min(max(idx, 0), P - 2);
-      const float* lo = table + idx * kCols;
+      const float* lo = pb.rows + idx * kCols;
       const float* hi = lo + kCols;
-      const float lo_s = __ldg(lo + 0), hi_s = __ldg(hi + 0);
+      const float lo_s = pb.col[idx], hi_s = pb.col[idx + 1];
       const float lam = (s - lo_s) / (hi_s - lo_s);
       const float lo_th = __ldg(lo + 1);
       const float raw = (__ldg(hi + 1) - lo_th) * lam + lo_th;
@@ -219,9 +383,6 @@ __device__ __forceinline__ void score_one(
       const float k_r = (__ldg(hi + 2) - lo_k) * lam + lo_k;
       const float lo_kd = __ldg(lo + 3);
       const float k_r_d = (__ldg(hi + 3) - lo_kd) * lam + lo_kd;
-      const float ds = s - lo_s;
-      ego_x = __ldg(lo + 6) + ds * __ldg(lo + 8) + d * __ldg(lo + 10);
-      ego_y = __ldg(lo + 7) + ds * __ldg(lo + 9) + d * __ldg(lo + 11);
 
       // ---- Werling transform with the standstill heading hold
       const bool moving = s_dot > 0.001f;
@@ -238,19 +399,19 @@ __device__ __forceinline__ void score_one(
       theta_cl = use_move ? theta_cl_move : theta_gl - interp_theta;
 
       const float one_krd = 1.0f - k_r * d;
-      const float cos_t = cosf(theta_cl);
+      cos_cl = cosf(theta_cl);
       const float tan_t = tanf(theta_cl);
-      const float q = cos_t / one_krd;
+      const float q = cos_cl / one_krd;
       const float kappa_gl =
-          (dpp + (k_r * dp + k_r_d * d) * tan_t) * cos_t * (q * q) + q * k_r;
-      v = s_dot * (one_krd / cos_t);
-      a = s_ddot * one_krd / cos_t +
-          ((s_dot * s_dot) / cos_t) *
-              (one_krd * tan_t * (kappa_gl * one_krd / cos_t - k_r) -
+          (dpp + (k_r * dp + k_r_d * d) * tan_t) * cos_cl * (q * q) + q * k_r;
+      v = s_dot * (one_krd / cos_cl);
+      a = s_ddot * one_krd / cos_cl +
+          ((s_dot * s_dot) / cos_cl) *
+              (one_krd * tan_t * (kappa_gl * one_krd / cos_cl - k_r) -
                (k_r_d * d + k_r * dp));
 
       // ---- first (step, rank) constraint violation
-      if (first_flat < 0) {
+      if (viol_rank < 0) {
         int rank = -1;
         if ((flags & F_VELOCITY) && v < -kEps) {
           rank = 0;
@@ -263,53 +424,68 @@ __device__ __forceinline__ void score_one(
         }
         if (rank < 0 && (flags & F_KAPPA_DOT)) {
           const float c_st = cosf(atan_cephes(wheelbase * kappa_gl));
-          const float kd_max = v_delta_max / (wheelbase * (c_st * c_st));
+          const float kd_max =
+              scal[S_V_DELTA_MAX] / (wheelbase * (c_st * c_st));
           const float kd = t == 0 ? 0.f : (kappa_gl - prev_kappa) / dt;
           if (fabsf(kd) > kd_max) rank = 3;
         }
         if (rank < 0 && (flags & F_ACCELERATION)) {
+          const float v_switch = scal[S_V_SWITCH];
           const bool fast = v > v_switch;
           const float v_safe = fast ? v : 1.0f;
           const float a_hi = fast ? a_max * v_switch / v_safe : a_max;
           if (a < -a_max || a > a_hi) rank = 4;
         }
-        if (rank >= 0) first_flat = t * 5 + rank;
+        if (rank >= 0) {
+          // both cost rows are +inf from here on and the reason is this one
+          viol_rank = rank;
+          break;
+        }
       }
       prev_theta = theta_gl;
       prev_kappa = kappa_gl;
+      if (kPass == 1) continue;
 
       // ---- projection domain
       domain_ok = domain_ok && s >= 0.0f && s <= ref_s_last &&
                   one_krd > 0.0f && fabsf(d) < 19.9f;
+      live = live && domain_ok;
 
-      a_last = a;
-      v_last = v;
-      th_last = theta_gl;
-      x_last = ego_x;
-      y_last = ego_y;
-      thcl_last = theta_cl;
-      sdot_last = s_dot;
-      s_last = s;
-      d_last = d;
-      ddot_last = d_dot;
+      if (live) {
+        const float ds = s - lo_s;
+        ego_x = __ldg(lo + 6) + ds * __ldg(lo + 8) +
+                d * __ldg(lo + 10);
+        ego_y = __ldg(lo + 7) + ds * __ldg(lo + 9) +
+                d * __ldg(lo + 11);
+        sin_cl = sinf(theta_cl);
+        e_cos = cosf(theta_gl);
+        e_sin = sinf(theta_gl);
+      }
     } else {
       // ---- constant-acceleration extension past the last valid step
-      if (!ext_started) {
-        cos_last = cosf(th_last);
-        sin_last = sinf(th_last);
-        ext_started = true;
+      if (t == n_act) {
+        // no violation can follow: a candidate out of the domain or
+        // goal-filtered has all three outputs fixed
+        if (!(domain_ok && goal_ok)) break;
+        a_last = a;
+        v_last = v;
+        x_last = ego_x;
+        y_last = ego_y;
+        sdot_last = s_dot;
+        s_last = s;
+        d_last = d;
+        ddot_last = d_dot;
       }
       const float t_rel = (stepf - last) * dt;
       float v_temp = v_last + t_rel * a_last;
       v_temp = v_temp * (float)(v_temp >= 0.f);
-      cum_x = cum_x + dt * v_temp * cos_last;
-      cum_y = cum_y + dt * v_temp * sin_last;
-      ego_x = x_last + cum_x;
-      ego_y = y_last + cum_y;
+      if (live) {
+        cum_x = cum_x + dt * v_temp * e_cos;
+        cum_y = cum_y + dt * v_temp * e_sin;
+        ego_x = x_last + cum_x;
+        ego_y = y_last + cum_y;
+      }
       v = v_temp;
-      a = a_last;
-      theta_gl = th_last;
-      theta_cl = thcl_last;
       s = s_last + t_rel * sdot_last;
       d = d_last + t_rel * ddot_last;
     }
@@ -331,46 +507,48 @@ __device__ __forceinline__ void score_one(
     sum_th = sum_th + eth * eth;
     if (t == t_mid) v_mid = v;
 
-    if (collides) continue;
+    if (!live) continue;
 
     // ---- corridor band check: three probes along the ego box
-    const float cos_cl = cosf(theta_cl);
-    const float sin_cl = sinf(theta_cl);
     const float s_center = s + wb_rear * cos_cl;
     const float d_center = d + wb_rear * sin_cl;
     const float lat_ext = half_wid * fabsf(cos_cl) + half_len * fabsf(sin_cl);
     const float lon_ext = half_len * fabsf(cos_cl) + half_wid * fabsf(sin_cl);
     const float d_plus = d_center + lat_ext;
     const float d_minus = d_center - lat_ext;
-    const float probes[3] = {s_center - lon_ext, s_center,
+    const float probes[3] = {s_center, s_center - lon_ext,
                              s_center + lon_ext};
+    int probe_hint = hint;
 #pragma unroll
     for (int p = 0; p < 3; ++p) {
       float q = probes[p];
-      if (q == q) q = fminf(fmaxf(q, 0.0f), ref_s_last);
-      const int bidx = (q != q) ? -1 : count_le(table, P, q) - 1;
       float band_lo = 0.f, band_hi = 0.f;
-      if (bidx >= 0) {
-        band_lo = __ldg(table + bidx * kCols + 4);
-        band_hi = __ldg(table + bidx * kCols + 5);
+      if (q == q) {
+        q = fminf(fmaxf(q, 0.0f), ref_s_last);
+        const int c = count_le_hint(pb.col, P, q, probe_hint);
+        // the outer probes and the next step start at the center's count
+        if (p == 0) probe_hint = hint = c;
+        if (c >= 1) {
+          band_lo = __ldg(pb.rows + (c - 1) * kCols + 4);
+          band_hi = __ldg(pb.rows + (c - 1) * kCols + 5);
+        }
       }
       if (d_plus > band_hi || d_minus < band_lo) collides = true;
     }
 
     // ---- obstacle OBB / disc SAT at the ego box center
-    const float e_cos = cosf(theta_gl);
-    const float e_sin = sinf(theta_gl);
     const float ecx = ego_x + wb_rear * e_cos;
     const float ecy = ego_y + wb_rear * e_sin;
     for (int m = 0; m < M && !collides; ++m) {
-      const float* o = obs + ((size_t)m * T + t) * kObsCols;
-      if (!(__ldg(o + 5) > 0.5f)) continue;
-      const float otheta = __ldg(o + 2);
-      const float ohl = __ldg(o + 3), ohw = __ldg(o + 4);
-      const float radius = __ldg(o + 6);
-      const float o_cos = cosf(otheta), o_sin = sinf(otheta);
-      const float dx = __ldg(o + 0) - ecx;
-      const float dy = __ldg(o + 1) - ecy;
+      const float4* o = reinterpret_cast<const float4*>(
+          pb.obs + (m * T + t) * kObsStaged);
+      const float4 geo = o[1];  // half_len, half_wid, valid, radius
+      if (!(geo.z > 0.5f)) continue;
+      const float4 pose = o[0];  // x, y, cos, sin
+      const float ohl = geo.x, ohw = geo.y, radius = geo.w;
+      const float o_cos = pose.z, o_sin = pose.w;
+      const float dx = pose.x - ecx;
+      const float dy = pose.y - ecy;
       const float rel_cos = fabsf(e_cos * o_cos + e_sin * o_sin);
       const float rel_sin = fabsf(o_sin * e_cos - o_cos * e_sin);
       const float lx = fabsf(dx * e_cos + dy * e_sin);
@@ -396,7 +574,7 @@ __device__ __forceinline__ void score_one(
     // ---- convex-polygon SAT: ego box axes + the piece's edge normals
     const int pc = 2 * V + 1;
     for (int m = 0; m < Mp && !collides; ++m) {
-      const float* pv = poly + ((size_t)m * T + t) * pc;
+      const float* pv = pb.poly + ((size_t)m * T + t) * pc;
       if (!(__ldg(pv + 2 * V) > 0.5f)) continue;
       float pm_min = 0.f, pm_max = 0.f, pn_min = 0.f, pn_max = 0.f;
       for (int i = 0; i < V; ++i) {
@@ -413,11 +591,13 @@ __device__ __forceinline__ void score_one(
                  pn_min > half_wid || pn_max < -half_wid;
       for (int e = 0; e < V && !sep; ++e) {
         const int e2 = (e + 1) % V;
-        const float nx = -(__ldg(pv + 2 * e2 + 1) - __ldg(pv + 2 * e + 1));
+        const float nx =
+            -(__ldg(pv + 2 * e2 + 1) - __ldg(pv + 2 * e + 1));
         const float ny = __ldg(pv + 2 * e2) - __ldg(pv + 2 * e);
         float lo_p = 0.f, hi_p = 0.f;
         for (int i = 0; i < V; ++i) {
-          const float proj = nx * __ldg(pv + 2 * i) + ny * __ldg(pv + 2 * i + 1);
+          const float proj = nx * __ldg(pv + 2 * i) +
+                             ny * __ldg(pv + 2 * i + 1);
           lo_p = i == 0 ? proj : fminf(lo_p, proj);
           hi_p = i == 0 ? proj : fmaxf(hi_p, proj);
         }
@@ -431,7 +611,8 @@ __device__ __forceinline__ void score_one(
   }
 
   // ---- cost: sums plus the terminal and mid-horizon terms (values of the
-  // final step are still in s, d, v, theta_cl)
+  // final step are still in s, d, v, theta_cl); read only when the
+  // candidate is feasible, which no early exit is
   float cost = sum_a;
   if (has_v) {
     const float ev = v - desired_v;
@@ -447,12 +628,11 @@ __device__ __forceinline__ void score_one(
   const float eth = 5.0f * fabsf(theta_cl);
   cost = cost + (sum_th + eth * eth);
 
-  const bool any_viol = first_flat >= 0;
-  const bool prefiltered = pre_acc || pre_vel;
+  const bool any_viol = viol_rank >= 0;
   const bool kin_feasible = !prefiltered && !any_viol;
-  const bool feasible =
-      kin_feasible && domain_ok && __ldg(goal_valid_in + k) > 0.5f;
-  float reason = any_viol ? (float)(first_flat % 5) : -1.0f;
+  if (kPass == 1 && kin_feasible) return true;
+  const bool feasible = kin_feasible && domain_ok && goal_ok;
+  float reason = any_viol ? (float)viol_rank : -1.0f;
   if (prefiltered) reason = pre_acc ? 4.0f : 0.0f;
   if (kin_feasible && !domain_ok) reason = 5.0f;
 
@@ -460,40 +640,98 @@ __device__ __forceinline__ void score_one(
   out_masked[k] = (feasible && !collides) ? cost : inf;
   out_kin[k] = feasible ? cost : inf;
   out_reason[k] = reason;
+  return false;
 }
 
-__global__ void __launch_bounds__(256) score_kernel(
-    const float* __restrict__ coeffs_lon, const float* __restrict__ coeffs_lat,
-    const float* __restrict__ traj_len, const float* __restrict__ goal_valid,
-    const float* __restrict__ table, int P, const float* __restrict__ obs,
-    int M, const float* __restrict__ poly, int Mp, int V,
-    const float* __restrict__ scal, int K, int T, int flags,
-    float* __restrict__ out_masked, float* __restrict__ out_kin,
-    float* __restrict__ out_reason) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= K) return;
-  score_one(k, coeffs_lon, coeffs_lat, traj_len, goal_valid, table, P, obs, M,
-            poly, Mp, V, scal, T, flags, out_masked, out_kin, out_reason);
-}
+extern __shared__ float4 crp_smem[];
 
-// Problem f = blockIdx.y; operands are [F, ...] stacks with the padded sizes.
-__global__ void __launch_bounds__(256) fleet_score_kernel(
+// Problem f = blockIdx.y; operands are [F, ...] stacks with the padded sizes
+// P, M, Mp and V (parallel/fleet.py pads them); out is [3, F, K].  A block
+// stages its problem once and scores a run of whole K-tiles of it, the
+// gridDim.x blocks of a problem sharing its tiles evenly.
+//
+// kScreen (the fleet kernel): most candidates that end early end at their
+// first or second step (the rate checks' first steps), but a warp's 32
+// neighbours in K rarely all do, so exits alone leave the warps running.
+// The block therefore screens its candidates first (score_one pass 1),
+// queues those that go on in shared memory, and scores the queue densely
+// (pass 2, from step 0): the long scan runs in full warps of candidates that
+// need it.  A launch whose blocks all fit the card at once (one problem)
+// would only lengthen its one round by the screen, so score_kernel does
+// without.
+template <bool kScreen>
+__device__ __forceinline__ void score_block(
     const float* __restrict__ coeffs_lon, const float* __restrict__ coeffs_lat,
     const float* __restrict__ traj_len, const float* __restrict__ goal_valid,
     const float* __restrict__ tables, int P, const float* __restrict__ obs,
     int M, const float* __restrict__ poly, int Mp, int V,
-    const float* __restrict__ scal, int K, int T, int flags,
-    float* __restrict__ out_masked, float* __restrict__ out_kin,
-    float* __restrict__ out_reason) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= K) return;
+    const float* __restrict__ scal, int F, int K, int T, int flags,
+    float* __restrict__ out) {
+  __shared__ int queue[kScreen ? kQueue : 1];
+  __shared__ int n_queued;
   const size_t f = blockIdx.y;
   const size_t fk = f * (size_t)K;
-  score_one(k, coeffs_lon + fk * 6, coeffs_lat + fk * 6, traj_len + fk,
-            goal_valid + fk, tables + f * (size_t)P * kCols, P,
-            obs + f * (size_t)M * T * kObsCols, M,
-            poly + f * (size_t)Mp * T * (2 * V + 1), Mp, V, scal + f * S_NUM,
-            T, flags, out_masked + fk, out_kin + fk, out_reason + fk);
+  const size_t row = (size_t)F * K;
+  const Problem pb = stage_problem(
+      reinterpret_cast<float*>(crp_smem), tables + f * (size_t)P * kCols, P,
+      obs + f * (size_t)M * T * kObsCols, M,
+      poly + f * (size_t)Mp * T * (2 * V + 1), scal + f * S_NUM, T);
+  coeffs_lon += fk * 6;
+  coeffs_lat += fk * 6;
+  traj_len += fk;
+  goal_valid += fk;
+  float* out_masked = out + fk;
+  float* out_kin = out + row + fk;
+  float* out_reason = out + 2 * row + fk;
+
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int tiles = (K + nthr - 1) / nthr;
+  const int per_block = (tiles + gridDim.x - 1) / gridDim.x * nthr;
+  const int k_begin = blockIdx.x * per_block;
+  const int k_end = min(K, k_begin + per_block);
+  if (!kScreen) {
+    for (int k = k_begin + tid; k < k_end; k += nthr)
+      score_one<0>(k, coeffs_lon, coeffs_lat, traj_len, goal_valid, pb, P, M,
+                   Mp, V, T, flags, out_masked, out_kin, out_reason);
+    return;
+  }
+  // k_end - k_begin <= kQueue: launch_scorer gives a block at most
+  // kMaxTilesPerBlock tiles
+  if (tid == 0) n_queued = 0;
+  __syncthreads();
+  for (int k = k_begin + tid; k < k_end; k += nthr)
+    if (score_one<1>(k, coeffs_lon, coeffs_lat, traj_len, goal_valid, pb, P, M,
+                     Mp, V, T, flags, out_masked, out_kin, out_reason))
+      queue[atomicAdd(&n_queued, 1)] = k;
+  __syncthreads();
+  const int n = n_queued;
+  for (int i = tid; i < n; i += nthr)
+    score_one<2>(queue[i], coeffs_lon, coeffs_lat, traj_len, goal_valid, pb, P,
+                 M, Mp, V, T, flags, out_masked, out_kin, out_reason);
+}
+
+#define CRP_SCORER_PARAMS                                                     \
+  const float *__restrict__ coeffs_lon, const float *__restrict__ coeffs_lat, \
+      const float *__restrict__ traj_len,                                     \
+      const float *__restrict__ goal_valid, const float *__restrict__ tables, \
+      int P, const float *__restrict__ obs, int M,                            \
+      const float *__restrict__ poly, int Mp, int V,                          \
+      const float *__restrict__ scal, int F, int K, int T, int flags,         \
+      float *__restrict__ out
+#define CRP_SCORER_ARGS                                                      \
+  coeffs_lon, coeffs_lat, traj_len, goal_valid, tables, P, obs, M, poly, Mp, \
+      V, scal, F, K, T, flags, out
+
+// one planning problem (F = 1), a block per K-tile
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    score_kernel(CRP_SCORER_PARAMS) {
+  score_block<false>(CRP_SCORER_ARGS);
+}
+
+// a fleet of F problems, screened
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    fleet_score_kernel(CRP_SCORER_PARAMS) {
+  score_block<true>(CRP_SCORER_ARGS);
 }
 
 __global__ void __launch_bounds__(256) trivial_kernel(
@@ -506,7 +744,60 @@ __global__ void __launch_bounds__(256) trivial_kernel(
   out[k] = (__ldg(coeffs_lon + k * 6) + __ldg(v)) + __ldg(table) + obs0;
 }
 
+// The most shared memory one block may have on sm_90, static and dynamic
+constexpr long kSharedPerBlock = 227 * 1024;
+
+// Launches one of the two scorer kernels with the dynamic shared memory its
+// sizes need; above 48 KB the kernel's limit is raised first, once per size
+// reached.
+template <bool kFleet>
+int launch_scorer(CRP_SCORER_PARAMS, void* stream) {
+  static int raised_to = 0;
+  const auto kernel = kFleet ? fleet_score_kernel : score_kernel;
+  if (K <= 0 || F <= 0) return 0;
+  if (F > 65535 || P < 2) return (int)cudaErrorInvalidConfiguration;
+  const long smem_bytes = 4 * staged_floats(P, M, T);
+  if (smem_bytes > kSharedPerBlock) return (int)cudaErrorInvalidValue;
+  if (smem_bytes > 48 * 1024 && smem_bytes > raised_to) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    raised_to = (int)smem_bytes;
+  }
+  // a block of the fleet kernel walks several K-tiles once the launch has
+  // blocks to spare: its screen then fills its second pass from more
+  // candidates, and the problem is staged once for all of them
+  const int tiles = (K + kThreads - 1) / kThreads;
+  long per_block = 1;
+  if (kFleet) per_block = (long)F * tiles / kBlocksWanted;
+  if (per_block > kMaxTilesPerBlock) per_block = kMaxTilesPerBlock;
+  if (per_block < 1) per_block = 1;
+  const dim3 blocks((tiles + per_block - 1) / per_block, F);
+  kernel<<<blocks, kThreads, smem_bytes, (cudaStream_t)stream>>>(
+      CRP_SCORER_ARGS);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// Dynamic shared memory (bytes) of one scorer block for these sizes.
+extern "C" long crp_score_shared_bytes(int P, int M, int T) {
+  return 4 * staged_floats(P, M, T);
+}
+
+// The most dynamic shared memory (bytes) a block of either scorer kernel may
+// ask for beside its static shared memory (the fleet kernel's queue), which
+// is counted in whole KB, or -1.
+extern "C" long crp_score_shared_limit() {
+  cudaFuncAttributes one, fleet;
+  if (cudaFuncGetAttributes(&one, score_kernel) != cudaSuccess ||
+      cudaFuncGetAttributes(&fleet, fleet_score_kernel) != cudaSuccess)
+    return -1;
+  const size_t fixed = one.sharedSizeBytes > fleet.sharedSizeBytes
+                           ? one.sharedSizeBytes
+                           : fleet.sharedSizeBytes;
+  return kSharedPerBlock - ((long)fixed + 1023) / 1024 * 1024;
+}
 
 // coeffs_lon: [K, 6]; table: [P, 12]; obs: [M, T, 7]; v: [1] on the device;
 // out: [K].  All float32, contiguous.
@@ -521,33 +812,28 @@ extern "C" int crp_trivial(const float* coeffs_lon, const float* table,
   return (int)cudaGetLastError();
 }
 
-extern "C" int crp_score_candidates(
-    const float* coeffs_lon, const float* coeffs_lat, const float* traj_len,
-    const float* goal_valid, const float* table, int P, const float* obs,
-    int M, const float* poly, int Mp, int V, const float* scalars, int K,
-    int T, int flags, float* out_masked, float* out_kin, float* out_reason,
-    void* stream) {
-  if (K <= 0) return 0;
-  const int threads = 256;
-  const int blocks = (K + threads - 1) / threads;
-  score_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      coeffs_lon, coeffs_lat, traj_len, goal_valid, table, P, obs, M, poly, Mp,
-      V, scalars, K, T, flags, out_masked, out_kin, out_reason);
-  return (int)cudaGetLastError();
+// crp_trivial's arguments, nothing launched
+extern "C" int crp_empty(const float*, const float*, const float*, int,
+                         const float*, int, float*, void*) {
+  return 0;
 }
 
+// One problem: the operands of ScorerInputs, out [3, K] (masked, kin,
+// reason).
+extern "C" int crp_score_candidates(
+    const float* coeffs_lon, const float* coeffs_lat, const float* traj_len,
+    const float* goal_valid, const float* tables, int P, const float* obs,
+    int M, const float* poly, int Mp, int V, const float* scal, int K, int T,
+    int flags, float* out, void* stream) {
+  const int F = 1;
+  return launch_scorer<false>(CRP_SCORER_ARGS, stream);
+}
+
+// F problems: the operands of FleetScorerInputs, out [3, F, K].
 extern "C" int crp_score_fleet(
     const float* coeffs_lon, const float* coeffs_lat, const float* traj_len,
     const float* goal_valid, const float* tables, int P, const float* obs,
-    int M, const float* poly, int Mp, int V, const float* scalars, int F,
-    int K, int T, int flags, float* out_masked, float* out_kin,
-    float* out_reason, void* stream) {
-  if (K <= 0 || F <= 0) return 0;
-  if (F > 65535) return (int)cudaErrorInvalidConfiguration;
-  const int threads = 256;
-  const dim3 blocks((K + threads - 1) / threads, F);
-  fleet_score_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      coeffs_lon, coeffs_lat, traj_len, goal_valid, tables, P, obs, M, poly,
-      Mp, V, scalars, K, T, flags, out_masked, out_kin, out_reason);
-  return (int)cudaGetLastError();
+    int M, const float* poly, int Mp, int V, const float* scal, int F, int K,
+    int T, int flags, float* out, void* stream) {
+  return launch_scorer<true>(CRP_SCORER_ARGS, stream);
 }

@@ -23,7 +23,10 @@ version of the kernel (``score_candidates_reference``,
 ``score_fleet_reference``: one function, batched over problems).
 ``prepare_inputs``/``prepare_fleet_inputs`` lay the operands out once and
 ``score_prepared`` scores them, so a scan builds its constant operands
-before its loop.
+before its loop.  Every launch of the library's kernels, the probe kernel's
+included, goes through one helper (``_launch``): it checks the operands,
+allocates the output, calls the C function on the current stream and counts
+the launch.
 
 Packed reference-table columns (``pack_ref_tables``):
     0: s      1: theta   2: curv   3: curv_d   4: d_lo   5: d_hi
@@ -746,10 +749,27 @@ def score_fleet_reference(*args, **kwargs):
 
 
 # ---------------------------------------------------------------------------
-# the CUDA kernel: build (nvcc, plain C interface), bind (ctypes), launch
+# the CUDA kernels: build (nvcc, plain C interface), bind (ctypes), launch
 # ---------------------------------------------------------------------------
 
 KERNEL_SOURCE = cuda_build.CSRC_DIR / "scoring.cu"
+
+# floats a scorer block stages in shared memory: the scalar row (17, padded
+# to 20); per obstacle (row, step) x, y, cos, sin, half_len, half_wid, valid,
+# radius; the table's arclength column
+_STAGED_SCALARS = 20
+_STAGED_OBS_COLS = 8
+# the most dynamic shared memory a block may ask for: sm_90 gives a block
+# 227 KB, of which the fleet kernel's queue of 1024 candidates and its
+# counter are static (4100 bytes, counted as 5 KB)
+SHARED_BLOCK_LIMIT = (227 - 5) * 1024
+
+
+def shared_bytes(P: int, M: int, T: int) -> int:
+    """Dynamic shared memory (bytes) of a scorer block for a table of P rows
+    and M obstacle rows over T steps, from the shapes alone;
+    ``csrc/scoring.cu::staged_floats`` computes the same."""
+    return 4 * (_STAGED_SCALARS + M * T * _STAGED_OBS_COLS + P)
 
 
 def build_library() -> pathlib.Path:
@@ -761,13 +781,18 @@ def build_library() -> pathlib.Path:
 def _bind(lib: ctypes.CDLL):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.crp_score_candidates.argtypes = [
-        p, p, p, p, p, i, p, i, p, i, i, p, i, i, i, p, p, p, p]
+        p, p, p, p, p, i, p, i, p, i, i, p, i, i, i, p, p]
     lib.crp_score_fleet.argtypes = [
-        p, p, p, p, p, i, p, i, p, i, i, p, i, i, i, i, p, p, p, p]
+        p, p, p, p, p, i, p, i, p, i, i, p, i, i, i, i, p, p]
     lib.crp_trivial.argtypes = [p, p, p, i, p, i, p, p]
-    lib.crp_score_candidates.restype = ctypes.c_int
-    lib.crp_score_fleet.restype = ctypes.c_int
-    lib.crp_trivial.restype = ctypes.c_int
+    lib.crp_empty.argtypes = lib.crp_trivial.argtypes
+    lib.crp_score_shared_bytes.argtypes = [i, i, i]
+    lib.crp_score_shared_limit.argtypes = []
+    for fn in (lib.crp_score_candidates, lib.crp_score_fleet, lib.crp_trivial,
+               lib.crp_empty):
+        fn.restype = ctypes.c_int
+    for fn in (lib.crp_score_shared_bytes, lib.crp_score_shared_limit):
+        fn.restype = ctypes.c_long
 
 
 def _library() -> ctypes.CDLL:
@@ -775,68 +800,66 @@ def _library() -> ctypes.CDLL:
 
 
 def _check_kernel_operands(inp, who):
-    for name in inp._fields[:8]:            # the tensors, table(s) included
-        t = getattr(inp, name)
+    device = inp.coeffs_lon.device
+    for name, t in zip(inp._fields, inp[:8]):   # the tensors, table(s) included
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{who}: kernel operand {name} must be "
                              "contiguous float32")
+        if t.device != device:
+            raise ValueError(f"{who}: kernel operand {name} is on "
+                             f"{t.device}, the candidates on {device}")
+    if device.type != "cuda":
+        raise ValueError(f"{who}: unsupported device {device}")
 
 
-def _launch(inp: ScorerInputs):
-    _check_kernel_operands(inp, "score_candidates")
-    K = inp.coeffs_lon.shape[0]
-    out = torch.empty((3, K), dtype=torch.float32,
-                      device=inp.coeffs_lon.device)
-    lib = _library()
-    stream = torch.cuda.current_stream(inp.coeffs_lon.device).cuda_stream
-    rc = lib.crp_score_candidates(
-        inp.coeffs_lon.data_ptr(), inp.coeffs_lat.data_ptr(),
-        inp.traj_len.data_ptr(), inp.goal_valid.data_ptr(),
-        inp.table.data_ptr(), inp.table.shape[0],
-        inp.obs.data_ptr(), inp.obs.shape[0],
-        inp.poly.data_ptr(), inp.poly.shape[0], inp.n_poly_verts,
-        inp.scalars.data_ptr(), K, inp.n_steps + 1, inp.flags,
-        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), stream)
+def _launch(wrapper, entry, what, inp, args, out_shape):
+    """One launch of a kernel of the scorer's library on the current stream:
+    checks the operands ``inp`` (raises on what the kernels do not take),
+    allocates the float32 output, calls the library's ``entry`` with
+    ``args``, the output and the stream, checks the return code and counts
+    the launch on ``wrapper``."""
+    _check_kernel_operands(inp, wrapper.__name__)
+    out = inp.scalars.new_empty(out_shape)
+    # the stream's handle without a torch.cuda.Stream object around it
+    stream = torch._C._cuda_getCurrentRawStream(out.device.index)
+    rc = getattr(_library(), entry)(*args, out.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"scoring kernel launch failed: CUDA error {rc}")
-    score_candidates.launches += 1
-    return out[0], out[1], out[2]
-
-
-def _launch_fleet(inp: FleetScorerInputs):
-    _check_kernel_operands(inp, "score_fleet")
-    F, K = inp.coeffs_lon.shape[:2]
-    out = torch.empty((3, F, K), dtype=torch.float32,
-                      device=inp.coeffs_lon.device)
-    lib = _library()
-    stream = torch.cuda.current_stream(inp.coeffs_lon.device).cuda_stream
-    rc = lib.crp_score_fleet(
-        inp.coeffs_lon.data_ptr(), inp.coeffs_lat.data_ptr(),
-        inp.traj_len.data_ptr(), inp.goal_valid.data_ptr(),
-        inp.tables.data_ptr(), inp.tables.shape[1],
-        inp.obs.data_ptr(), inp.obs.shape[1],
-        inp.poly.data_ptr(), inp.poly.shape[1], inp.n_poly_verts,
-        inp.scalars.data_ptr(), F, K, inp.n_steps + 1, inp.flags,
-        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"fleet scoring kernel launch failed: CUDA "
-                           f"error {rc}")
-    score_fleet.launches += 1
-    return out[0], out[1], out[2]
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
+    wrapper.launches += 1
+    return out
 
 
 def score_prepared(inp):
-    """Score prepared operands: ``ScorerInputs`` (rows [K]) or
-    ``FleetScorerInputs`` (rows [F, K]).  CUDA operands launch the kernel
-    and raise if it cannot be built or launched; CPU operands run the plain
-    version."""
-    device = inp.coeffs_lon.device
+    """Score prepared operands: ``ScorerInputs`` (rows [K], ``score_kernel``)
+    or ``FleetScorerInputs`` (rows [F, K], ``fleet_score_kernel``).  CUDA
+    operands launch the kernel and raise if it cannot be built or launched;
+    CPU operands run the plain version."""
+    if inp.coeffs_lon.device.type == "cpu":
+        return score_prepared_reference(inp)
     fleet = isinstance(inp, FleetScorerInputs)
-    if device.type == "cpu":
-        return _score_plain_fleet(inp) if fleet else _score_plain(inp)
-    if device.type != "cuda":
-        raise ValueError(f"scorer: unsupported device {device}")
-    return _launch_fleet(inp) if fleet else _launch(inp)
+    wrapper = score_fleet if fleet else score_candidates
+    table = inp.tables if fleet else inp.table
+    lead = inp.coeffs_lon.shape[:-1]            # (F, K) or (K,)
+    P, V = table.shape[-2], inp.n_poly_verts
+    M, T = inp.obs.shape[-3:-1]
+    Mp = inp.poly.shape[-3]
+    if T != inp.n_steps + 1 or inp.poly.shape[-2:] != (T, 2 * V + 1):
+        raise ValueError(f"{wrapper.__name__}: obstacle or polygon table "
+                         f"does not match the horizon T={inp.n_steps + 1}")
+    nbytes = shared_bytes(P, M, T)
+    if nbytes > SHARED_BLOCK_LIMIT:
+        raise ValueError(f"{wrapper.__name__}: a table of {P} rows with {M} "
+                         f"obstacle rows over {T} steps needs {nbytes} bytes "
+                         f"of shared memory per block, above "
+                         f"{SHARED_BLOCK_LIMIT}")
+    args = (inp.coeffs_lon.data_ptr(), inp.coeffs_lat.data_ptr(),
+            inp.traj_len.data_ptr(), inp.goal_valid.data_ptr(),
+            table.data_ptr(), P, inp.obs.data_ptr(), M, inp.poly.data_ptr(),
+            Mp, V, inp.scalars.data_ptr(), *lead, T, inp.flags)
+    return _launch(wrapper, "crp_score_fleet" if fleet
+                   else "crp_score_candidates",
+                   "fleet scoring kernel" if fleet else "scoring kernel",
+                   inp, args, (3, *lead)).unbind(0)
 
 
 def score_candidates(coeffs_lon, coeffs_lat, traj_len, goal_valid,
@@ -917,29 +940,20 @@ def trivial_probe(inp: ScorerInputs, v: torch.Tensor) -> torch.Tensor:
     probe of ``probes.t61_overhead``.
 
     CUDA operands launch ``trivial_kernel`` of ``csrc/scoring.cu`` through
-    the scorer's library (``trivial_probe.launches`` counts the launches)
-    and raise if it cannot be built or launched; CPU operands run
-    :func:`trivial_probe_reference`."""
-    device = inp.coeffs_lon.device
-    if device.type == "cpu":
+    the scorer's library and launch path (``trivial_probe.launches`` counts
+    the launches) and raise if it cannot be built or launched; CPU operands
+    run :func:`trivial_probe_reference`."""
+    if inp.coeffs_lon.device.type == "cpu":
         return trivial_probe_reference(inp, v)
-    if device.type != "cuda":
-        raise ValueError(f"trivial_probe: unsupported device {device}")
-    _check_kernel_operands(inp, "trivial_probe")
-    if v.dtype != torch.float32 or v.device != device or v.numel() != 1:
+    if v.dtype != torch.float32 or v.device != inp.coeffs_lon.device \
+            or v.numel() != 1:
         raise ValueError("trivial_probe: v must be one float32 value on "
-                         f"{device}")
+                         f"{inp.coeffs_lon.device}")
     K = inp.coeffs_lon.shape[0]
-    out = torch.empty(K, dtype=torch.float32, device=device)
-    v = v.reshape(1).contiguous()
-    rc = _library().crp_trivial(
-        inp.coeffs_lon.data_ptr(), inp.table.data_ptr(), inp.obs.data_ptr(),
-        inp.obs.shape[0], v.data_ptr(), K, out.data_ptr(),
-        torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"probe kernel launch failed: CUDA error {rc}")
-    trivial_probe.launches += 1
-    return out
+    args = (inp.coeffs_lon.data_ptr(), inp.table.data_ptr(),
+            inp.obs.data_ptr(), inp.obs.shape[0], v.data_ptr(), K)
+    return _launch(trivial_probe, "crp_trivial", "probe kernel", inp, args,
+                   (K,))
 
 
 score_candidates.launches = 0

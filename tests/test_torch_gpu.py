@@ -115,6 +115,47 @@ def test_fleet_kernel_rejects_bad_operands(fleet12):
             coeffs_lon=inp.coeffs_lon.transpose(0, 1)))
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_fleet_kernel_matches_plain_on_hostile_operands(cuda, seed):
+    """The operands of ``probes.hostile_inputs`` (the CPU tests hold the
+    plain version against the JAX scorer on the same arrays): kernel against
+    plain."""
+    from commonroad_rp_tpu_torch.probes import hostile_inputs
+
+    case = hostile_inputs.hostile_fleet(seed)
+    args, kwargs = hostile_inputs.score_fleet_arguments(
+        case, lambda a: torch.as_tensor(a, device=cuda))
+    inp = scoring.prepare_fleet_inputs(*args, **kwargs)
+    before = scoring.score_fleet.launches
+    out_k = scoring.score_prepared(inp)
+    out_p = scoring.score_prepared_reference(inp)
+    torch.cuda.synchronize()
+    assert scoring.score_fleet.launches == before + 1
+    chip_smoke.compare(torch, f"hostile {seed}", out_k, out_p,
+                       chip_smoke.prepared_in_domain(torch, inp))
+
+
+def test_shared_memory_size_and_limit_are_the_library_s(fleet12):
+    """The wrapper's shared-memory bytes and limit are the library's own, and
+    the kernel runs, and agrees with the plain version, with the tables
+    padded to the limit."""
+    scene, carry = fleet12
+    inp = chip_smoke.captured_operands(
+        lambda scorer: make_scan(scene, 1, scorer=scorer)[0](carry))
+    out_p = scoring.score_prepared_reference(inp)
+    lib = scoring._library()
+    P, (M, T) = inp.tables.shape[1], inp.obs.shape[1:3]
+    for n_rows in (P, 4096):
+        assert scoring.shared_bytes(n_rows, M, T) \
+            == lib.crp_score_shared_bytes(n_rows, M, T)
+    assert scoring.SHARED_BLOCK_LIMIT == lib.crp_score_shared_limit()
+    before = scoring.score_fleet.launches
+    chip_smoke.compare_largest_table(torch, "fleet F=12", inp, out_p)
+    assert scoring.score_fleet.launches == before
+    with pytest.raises(ValueError, match="must be contiguous float32"):
+        scoring.score_prepared(inp._replace(scalars=inp.scalars.double()))
+
+
 def test_plan_scan_on_card_one_launch_per_cycle(cuda):
     planner = make_planner(load_config("ZAM_Over-1_1"), "cuda")
     planner.set_desired_velocity(current_speed=planner.x_0.velocity)
@@ -217,3 +258,10 @@ def test_probe_kernel_matches_plain_exactly(cuda):
     got = scoring.trivial_probe(inp, v)
     assert scoring.trivial_probe.launches == before + 1
     assert torch.equal(got, scoring.trivial_probe_reference(inp, v))
+    for value in (20.5, -3.25):
+        v = torch.full((1,), value, dtype=torch.float32, device=cuda)
+        assert torch.equal(scoring.trivial_probe(inp, v),
+                           scoring.trivial_probe_reference(inp, v))
+    assert scoring.trivial_probe.launches == before + 3
+    with pytest.raises(ValueError, match="one float32 value"):
+        scoring.trivial_probe(inp, v.double())

@@ -278,3 +278,301 @@ def test_wrapper_validates_inputs():
     before = scoring.score_candidates.launches
     scoring.score_candidates(*args, **kwargs)   # CPU: plain version
     assert scoring.score_candidates.launches == before
+
+
+# ---------------------------------------------------------------------------
+# hostile operands: the table search's edge cases and the early exits'
+# ---------------------------------------------------------------------------
+
+import functools
+
+from commonroad_rp_tpu_torch.probes import hostile_inputs
+
+
+@functools.lru_cache(maxsize=None)
+def _hostile_rows(seed):
+    """(case, JAX rows, plain-version rows, in-domain mask) of one hostile
+    fleet: ``pallas_cycle.score_fleet_pallas(..., interpret=True)`` and the
+    port's ``score_fleet`` on CPU tensors, same numpy arrays."""
+    case = hostile_inputs.hostile_fleet(seed)
+    j_args, j_kwargs = hostile_inputs.score_fleet_arguments(case, jnp.asarray)
+    want = [np.asarray(x) for x in pallas_cycle.score_fleet_pallas(
+        *j_args, **j_kwargs, interpret=True)]
+    args, kwargs = hostile_inputs.score_fleet_arguments(case, torch.as_tensor)
+    got = [x.numpy() for x in scoring.score_fleet(*args, **kwargs)]
+    cl, T = case["coeffs_lon"], case["n_steps"] + 1
+    t = (np.arange(T, dtype=np.float32)
+         * np.float32(case["dt"]))[:, None, None]
+    t2 = t * t
+    with np.errstate(all="ignore"):
+        s = (cl[..., 0] + cl[..., 1] * t + cl[..., 2] * t2
+             + cl[..., 3] * (t2 * t) + cl[..., 4] * (t2 * t2)
+             + cl[..., 5] * (t2 * t2 * t))
+    active = np.arange(T)[:, None, None] < case["traj_len"][None]
+    last = case["ref_s_last"][None, :, None]
+    in_domain = np.all(((s >= 0) & (s <= last)) | ~active, axis=0)
+    return case, want, got, in_domain
+
+
+@pytest.mark.parametrize("group", hostile_inputs.GROUPS)
+@pytest.mark.parametrize("seed", [0, 1])
+def test_plain_fleet_scorer_matches_tpu_kernel_on_hostile_operands(seed,
+                                                                   group):
+    """Each group of ``probes.hostile_inputs`` (three problems of different
+    real table lengths under one padded length) at the module's bar."""
+    case, want, got, in_domain = _hostile_rows(seed)
+    members = case["group"] == hostile_inputs.GROUPS.index(group)
+    for f in range(members.shape[0]):
+        pick = lambda rows: [r[f][members[f]] for r in rows]
+        assert_scorer_parity(pick(want), pick(got), in_domain[f][members[f]])
+    feasible = np.isfinite(want[1][members])
+    if group in ("nan", "then_prefilter", "then_leaves"):
+        assert not feasible.any()
+    else:
+        assert feasible.any(), "degenerate: no feasible candidate"
+    if group == "then_prefilter":
+        # the prefilter's reason wins over the earlier violation's
+        assert set(np.unique(got[2][members])) <= {0.0, 4.0}
+
+
+def test_hostile_operands_cover_their_cases():
+    """The generator makes what its groups promise: sentinel-padded tables
+    of different real lengths, arclengths that decrease, fall below 0, pass
+    the last real row and reach the padded rows, NaN coefficients, horizons
+    of one step."""
+    case = hostile_inputs.hostile_fleet(0)
+    s_col = case["packed_tables"][..., 0]
+    assert np.all(np.diff(s_col, axis=1) > 0)
+    real = (s_col < 5e5).sum(axis=1)
+    assert tuple(real) == hostile_inputs.REAL_ROWS
+    np.testing.assert_array_equal(case["ref_s_last"], real - 1.0)
+    group = lambda name: case["group"] == hostile_inputs.GROUPS.index(name)
+    cl, last = case["coeffs_lon"], case["ref_s_last"][:, None]
+    end = cl[..., 0] + cl[..., 1] * 2.0
+    assert (cl[..., 1][group("still")] < 0).any()
+    assert (cl[..., 1][group("still")] == 0).any()
+    assert (cl[..., 0][group("below_zero")] < 0).any()
+    assert (end > last)[group("past_end")].mean() > 0.5
+    assert (end > last + 1e5)[group("past_end")].any()
+    nan = np.isnan(cl).any(-1) | np.isnan(case["coeffs_lat"]).any(-1)
+    np.testing.assert_array_equal(nan, group("nan"))
+    assert set(np.unique(case["traj_len"][group("short")])) == {1.0, 2.0}
+
+
+@pytest.mark.parametrize("problem", [0, 1, 2])
+def test_plain_scorer_matches_tpu_kernel_on_hostile_problem(problem):
+    """One problem of the hostile fleet through the single-problem entry
+    points (``score_candidates_pallas`` / ``score_candidates``): the padded
+    table with its own real length, the low-velocity problem included."""
+    case = hostile_inputs.hostile_fleet(0)
+    f = problem
+    T = case["n_steps"] + 1
+
+    def operands(xp, obstacle_arrays, vehicle_arrays):
+        a = lambda name: xp(case[name][f])
+        return (a("coeffs_lon"), a("coeffs_lat"), a("traj_len"),
+                a("goal_valid"), a("packed_tables"),
+                obstacle_arrays(pose=a("obs_pose"), half_ext=a("obs_half_ext"),
+                                valid=xp(case["obs_valid"][f] > 0.5),
+                                radius=a("obs_radius")),
+                vehicle_arrays(*(xp(v) for v in case["veh_stack"][f])),
+                a("x0_orientation"), case["dt"],
+                xp(case["low_vel"][f] > 0.5), a("desired_speed"),
+                a("desired_d"), a("w_a"), a("ref_s_last"))
+
+    want = [np.asarray(x) for x in pallas_cycle.score_candidates_pallas(
+        *operands(jnp.asarray, jax_collision.ObstacleArrays,
+                  jax_kin.VehicleArrays), n_steps=case["n_steps"],
+        interpret=True)]
+    from commonroad_rp_tpu_torch.ops.collision import ObstacleArrays
+    from commonroad_rp_tpu_torch.ops.kinematics import VehicleArrays
+    got = [x.numpy() for x in scoring.score_candidates(
+        *operands(torch.as_tensor, ObstacleArrays, VehicleArrays),
+        n_steps=case["n_steps"])]
+    assert want[0].shape == got[0].shape == (case["coeffs_lon"].shape[1],)
+    _, _, fleet_rows, in_domain = _hostile_rows(0)
+    assert_scorer_parity(want, got, in_domain[f])
+    # the fleet form computes the same function problem by problem
+    for row_f, row_1 in zip(fleet_rows, got):
+        np.testing.assert_array_equal(row_f[f], row_1)
+
+
+# ---------------------------------------------------------------------------
+# the launch path: operand checks, shared-memory size by shape
+# ---------------------------------------------------------------------------
+
+# (P, M, T) -> bytes of dynamic shared memory per block: the main path's
+# first cycle (ZAM_Over-1_1), the T=61 scan, the synthetic scene, the
+# 1024-problem fleet, the hostile fleet, two long tables
+_LAYOUTS = {
+    "main": ((273, 1, 21), 1844),
+    "plan_scan_t61": ((273, 1, 61), 3124),
+    "synthetic_polygon": ((401, 2, 21), 3028),
+    "fleet1024": ((513, 5, 21), 5492),
+    "hostile": ((161, 3, 21), 2740),
+    "large_table": ((2048, 5, 21), 11632),
+    "large_table_polygon": ((4096, 2, 61), 20368),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(_LAYOUTS))
+def test_shared_layout_is_pinned(shape):
+    sizes, want = _LAYOUTS[shape]
+    assert scoring.shared_bytes(*sizes) == want
+    # a pure function of the sizes
+    assert scoring.shared_bytes(*sizes) == scoring.shared_bytes(*sizes)
+
+
+def test_shared_bytes_count_what_a_block_stages():
+    """20 scalar slots, 8 floats per obstacle (row, step) and one arclength
+    per table row; the limit leaves the fleet kernel's static queue (1024
+    candidates and a counter, in whole KB) inside the 227 KB a block may
+    have."""
+    for P, M, T in ((2, 0, 1), (273, 1, 21), (513, 5, 21), (4000, 16, 61)):
+        assert scoring.shared_bytes(P, M, T) == 4 * (20 + 8 * M * T + P)
+    assert 4 * 1024 + 4 <= 227 * 1024 - scoring.SHARED_BLOCK_LIMIT == 5 * 1024
+
+
+def _cpu_operands(fleet):
+    if fleet:
+        case = hostile_inputs.hostile_fleet(0)
+        args, kwargs = hostile_inputs.score_fleet_arguments(case,
+                                                            torch.as_tensor)
+        return scoring.prepare_fleet_inputs(*args, **kwargs)
+    args, kwargs = _port_inputs(_scene())
+    return scoring.prepare_inputs(*args, **kwargs)
+
+
+def _on_meta(inp):
+    """Prepared operands moved to the ``meta`` device: no storage and not the
+    CPU, so the wrappers take their kernel path up to the operand checks."""
+    return inp._replace(**{name: getattr(inp, name).to("meta")
+                           for name in inp._fields[:8]})
+
+
+@pytest.mark.parametrize("entry", ["score_prepared", "trivial_probe"])
+@pytest.mark.parametrize("fault", ["dtype", "strides", "device_type",
+                                   "mixed_devices"])
+def test_launch_rejects_operands(entry, fault):
+    """Operands the kernels do not take raise in the launch path, before any
+    library is built or loaded and with nothing counted."""
+    inp = _on_meta(_cpu_operands(fleet=False))
+    if fault == "dtype":
+        inp = inp._replace(coeffs_lat=inp.coeffs_lat.double())
+        message = "kernel operand coeffs_lat must be contiguous float32"
+    elif fault == "strides":
+        inp = inp._replace(table=inp.table.T.contiguous().T)
+        message = "kernel operand table must be contiguous float32"
+    elif fault == "device_type":
+        message = "unsupported device meta"
+    else:
+        inp = inp._replace(obs=torch.empty(inp.obs.shape))
+        message = "kernel operand obs is on cpu, the candidates on meta"
+    who = "score_candidates" if entry == "score_prepared" else entry
+    before = (scoring.score_candidates.launches,
+              scoring.trivial_probe.launches)
+    with pytest.raises(ValueError, match=f"{who}: {message}"):
+        if entry == "score_prepared":
+            scoring.score_prepared(inp)
+        else:
+            scoring.trivial_probe(inp, torch.empty((), device="meta"))
+    assert (scoring.score_candidates.launches,
+            scoring.trivial_probe.launches) == before
+
+
+@pytest.mark.parametrize("fleet", [False, True])
+def test_launch_rejects_a_table_past_the_shared_memory_limit(fleet):
+    """One table row more than a block's shared memory holds raises by shape
+    alone; the wrapper names the bytes it would need."""
+    inp = _on_meta(_cpu_operands(fleet))
+    M, T = inp.obs.shape[-3:-1]
+    n_rows = (scoring.SHARED_BLOCK_LIMIT - scoring.shared_bytes(0, M, T)) // 4
+    assert scoring.shared_bytes(n_rows, M, T) <= scoring.SHARED_BLOCK_LIMIT \
+        < scoring.shared_bytes(n_rows + 1, M, T)
+    lead = inp.coeffs_lon.shape[:-2]
+    table = lambda n: torch.empty(*lead, n, 12, device="meta")
+    name = "tables" if fleet else "table"
+    with pytest.raises(ValueError, match=f"a table of {n_rows + 1} rows .* "
+                       f"needs {scoring.shared_bytes(n_rows + 1, M, T)} "
+                       "bytes of shared memory per block"):
+        scoring.score_prepared(inp._replace(**{name: table(n_rows + 1)}))
+    # at the limit the shape passes and the next check speaks
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        scoring.score_prepared(inp._replace(**{name: table(n_rows)}))
+
+
+@pytest.mark.parametrize("fleet", [False, True])
+def test_cpu_operands_run_the_plain_version(fleet):
+    """``score_prepared`` and ``trivial_probe`` on CPU operands are the plain
+    versions and count no launch."""
+    inp = _cpu_operands(fleet)
+    wrapper = scoring.score_fleet if fleet else scoring.score_candidates
+    before = wrapper.launches
+    got = scoring.score_prepared(inp)
+    want = scoring.score_prepared_reference(inp)
+    for g, w in zip(got, want):
+        assert g.shape == inp.coeffs_lon.shape[:-1]
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    assert wrapper.launches == before
+    if not fleet:
+        v = torch.tensor(20.0)
+        probes = scoring.trivial_probe.launches
+        np.testing.assert_array_equal(
+            scoring.trivial_probe(inp, v).numpy(),
+            scoring.trivial_probe_reference(inp, v).numpy())
+        assert scoring.trivial_probe.launches == probes
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_hinted_search_equals_searchsorted(tmp_path, seed):
+    """``count_le_hint`` of ``csrc/scoring.cu`` (the two search functions are
+    plain C++ once ``__device__`` is defined away) compiled with g++:
+    count(s_row <= q) for every hint in [-1, P] on tables with sentinel
+    rows, at queries on, next to, below, above and among the rows and at
+    +-inf, equals ``numpy.searchsorted(..., side="right")``."""
+    import ctypes
+    import shutil
+    import subprocess
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the search functions")
+    text = scoring.KERNEL_SOURCE.read_text()
+    body = text[text.index("// count(s_row <= q) over the arclength column, "
+                           "by bisection"):
+                text.index("// Scores candidate k of one problem")]
+    source = tmp_path / "search.cpp"
+    source.write_text(
+        "#define __device__\n#define __forceinline__ inline\n" + body +
+        'extern "C" void count_many(const float* col, int P, const float* q,'
+        " const int* hint, int n, int* out) {\n  for (int i = 0; i < n; ++i)"
+        " out[i] = count_le_hint(col, P, q[i], hint[i]);\n}\n")
+    lib_path = tmp_path / "libsearch.so"
+    subprocess.run([gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-o",
+                    str(lib_path), str(source)], check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    for P in (2, 3, 17, 274, 513):
+        real = int(rng.integers(1, P + 1))
+        steps = np.where(np.arange(P) < real,
+                         rng.uniform(0.01, 2.0, P), 1e6).astype(f32)
+        col = (f32(rng.uniform(-50, 50)) + np.cumsum(steps)).astype(f32)
+        assert np.all(np.diff(col) > 0)
+        q = np.concatenate([
+            col, np.nextafter(col, f32(np.inf)), np.nextafter(col, f32(-np.inf)),
+            rng.uniform(col[0] - 5, col[real - 1] + 5, 400).astype(f32),
+            rng.uniform(col[0], col[-1], 50).astype(f32),
+            [f32(np.inf), f32(-np.inf), col[0] - 1e6, col[-1] + 1e6]]
+        ).astype(f32)
+        want = np.searchsorted(col, q, side="right").astype(np.int32)
+        for hint in list(range(-1, P + 1))[::max(1, P // 40)] + [P]:
+            hints = np.full(len(q), hint, np.int32)
+            got = np.empty(len(q), np.int32)
+            lib.count_many(
+                col.ctypes.data_as(ctypes.c_void_p), P,
+                q.ctypes.data_as(ctypes.c_void_p),
+                hints.ctypes.data_as(ctypes.c_void_p), len(q),
+                got.ctypes.data_as(ctypes.c_void_p))
+            np.testing.assert_array_equal(got, want, err_msg=f"P={P} "
+                                          f"hint={hint}")
