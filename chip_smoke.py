@@ -47,9 +47,14 @@ Phases (any failure raises and ends the run with a non-zero exit code):
 9. the OBB collision kernel (``csrc/collision.cu``) against its plain
    version in float32 and float64: synthetic scenes (K=3414, T=21 and 61,
    M=16 with disc rows and padded invalid rows) and every sampling level of
-   the four scenarios' first cycles on the conformance path; 0 differing
-   candidates, except where a candidate's tightest SAT margin is below
-   1e-5 m (float32) or 1e-12 m (float64); kernel and plain times;
+   the four scenarios' first cycles on the conformance path; then both
+   forms on the hostile operands of ``probes.hostile_collision`` (skip
+   boundaries, touching boxes and discs, NaN, inf, huge and subnormal poses;
+   the horizon and each step alone) and its near-touching scene, and with
+   the rows padded to the most a block's shared memory holds (one row more
+   must raise); 0 differing candidates everywhere (and none whose tightest
+   SAT margin is 1e-5 m (float32) or 1e-12 m (float64) or more); one device
+   kernel per ``obb_collision`` call; kernel and plain times;
 10. the conformance level program (``kernel_dtype: float64``) on the card:
    the four first-cycle goldens of tests/test_precision_and_golden.py, the
    four drives to their goals in 27/35/44/146 steps with one collision
@@ -66,8 +71,10 @@ Phases (any failure raises and ends the run with a non-zero exit code):
    heterogeneous fleet through the XLA path and the fused fleet scan at the
    bars of tests/test_torch_xla_fleet.py; ``run_fleet --xla``'s 1024-problem
    fleet for 150 cycles beside the fused scan's goal counts (phase 8), with
-   ms/cycle, candidate-evals/s, the kernel's time, the busy share and the
-   peak device memory; every rollout with no device read between cycles;
+   ms/cycle, candidate-evals/s, the kernel's time (one device kernel per
+   call), the share of pair tests its bounding-circle skip removes, the
+   busy share and the peak device memory; every rollout with no device read
+   between cycles;
 12. the NCCL dry run: ``dryrun_multichip(1)`` (a world-size-1 NCCL group
    through two XLA fleet cycles and one fused fleet-scan cycle, global
    success count = F, three ``fleet_all_reduce`` calls per cycle) and the
@@ -136,9 +143,11 @@ PEAK_BYTES = 3.35e12
 # binary table search adds 3.  The corridor and obstacle tests, which stop at
 # a candidate's first collision, are not counted: the bound is a lower bound
 SCORER_STEP_OPS, SCORER_ACTIVE_OPS = 60, 190
-# collision kernel (csrc/collision.cu): one evaluated ego step (heading
-# cos/sin) and one evaluated valid (step, row) test
-COLLISION_STEP_OPS, COLLISION_PAIR_OPS = 2, 40
+# collision kernels (csrc/collision.cu): an ego step whose heading is
+# computed (cos/sin, once a row of the step survives the skip), a valid
+# (step, row) pair's skip test (two differences, two squares, their sum) and
+# a pair's full test once it survives the skip
+COLLISION_STEP_OPS, COLLISION_SKIP_OPS, COLLISION_PAIR_OPS = 2, 5, 40
 # steps to the goal on the JAX package's float64 conformance path (ramp and
 # T-junction pinned in tests/test_planner_e2e.py, the other two recorded
 # from the JAX package on the CPU): the same as its fast path's
@@ -1075,11 +1084,144 @@ def sat_margins(torch, cx, cy, theta, obstacles, ehl, ehw):
     return torch.amin(margin.reshape(-1, margin.shape[-1]), dim=0)
 
 
+def collision_cases(torch, dtype, device, seeds=(0, 1), F=2):
+    """Fleet-form collision operands in ``dtype`` on ``device``: the hostile
+    cases of ``probes.hostile_collision`` (one problem per hostile ego
+    extent; skip boundaries, touching boxes and discs, invalid rows, NaN,
+    inf, huge and subnormal poses) and its near-touching scene (F problems,
+    K=2754, T=21, every candidate-step within a few ulps of touching)."""
+    from commonroad_rp_tpu_torch.probes import hostile_collision as hc
+
+    nd = np.float32 if dtype == torch.float32 else np.float64
+    tensor = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                       device=device)
+    flag = lambda a: torch.as_tensor(a, device=device)
+    cases = {f"hostile {seed}": hc.fleet_operands(
+        hc.hostile_collision(seed, nd), tensor, flag) for seed in seeds}
+    cases["near-touching"] = hc.fleet_operands(
+        hc.near_touching_collision(0, nd, F=F, K=2754, T=21), tensor, flag)
+    return cases
+
+
+def traced_kernels(torch, fn, reps=10, attempts=3):
+    """(device kernel launches traced, their distinct names) over ``reps``
+    warm calls of ``fn`` under ``torch.profiler``.  The profiler drops
+    events now and then, so the count is at most the launches made; a trace
+    without any device event is taken again, up to ``attempts`` times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [evt for evt in prof.key_averages()
+                   if evt.device_type == DeviceType.CUDA]
+        if kernels:
+            break
+    return (sum(evt.count for evt in kernels),
+            sorted({evt.key for evt in kernels}))
+
+
+def check_one_kernel_per_call(torch, label, fn, kernel, reps=10):
+    """Raises unless every device kernel traced over ``reps`` calls of
+    ``fn`` is ``kernel`` and no more of them than calls were traced: with
+    the wrapper's launch count (one per call), one kernel per call."""
+    count, names = traced_kernels(torch, fn, reps)
+    log(f"{label}: {count} device kernels traced over {reps} calls, all "
+        f"{kernel}: {names}")
+    check(len(names) == 1 and kernel in names[0] and 0 < count <= reps,
+          f"{label}: device kernels {names}, {count} over {reps} calls")
+
+
+def compare_collision_case(torch, label, ops):
+    """Both collision kernels against their plain versions on fleet-form
+    operands, in their dtype, over the horizon and each step alone (past a
+    candidate's first hit the horizon's mask sees nothing): the fleet form
+    on all problems, the single-problem form on each problem.  Raises unless
+    0 candidates differ; launches not counted."""
+    from commonroad_rp_tpu_torch.ops import collision_kernel as ck
+    from commonroad_rp_tpu_torch.probes.hostile_collision import \
+        problem_operands
+
+    counted = (ck.obb_collision.launches, ck.obb_collision_fleet.launches)
+    cx, cy, theta, obstacles, ehl, ehw = ops
+    F, T, K = cx.shape
+    variants = [ops]
+    for t in range(T):
+        at = lambda a: a[:, t:t + 1].contiguous()
+        variants.append((at(cx), at(cy), at(theta), type(obstacles)(
+            pose=obstacles.pose[:, :, t:t + 1].contiguous(),
+            half_ext=obstacles.half_ext,
+            valid=obstacles.valid[:, :, t:t + 1].contiguous(),
+            radius=obstacles.radius), ehl, ehw))
+    differ = hits = 0
+    for v_ops in variants:
+        want = ck.obb_collision_fleet_reference(*v_ops)
+        differ += int((ck.obb_collision_fleet(*v_ops) != want).sum())
+        hits += int(want.sum())
+        for f in range(F):
+            one = problem_operands(v_ops, f)
+            differ += int((ck.obb_collision(*one)
+                           != ck.obb_collision_reference(*one)).sum())
+    torch.cuda.synchronize()
+    ck.obb_collision.launches, ck.obb_collision_fleet.launches = counted
+    log(f"collision {label}: F={F} T={T} K={K} M={obstacles.pose.shape[1]}"
+        f", the horizon and each step alone, both forms: hits={hits} "
+        f"differing candidates={differ}")
+    check(differ == 0, f"collision {label}: the kernels and their plain "
+          f"versions differ on {differ} candidates")
+
+
+def compare_largest_rows(torch, label, ops, F=2, K=512):
+    """Both collision kernels on ``ops`` (first F problems, K candidates)
+    with their rows padded, by copies of the real rows 1 km further on, to
+    the most a block stages (``collision_kernel.max_rows``, far above the
+    48 KB a kernel gets unasked) against their plain versions, 0 differing
+    candidates; one row more must raise ``ValueError`` in both forms."""
+    from commonroad_rp_tpu_torch.ops import collision_kernel as ck
+    from commonroad_rp_tpu_torch.probes.hostile_collision import \
+        problem_operands
+
+    cx, cy, theta, obstacles, ehl, ehw = map_collision_ops(
+        ops, lambda a: a[:F].contiguous())
+    cx, cy, theta = (a[..., :K].contiguous() for a in (cx, cy, theta))
+    T, M0 = cx.shape[1], obstacles.pose.shape[1]
+    most = ck.max_rows(T, cx.dtype)
+    copies = -(-(most + 1) // M0)
+    shift = torch.zeros(3, dtype=cx.dtype, device=cx.device)
+    shift[0] = 1000.0
+    pose = torch.cat([obstacles.pose + c * shift for c in range(copies)], 1)
+    rep = lambda a, n: None if a is None else \
+        torch.cat([a] * copies, 1)[:, :n].contiguous()
+    rows = lambda n: type(obstacles)(
+        pose=pose[:, :n].contiguous(), half_ext=rep(obstacles.half_ext, n),
+        valid=rep(obstacles.valid, n), radius=rep(obstacles.radius, n))
+    compare_collision_case(torch, f"{label}, rows padded to {most} "
+                           f"({ck.shared_bytes(most, T, cx.dtype)} B shared)",
+                           (cx, cy, theta, rows(most), ehl, ehw))
+    for call in (lambda: ck.obb_collision_fleet(cx, cy, theta,
+                                                rows(most + 1), ehl, ehw),
+                 lambda: ck.obb_collision(*problem_operands(
+                     (cx, cy, theta, rows(most + 1), ehl, ehw), 0))):
+        try:
+            call()
+        except ValueError as exc:
+            check("bytes of shared memory per block" in str(exc), str(exc))
+        else:
+            raise AssertionError(f"{label}: {most + 1} rows did not raise")
+
+
 def phase_collision_kernel(torch):
     """9. The collision kernel against its plain version, float32 and
     float64: synthetic scenes at T=21 and T=61, then every sampling level of
-    the four scenarios' first cycles; times at the level shapes of ZAM_Over
-    and ZAM_Tjunction."""
+    the four scenarios' first cycles, then the hostile and near-touching
+    operands (both forms) and the most rows a block stages; one kernel per
+    call; times at the level shapes of ZAM_Over and ZAM_Tjunction."""
     from commonroad_rp_tpu_torch.ops import collision_kernel as ck
 
     counted = ck.obb_collision.launches
@@ -1118,26 +1260,37 @@ def phase_collision_kernel(torch):
         check(bool(np.all(margins < tol)),
               f"{label}: kernel and plain version differ on a candidate "
               f"whose tightest SAT margin is at least {tol} m")
+        check(len(differ) == 0, f"{label}: {len(differ)} differing "
+              "candidates")
         if M > 0 and label.startswith(TIMED_COLLISION_CASES):
-            k_ms = cuda_time_ms(torch, lambda: ck._launch(*ops),
+            k_ms = cuda_time_ms(torch, lambda: ck.obb_collision(*ops),
                                 KERNEL_REPS)
             p_ms = cuda_time_ms(torch,
                                 lambda: ck.obb_collision_reference(*ops),
                                 PLAIN_REPS)
             timing[label] = (k_ms, p_ms)
-            k_dev = device_kernel_ms(torch, lambda: ck._launch(*ops),
+            k_dev = device_kernel_ms(torch, lambda: ck.obb_collision(*ops),
                                      "obb_collision_kernel")
             p_dev = device_kernel_ms(
                 torch, lambda: ck.obb_collision_reference(*ops), "")
             dev = lambda x: "not measured" if x is None else f"{x:.4f} ms"
             log(f"time collision {label}: T={T} K={K} M={M} kernel "
-                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms (CUDA events); device "
-                f"time of their kernels {dev(k_dev)} and {dev(p_dev)} "
-                "(profiler)")
+                f"{k_ms:.4f} ms per obb_collision call, plain {p_ms:.4f} ms "
+                f"(CUDA events); device time of their kernels {dev(k_dev)} "
+                f"and {dev(p_dev)} (profiler)")
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[-1]
+        for label, ops in collision_cases(torch, dtype, "cuda").items():
+            compare_collision_case(torch, f"{label} {dname}", ops)
+            if label == "near-touching":
+                compare_largest_rows(torch, f"{label} {dname}", ops)
+    level1 = cases["ZAM_Over-1_1 level 1 float64"]
+    check_one_kernel_per_call(torch, "obb_collision",
+                              lambda: ck.obb_collision(*level1),
+                              "obb_collision_kernel")
     ck.obb_collision.launches = counted
     k_ms, p_ms = timing["ZAM_Over-1_1 level 1 float64"]
-    bound = collision_bound(torch, as_fleet_collision(
-        torch, cases["ZAM_Over-1_1 level 1 float64"]))[:2]
+    bound = collision_bound(torch, as_fleet_collision(torch, level1))[:2]
     # the masks are bool: the error is 1 where any candidate differs
     return dict(max_err=max_err, ms=k_ms, plain_ms=p_ms, bound=bound)
 
@@ -1319,10 +1472,12 @@ def as_fleet_collision(torch, ops):
 
 
 def collision_work(torch, ops):
-    """(evaluated ego steps, evaluated valid (step, row) tests) of the
-    collision kernel's early-exit loops on fleet-form operands, replayed
-    with the plain version one (step, row) at a time in the kernel's
-    order."""
+    """(evaluated ego steps, steps whose heading is computed, skip tests,
+    full pair tests) of the collision kernels' early-exit loops on
+    fleet-form operands, replayed with the plain version one (step, row)
+    at a time in the order one thread of the fleet form runs them: the
+    skip (``far_pairs_reference``) tests every live valid pair, the full
+    test runs on those it keeps."""
     from commonroad_rp_tpu_torch.ops import collision_kernel as ck
 
     cx, cy, theta, obstacles, ehl, ehw = ops
@@ -1330,13 +1485,24 @@ def collision_work(torch, ops):
     M = obstacles.pose.shape[1]
     done = torch.zeros((F, K), dtype=torch.bool, device=cx.device)
     steps = torch.zeros((), dtype=torch.int64, device=cx.device)
-    pairs = torch.zeros_like(steps)
+    headings, pairs, full = (torch.zeros_like(steps) for _ in range(3))
     for t in range(T):
         steps += torch.sum(~done)
         at = lambda a: a[:, t:t + 1].contiguous()
+        rows_t = type(obstacles)(
+            pose=obstacles.pose[:, :, t:t + 1].contiguous(),
+            half_ext=obstacles.half_ext,
+            valid=obstacles.valid[:, :, t:t + 1].contiguous(),
+            radius=obstacles.radius)
+        far = ck.far_pairs_reference(at(cx), at(cy), at(theta), rows_t, ehl,
+                                     ehw)[:, 0]             # [F, M, K]
+        heading = torch.zeros_like(done)
         for m in range(M):
             live = ~done & obstacles.valid[:, m, t, None]
+            tested = live & ~far[:, m]
             pairs += torch.sum(live)
+            full += torch.sum(tested)
+            heading |= tested
             row = lambda a: None if a is None else a[:, m:m + 1].contiguous()
             one = type(obstacles)(
                 pose=row(obstacles.pose)[:, :, t:t + 1].contiguous(),
@@ -1345,24 +1511,27 @@ def collision_work(torch, ops):
                 radius=row(obstacles.radius))
             hit = ck.obb_collision_fleet_reference(at(cx), at(cy), at(theta),
                                                    one, ehl, ehw)
-            done = done | (hit & live)
-    return int(steps), int(pairs)
+            done = done | (hit & tested)
+        headings += torch.sum(heading)
+    return int(steps), int(headings), int(pairs), int(full)
 
 
 def collision_bound(torch, ops):
-    """(bound ms, bound_by, evaluated steps, evaluated pair tests) of one
-    fleet collision launch: the early exit's work on these operands, the
-    poses of the evaluated steps and every row read once, the mask written
-    once."""
+    """(bound ms, bound_by, work) of one fleet collision launch, ``work``
+    the tuple of :func:`collision_work`: the poses of the evaluated steps
+    and every row read once, the mask written once; a skipped pair charged
+    its skip test alone."""
     cx, _, _, obstacles, _, _ = ops
     F, T, K = cx.shape
     M = obstacles.pose.shape[1]
     size = cx.element_size()
-    steps, pairs = collision_work(torch, ops)
+    work = collision_work(torch, ops)
+    steps, headings, pairs, full = work
     nbytes = (steps * 3 * size + F * M * T * (3 * size + 1)
               + F * M * 3 * size + 2 * F * size + F * K)
-    return bound_of(steps * COLLISION_STEP_OPS + pairs * COLLISION_PAIR_OPS,
-                    nbytes, str(cx.dtype).split(".")[-1]) + (steps, pairs)
+    ops_count = (headings * COLLISION_STEP_OPS + pairs * COLLISION_SKIP_OPS
+                 + full * COLLISION_PAIR_OPS)
+    return bound_of(ops_count, nbytes, str(cx.dtype).split(".")[-1]) + (work,)
 
 
 def captured_fleet_collision(run_once):
@@ -1470,7 +1639,8 @@ def phase_xla_fleet(torch, fused):
         "best of 3)")
     ops16 = captured_fleet_collision(lambda: bench(1)(carry, scene))
     compare_fleet_collision(torch, "bench F=16 first cycle", ops16)
-    ms16 = cuda_time_ms(torch, lambda: ck._launch_fleet(*ops16), KERNEL_REPS)
+    ms16 = cuda_time_ms(torch, lambda: ck.obb_collision_fleet(*ops16),
+                        KERNEL_REPS)
     plain16 = cuda_time_ms(
         torch, lambda: ck.obb_collision_fleet_reference(*ops16), PLAIN_REPS)
     ck.obb_collision_fleet.launches = 0
@@ -1565,19 +1735,26 @@ def phase_xla_fleet(torch, fused):
     ops = captured_fleet_collision(
         lambda: make_xla_rollout(1, 1, "cuda")[0](carry, scene))
     compare_fleet_collision(torch, "fleet1024 first cycle", ops)
-    ms = cuda_time_ms(torch, lambda: ck._launch_fleet(*ops), 50)
+    ms = cuda_time_ms(torch, lambda: ck.obb_collision_fleet(*ops), 50)
     plain_ms = cuda_time_ms(torch, lambda: [
         ck.obb_collision_fleet_reference(
             *map_collision_ops(ops, lambda a: a[f0:f0 + 128]))
         for f0 in range(0, F, 128)], 3)
-    dev_ms = device_kernel_ms(torch, lambda: ck._launch_fleet(*ops),
+    dev_ms = device_kernel_ms(torch, lambda: ck.obb_collision_fleet(*ops),
                               "obb_collision_fleet_kernel")
-    bound_ms, bound_by, steps, pairs = collision_bound(torch, ops)
+    check_one_kernel_per_call(torch, "obb_collision_fleet",
+                              lambda: ck.obb_collision_fleet(*ops),
+                              "obb_collision_fleet_kernel")
+    bound_ms, bound_by, (steps, headings, pairs, full) = collision_bound(
+        torch, ops)
     ck.obb_collision_fleet.launches = launches
-    log(f"time fleet collision F={F}: kernel {ms:.4f} ms (device time "
+    log(f"time fleet collision F={F}: kernel {ms:.4f} ms per "
+        f"obb_collision_fleet call (device time "
         f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}), plain "
         f"{plain_ms:.4f} ms (8 calls of 128 problems); bound {bound_ms:.6f} "
-        f"ms by {bound_by} ({steps} evaluated steps, {pairs} pair tests)")
+        f"ms by {bound_by} ({steps} evaluated steps, {headings} with their "
+        f"heading computed, {pairs} live pairs, {full} full pair tests: the "
+        f"skip removes {1 - full / max(pairs, 1):.4f} of the pair tests)")
     run3, _ = make_xla_rollout(3, 1, "cuda")
     log(f"XLA fleet1024 device busy share over a 3-cycle rollout: "
         f"{device_busy_share(torch, lambda: run3(carry, scene))}")
@@ -1673,7 +1850,8 @@ def device_kernel_ms(torch, fn, name, reps=20):
     """Device time (ms) per call of ``fn`` spent in the kernels whose name
     contains ``name`` (every kernel for ""): ``torch.profiler`` device
     events over ``reps`` warm calls; None when the trace holds no such
-    event."""
+    event.  A named kernel, launched once per call, is timed as the mean of
+    the launches the trace kept (the profiler drops events now and then)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1684,11 +1862,11 @@ def device_kernel_ms(torch, fn, name, reps=20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    device_us = sum(float(evt.self_device_time_total)
-                    for evt in prof.key_averages()
-                    if evt.device_type == DeviceType.CUDA
-                    and name in evt.key)
-    return device_us / 1e3 / reps if device_us > 0 else None
+    kernels = [evt for evt in prof.key_averages()
+               if evt.device_type == DeviceType.CUDA and name in evt.key]
+    device_us = sum(float(evt.self_device_time_total) for evt in kernels)
+    calls = sum(evt.count for evt in kernels) if name else reps
+    return device_us / 1e3 / calls if device_us > 0 else None
 
 
 def device_busy_share(torch, fn):

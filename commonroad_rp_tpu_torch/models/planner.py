@@ -133,8 +133,9 @@ class CollisionChecker:
 class ReactivePlanner:
     """Sampling-based reactive trajectory planner on the device cycle.
 
-    ``device`` defaults to ``cuda`` when a card is present and ``cpu``
-    otherwise; on the CPU the kernels run their plain PyTorch versions.
+    ``device`` is ``cuda`` unless one is named, and raises without a card
+    (``resolve_device``); the CPU runs only when asked (``device="cpu"``),
+    and there the kernels run their plain PyTorch versions.
     """
 
     def __init__(self, config: ReactivePlannerConfiguration, device=None):

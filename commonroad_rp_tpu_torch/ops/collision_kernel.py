@@ -13,7 +13,10 @@ closest-point test, as ``ops.collision.check_collisions`` does
 float64 instance, built with nvcc on first use, bound through ctypes) for
 tensors on the card and raises if it cannot; for tensors on the CPU it runs
 the plain PyTorch version ``obb_collision_reference``.
-``obb_collision.launches`` counts kernel launches only.
+``obb_collision.launches`` counts kernel launches only.  A block stages its
+problem's rows in shared memory (``shared_bytes``); rows and steps past
+``SHARED_BLOCK_LIMIT`` raise ``ValueError``.  Each call is one launch on the
+current stream, writing the bool mask in place.
 
 ``obb_collision_fleet`` is the fleet form of the same pass (the XLA fleet
 path's ``check_collisions``, ``jax.vmap`` of the single-problem pass at
@@ -36,6 +39,14 @@ if TYPE_CHECKING:
     from commonroad_rp_tpu_torch.ops.collision import ObstacleArrays
 
 KERNEL_SOURCE = cuda_build.CSRC_DIR / "collision.cu"
+# the kernel's bounding-circle skip (csrc/collision.cu, Skip): a pair further
+# apart than SKIP_SCALE x (R_e + R_o) is not tested, and only where
+# R_e + R_o >= SKIP_MIN_RADIUS
+SKIP_SCALE = 1.0 + 2.0 ** -8
+SKIP_MIN_RADIUS = 2.0 ** -20
+# the most dynamic shared memory a collision block may ask for: sm_90 gives a
+# block 227 KB, of which the step groups' hit flags (256 ints) are static
+SHARED_BLOCK_LIMIT = (227 - 1) * 1024
 
 
 def obb_collision_reference(cx: torch.Tensor, cy: torch.Tensor,
@@ -138,6 +149,59 @@ def obb_collision_fleet_reference(cx: torch.Tensor, cy: torch.Tensor,
     return torch.any(hit.reshape(F, -1, K), dim=1)
 
 
+def far_pairs_reference(cx: torch.Tensor, cy: torch.Tensor,
+                        theta: torch.Tensor, obstacles: ObstacleArrays,
+                        half_length, half_width) -> torch.Tensor:
+    """[F, T, M, K] bool on fleet-form operands (those of
+    :func:`obb_collision_fleet`): the (step, row) pairs whose test the
+    kernel's bounding-circle skip removes (``skip_reach2`` and ``far_apart``
+    of ``csrc/collision.cu``, op for op), valid or not.  The kernel never
+    needs it; it counts the kernel's work (``chip_smoke.collision_work``) and
+    lets a test hold every skipped pair to a miss of the full test."""
+    per = lambda x: torch.as_tensor(x, dtype=cx.dtype, device=cx.device) \
+        .reshape(-1, 1, 1, 1)                                # [F|1, 1, 1, 1]
+    r_ego = torch.hypot(per(half_length), per(half_width))
+    r = torch.zeros_like(obstacles.half_ext[..., 0]) \
+        if obstacles.radius is None else obstacles.radius    # [F, M]
+    r_obs = torch.where(r > 0, r, torch.hypot(obstacles.half_ext[..., 0],
+                                              obstacles.half_ext[..., 1]))
+    r_sum = r_ego + r_obs[:, None, :, None]                  # [F, 1, M, 1]
+    reach = SKIP_SCALE * r_sum
+    reach2 = reach * reach
+    otheta = obstacles.pose[..., 2].transpose(1, 2)[..., None]  # [F, T, M, 1]
+    reach2 = torch.where((r_sum >= SKIP_MIN_RADIUS) & torch.isfinite(otheta)
+                         & torch.isfinite(reach2), reach2,
+                         torch.full_like(reach2, float("nan")))
+    dx = obstacles.pose[..., 0].transpose(1, 2)[..., None] - cx[:, :, None]
+    dy = obstacles.pose[..., 1].transpose(1, 2)[..., None] - cy[:, :, None]
+    d2 = dx * dx + dy * dy                                   # [F, T, M, K]
+    return (d2 > reach2) & torch.isfinite(d2) \
+        & torch.isfinite(theta)[:, :, None]
+
+
+def shared_bytes(M: int, T: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory (bytes) of a collision block, either form, for
+    M rows over T steps in ``dtype``: per (step, row) the position, cos/sin
+    and the skip's squared reach, per row the half extents and the radius,
+    then a valid byte per (step, row); ``csrc/collision.cu::staged_bytes``
+    computes the same."""
+    return dtype.itemsize * (5 * M * T + 3 * M) + M * T
+
+
+def max_rows(T: int, dtype: torch.dtype) -> int:
+    """The most obstacle rows over T steps a block of either form stages
+    within ``SHARED_BLOCK_LIMIT``; one row more raises ``ValueError``."""
+    return SHARED_BLOCK_LIMIT // shared_bytes(1, T, dtype)
+
+
+def _check_shared(M, T, dtype, who):
+    nbytes = shared_bytes(M, T, dtype)
+    if nbytes > SHARED_BLOCK_LIMIT:
+        raise ValueError(f"{who}: {M} obstacle rows over {T} steps in "
+                         f"{dtype} need {nbytes} bytes of shared memory per "
+                         f"block, above {SHARED_BLOCK_LIMIT}")
+
+
 def _bind(lib: ctypes.CDLL):
     p, i = ctypes.c_void_p, ctypes.c_int
     for name, scalar in (("crp_obb_collision_f32", ctypes.c_float),
@@ -149,6 +213,16 @@ def _bind(lib: ctypes.CDLL):
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, p, p]
         fn.restype = ctypes.c_int
+    lib.crp_collision_shared_bytes.argtypes = [i, i, i]
+    lib.crp_collision_shared_limit.argtypes = []
+    for fn in (lib.crp_collision_shared_bytes,
+               lib.crp_collision_shared_limit):
+        fn.restype = ctypes.c_long
+
+
+def library() -> ctypes.CDLL:
+    """The collision library (built on first use), its entry points bound."""
+    return cuda_build.load(KERNEL_SOURCE, _bind)
 
 
 def _check_operands(cx, cy, theta, obstacles, extents=(),
@@ -173,38 +247,52 @@ def _check_operands(cx, cy, theta, obstacles, extents=(),
     expect += [(name, t, lead) for name, t in
                zip(("half_length", "half_width"), extents)]
     for name, t, shape in expect:
-        if t.dtype != dtype or t.device != device or \
-                tuple(t.shape) != shape or not t.is_contiguous():
+        if t.dtype != dtype or t.device != device or t.shape != shape \
+                or not t.is_contiguous():
             raise ValueError(f"{who}: {name} must be a contiguous "
                              f"{dtype} tensor of shape {shape} on {device}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     valid = obstacles.valid
     if valid.dtype != torch.bool or valid.device != device or \
-            tuple(valid.shape) != lead + (M, T) or not valid.is_contiguous():
+            valid.shape != lead + (M, T) or not valid.is_contiguous():
         raise ValueError(f"{who}: valid must be a contiguous bool "
                          f"tensor of shape {lead + (M, T)} on {device}")
 
 
-def _launch(cx, cy, theta, obstacles, half_length, half_width):
-    _check_operands(cx, cy, theta, obstacles)
-    T, K = cx.shape
-    M = obstacles.pose.shape[0]
-    out = torch.empty(K, dtype=torch.uint8, device=cx.device)
-    lib = cuda_build.load(KERNEL_SOURCE, _bind)
-    fn = lib.crp_obb_collision_f32 if cx.dtype == torch.float32 \
-        else lib.crp_obb_collision_f64
+def _launch(cx, cy, theta, obstacles, half_length, half_width,
+            fleet=False):
+    """One launch of either form on the current stream: checks the operands,
+    the shared memory and the device (raising on what the kernels do not
+    take), allocates the bool mask, reads the raw stream handle, calls the
+    library, checks its return code and counts the launch."""
+    wrapper = obb_collision_fleet if fleet else obb_collision
+    who = wrapper.__name__
+    _check_operands(cx, cy, theta, obstacles,
+                    (half_length, half_width) if fleet else (), who)
+    *lead, T, K = cx.shape
+    M = obstacles.pose.shape[len(lead)]
+    _check_shared(M, T, cx.dtype, who)
+    if cx.device.type != "cuda":
+        raise ValueError(f"{who}: unsupported device {cx.device}")
+    out = torch.empty((*lead, K), dtype=torch.bool, device=cx.device)
     radius = obstacles.radius
-    stream = torch.cuda.current_stream(cx.device).cuda_stream
-    rc = fn(cx.data_ptr(), cy.data_ptr(), theta.data_ptr(),
+    args = (cx.data_ptr(), cy.data_ptr(), theta.data_ptr(),
             obstacles.pose.data_ptr(), obstacles.half_ext.data_ptr(),
             obstacles.valid.data_ptr(),
-            None if radius is None else radius.data_ptr(),
-            float(half_length), float(half_width), K, T, M, out.data_ptr(),
-            stream)
+            None if radius is None else radius.data_ptr())
+    if fleet:
+        args += (half_length.data_ptr(), half_width.data_ptr(), *lead)
+    else:
+        args += (float(half_length), float(half_width))
+    entry = (f"crp_{'obb_collision_fleet' if fleet else 'obb_collision'}_"
+             f"{'f32' if cx.dtype == torch.float32 else 'f64'}")
+    rc = getattr(library(), entry)(
+        *args, K, T, M, out.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(cx.device.index))
     if rc != 0:
-        raise RuntimeError(f"collision kernel launch failed: CUDA error {rc}")
-    obb_collision.launches += 1
-    return out.to(torch.bool)
+        raise RuntimeError(f"{who}: kernel launch failed: CUDA error {rc}")
+    wrapper.launches += 1
+    return out
 
 
 def obb_collision(cx: torch.Tensor, cy: torch.Tensor, theta: torch.Tensor,
@@ -223,39 +311,12 @@ def obb_collision(cx: torch.Tensor, cy: torch.Tensor, theta: torch.Tensor,
     launches) and raise if it cannot be built or launched; CPU inputs run
     :func:`obb_collision_reference`.
     """
-    device = cx.device
-    if device.type == "cpu":
+    if cx.device.type == "cpu":
         return obb_collision_reference(cx, cy, theta, obstacles,
                                        half_length, half_width)
-    if device.type != "cuda":
-        raise ValueError(f"obb_collision: unsupported device {device}")
     if obstacles.pose.shape[0] == 0:
-        return torch.zeros(cx.shape[1], dtype=torch.bool, device=device)
+        return torch.zeros(cx.shape[1], dtype=torch.bool, device=cx.device)
     return _launch(cx, cy, theta, obstacles, half_length, half_width)
-
-
-def _launch_fleet(cx, cy, theta, obstacles, half_length, half_width):
-    _check_operands(cx, cy, theta, obstacles, (half_length, half_width),
-                    "obb_collision_fleet")
-    F, T, K = cx.shape
-    M = obstacles.pose.shape[1]
-    out = torch.empty((F, K), dtype=torch.uint8, device=cx.device)
-    lib = cuda_build.load(KERNEL_SOURCE, _bind)
-    fn = lib.crp_obb_collision_fleet_f32 if cx.dtype == torch.float32 \
-        else lib.crp_obb_collision_fleet_f64
-    radius = obstacles.radius
-    stream = torch.cuda.current_stream(cx.device).cuda_stream
-    rc = fn(cx.data_ptr(), cy.data_ptr(), theta.data_ptr(),
-            obstacles.pose.data_ptr(), obstacles.half_ext.data_ptr(),
-            obstacles.valid.data_ptr(),
-            None if radius is None else radius.data_ptr(),
-            half_length.data_ptr(), half_width.data_ptr(), F, K, T, M,
-            out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"fleet collision kernel launch failed: CUDA "
-                           f"error {rc}")
-    obb_collision_fleet.launches += 1
-    return out.to(torch.bool)
 
 
 def obb_collision_fleet(cx: torch.Tensor, cy: torch.Tensor,
@@ -277,16 +338,14 @@ def obb_collision_fleet(cx: torch.Tensor, cy: torch.Tensor,
     the launches) and raise if it cannot be built or launched; CPU inputs
     run :func:`obb_collision_fleet_reference`.
     """
-    device = cx.device
-    if device.type == "cpu":
+    if cx.device.type == "cpu":
         return obb_collision_fleet_reference(cx, cy, theta, obstacles,
                                              half_length, half_width)
-    if device.type != "cuda":
-        raise ValueError(f"obb_collision_fleet: unsupported device {device}")
     if obstacles.pose.shape[1] == 0:
         return torch.zeros(cx.shape[0], cx.shape[2], dtype=torch.bool,
-                           device=device)
-    return _launch_fleet(cx, cy, theta, obstacles, half_length, half_width)
+                           device=cx.device)
+    return _launch(cx, cy, theta, obstacles, half_length, half_width,
+                   fleet=True)
 
 
 obb_collision.launches = 0

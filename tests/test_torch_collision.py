@@ -298,3 +298,270 @@ def test_pad_obstacles_matches_jax():
                                       err_msg=name)
     assert got.poly_verts is port_ops[3].poly_verts
     assert co.pad_obstacles(got, 8) is got
+
+
+# ---- the redesigned kernel's pair test, skip and shared memory (CPU side)
+
+SCENES = ("hostile0", "hostile1", "near_touching", "scene")
+_HARNESS = r"""
+#include <vector>
+template <typename S>
+static void run(const S* cx, const S* cy, const S* th, const S* ec,
+                const S* es, const S* pose, const S* oc, const S* os,
+                const S* half, const uint8_t* valid, const S* radius, S ehl,
+                S ehw, int K, int T, int M, uint8_t* out, long* headings) {
+  const int n = T * M;
+  std::vector<S> buf(5 * n + 3 * M);
+  std::vector<uint8_t> vb(n);
+  const Rows<S> rows{buf.data(), vb.data(), n, M};
+  const S r_ego = dhypot(ehl, ehw);
+  for (int m = 0; m < M; ++m) {
+    rows.ohl(m) = half[2 * m];
+    rows.ohw(m) = half[2 * m + 1];
+    rows.rad(m) = radius[m];
+  }
+  for (int i = 0; i < n; ++i) {     // as stage_rows, cos/sin given
+    const int m = i / T, t = i % T, j = t * M + m;
+    rows.ox(j) = pose[3 * i];
+    rows.oy(j) = pose[3 * i + 1];
+    rows.oc(j) = oc[j];
+    rows.os(j) = os[j];
+    rows.reach2(j) = skip_reach2(
+        r_ego + row_radius(half[2 * m], half[2 * m + 1], radius[m]),
+        pose[3 * i + 2]);
+    rows.valid[j] = valid[i];
+  }
+  for (int k = 0; k < K; ++k) {
+    bool hit = false;
+    for (int t = 0; t < T && !hit; ++t) {
+      const int a = t * K + k;
+      hit = step_hits(rows, t, M, cx[a], cy[a], th[a], ehl, ehw,
+                      [&](S, S& c, S& s) {
+                        c = ec[a];
+                        s = es[a];
+                        ++*headings;
+                      });
+    }
+    out[k] = hit ? 1 : 0;
+  }
+}
+#define ENTRY(name, S)                                                     \
+  extern "C" void name(const S* cx, const S* cy, const S* th, const S* ec, \
+                       const S* es, const S* pose, const S* oc,           \
+                       const S* os, const S* half, const uint8_t* valid,  \
+                       const S* radius, S ehl, S ehw, int K, int T, int M, \
+                       uint8_t* out, long* headings) {                     \
+    run<S>(cx, cy, th, ec, es, pose, oc, os, half, valid, radius, ehl, ehw, \
+           K, T, M, out, headings);                                        \
+  }
+ENTRY(run_f32, float)
+ENTRY(run_f64, double)
+"""
+
+
+@pytest.fixture(scope="module")
+def pair_test(tmp_path_factory):
+    """The pair test, the skip and the step loop of ``csrc/collision.cu``
+    (plain C++ once ``__device__`` is defined away) compiled with g++ into
+    a loop over candidates and steps that stages the rows as the kernel
+    does, with the plain version's cos/sin."""
+    import ctypes
+    import shutil
+    import subprocess
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the pair test")
+    text = ck.KERNEL_SOURCE.read_text()
+    body = text[text.index("// ---- the pair test and the skip"):
+                text.index("// ---- end of the part compiled on the CPU")]
+    tmp = tmp_path_factory.mktemp("pair_test")
+    source = tmp / "pair_test.cpp"
+    source.write_text("#include <math.h>\n#include <stdint.h>\n"
+                      "#define __device__\n#define __forceinline__ inline\n"
+                      + body + _HARNESS)
+    lib_path = tmp / "libpair_test.so"
+    subprocess.run([gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared",
+                    "-fPIC", "-o", str(lib_path), str(source)], check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name, scalar in (("run_f32", ctypes.c_float),
+                         ("run_f64", ctypes.c_double)):
+        getattr(lib, name).argtypes = [p] * 11 + [scalar, scalar, i, i, i, p,
+                                                  p]
+    return lib
+
+
+def _compiled_mask(lib, ops):
+    """(mask [K], headings computed) of the g++-compiled step loop on
+    single-problem CPU operands, with the cos/sin the plain version
+    computes (the same expressions on the same tensors)."""
+    import ctypes
+
+    cx, cy, theta, obstacles, ehl, ehw = ops
+    (T, K), M = cx.shape, obstacles.pose.shape[0]
+    otheta = obstacles.pose[..., 2].T[:, :, None]             # as the plain
+    arrays = [cx, cy, theta, torch.cos(theta), torch.sin(theta),
+              obstacles.pose, torch.cos(otheta).reshape(T, M),
+              torch.sin(otheta).reshape(T, M), obstacles.half_ext,
+              obstacles.valid.to(torch.uint8),
+              torch.zeros(M, dtype=cx.dtype) if obstacles.radius is None
+              else obstacles.radius]
+    arrays = [np.ascontiguousarray(a.numpy()) for a in arrays]
+    out = np.zeros(K, np.uint8)
+    headings = ctypes.c_long(0)
+    fn = lib.run_f32 if cx.dtype == torch.float32 else lib.run_f64
+    fn(*(a.ctypes.data_as(ctypes.c_void_p) for a in arrays), float(ehl),
+       float(ehw), K, T, M, out.ctypes.data_as(ctypes.c_void_p),
+       ctypes.byref(headings))
+    return out.astype(bool), headings.value
+
+
+def _fleet_case(name, dtype_name):
+    """Fleet-form CPU operands of one of ``SCENES``."""
+    from commonroad_rp_tpu_torch.probes import hostile_collision as hc
+
+    td = DTYPES[dtype_name][0]
+    nd = np.float32 if dtype_name == "float32" else np.float64
+    tensor = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=td)
+    if name.startswith("hostile"):
+        case = hc.hostile_collision(int(name[-1]), nd)
+    elif name == "near_touching":
+        case = hc.near_touching_collision(3, nd, F=2, K=300, T=21)
+    else:
+        scene = _scene(6)
+        _, port = _both(scene, dtype_name, polys=False)
+        px, py, pt, obstacles, _ = port
+        cx = (px.T + WB * torch.cos(pt.T)).contiguous()
+        cy = (py.T + WB * torch.sin(pt.T)).contiguous()
+        return (cx[None], cy[None], pt.T.contiguous()[None],
+                co.ObstacleArrays(pose=obstacles.pose[None],
+                                  half_ext=obstacles.half_ext[None],
+                                  valid=obstacles.valid[None],
+                                  radius=obstacles.radius[None]),
+                torch.tensor([HL], dtype=td), torch.tensor([HW], dtype=td))
+    return hc.fleet_operands(case, tensor, torch.as_tensor)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "float64"])
+@pytest.mark.parametrize("scene", SCENES)
+def test_staged_pair_test_equals_reference(pair_test, scene, dtype_name):
+    """The kernel's step loop (staged rows, the bounding-circle skip, the
+    lazy ego heading, the pair test), compiled with g++, gives
+    ``obb_collision_reference``'s mask on every problem: skip boundaries
+    and 1 ulp either side, touching boxes and discs, invalid rows, NaN,
+    inf, huge and subnormal poses, hostile extents."""
+    from commonroad_rp_tpu_torch.probes import hostile_collision as hc
+
+    ops = _fleet_case(scene, dtype_name)
+    F, T, K = ops[0].shape
+    hits = headings = 0
+    for f in range(F):
+        one = hc.problem_operands(ops, f)
+        # the whole horizon, then each step alone (past a candidate's first
+        # hit the horizon's mask sees nothing)
+        for t in [None] + list(range(T)):
+            if t is not None:
+                cx, cy, theta, rows, ehl, ehw = one
+                step = lambda a: a[t:t + 1].contiguous()
+                row_step = lambda a: a[:, t:t + 1].contiguous()
+                one_t = (step(cx), step(cy), step(theta), rows._replace(
+                    pose=row_step(rows.pose), valid=row_step(rows.valid)),
+                    ehl, ehw)
+            else:
+                one_t = one
+            want = ck.obb_collision_reference(*one_t).numpy()
+            got, n_head = _compiled_mask(pair_test, one_t)
+            np.testing.assert_array_equal(got, want,
+                                          err_msg=f"problem {f} step {t}")
+            np.testing.assert_array_equal(ck.obb_collision(*one_t).numpy(),
+                                          want)
+            if t is not None:
+                hits += int(want.sum())
+                headings += n_head
+    assert 0 < hits < F * T * K, "degenerate test"
+    # the skip left candidate-steps without a heading to compute (the
+    # near-touching scene has none: every step is near a row)
+    assert headings <= F * T * K
+    assert scene == "near_touching" or headings < F * T * K
+
+
+def _pair_hits(ops):
+    """[F, T, M, K]: the plain version's verdict on every (step, row) pair
+    alone, valid or not (each pair as a problem of one step and one row)."""
+    cx, cy, theta, obstacles, ehl, ehw = ops
+    F, T, K = cx.shape
+    M = obstacles.pose.shape[1]
+    n = F * T * M
+    ego = lambda a: a[:, :, None].expand(F, T, M, K).reshape(n, 1, K) \
+        .contiguous()
+    per_pair = lambda a: a[:, None].expand(F, T, M, *a.shape[2:]) \
+        .reshape(n, 1, *a.shape[2:]).contiguous()
+    ext = lambda e: e[:, None, None].expand(F, T, M).reshape(n).contiguous()
+    rows = co.ObstacleArrays(
+        pose=obstacles.pose.transpose(1, 2).reshape(n, 1, 1, 3).contiguous(),
+        half_ext=per_pair(obstacles.half_ext),
+        valid=torch.ones((n, 1, 1), dtype=torch.bool),
+        radius=per_pair(obstacles.radius))
+    return ck.obb_collision_fleet_reference(
+        ego(cx), ego(cy), ego(theta), rows, ext(ehl), ext(ehw)) \
+        .reshape(F, T, M, K)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "float64"])
+@pytest.mark.parametrize("scene", SCENES)
+def test_skipped_pairs_miss_the_full_test(scene, dtype_name):
+    """Every pair the skip removes (``far_pairs_reference``, the plain
+    version of the kernel's predicate) is a miss of the full test, and the
+    skip removes pairs on every scene."""
+    ops = _fleet_case(scene, dtype_name)
+    far = ck.far_pairs_reference(*ops)
+    hits = _pair_hits(ops)
+    assert far.any() and hits.any()
+    assert not bool((far & hits).any()), \
+        torch.nonzero(far & hits)[:10].tolist()
+
+
+def test_shared_bytes_count_what_a_collision_block_stages():
+    """5 values per (step, row) and 3 per row in the operands' type, then a
+    valid byte per (step, row); the limit leaves the step groups' static
+    flags (256 ints, in whole KB) inside the 227 KB a block may have."""
+    for M, T in ((0, 1), (1, 21), (5, 21), (16, 61), (300, 21)):
+        for dtype, size in ((torch.float32, 4), (torch.float64, 8)):
+            assert ck.shared_bytes(M, T, dtype) \
+                == size * (5 * M * T + 3 * M) + M * T
+    assert ck.shared_bytes(5, 21, torch.float32) == 2265
+    assert ck.shared_bytes(16, 61, torch.float64) == 40400
+    assert 256 * 4 <= 227 * 1024 - ck.SHARED_BLOCK_LIMIT == 1024
+    assert (ck.max_rows(21, torch.float32), ck.max_rows(21, torch.float64),
+            ck.max_rows(61, torch.float64)) == (510, 261, 91)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("fleet", [False, True])
+def test_launch_rejects_rows_past_the_shared_memory_limit(fleet, dtype):
+    """One row more than a block's shared memory holds raises by shape
+    alone, naming the bytes it would need; at the limit the shape passes
+    and the device check speaks.  Nothing falls back to the plain
+    version."""
+    T, K = 21, 64
+    M = ck.max_rows(T, dtype)
+    assert ck.shared_bytes(M, T, dtype) <= ck.SHARED_BLOCK_LIMIT \
+        < ck.shared_bytes(M + 1, T, dtype)
+    lead = (3,) if fleet else ()
+    meta = lambda *shape, dt=dtype: torch.empty(*lead, *shape, dtype=dt,
+                                                device="meta")
+    ops = lambda m: (meta(T, K), meta(T, K), meta(T, K), co.ObstacleArrays(
+        pose=meta(m, T, 3), half_ext=meta(m, 2),
+        valid=meta(m, T, dt=torch.bool), radius=meta(m)))
+    call = (lambda m: ck.obb_collision_fleet(*ops(m), meta(), meta())) \
+        if fleet else (lambda m: ck.obb_collision(*ops(m), HL, HW))
+    wrapper = ck.obb_collision_fleet if fleet else ck.obb_collision
+    before = wrapper.launches
+    with pytest.raises(ValueError, match=f"{M + 1} obstacle rows over {T} "
+                       f"steps .* need {ck.shared_bytes(M + 1, T, dtype)} "
+                       "bytes of shared memory per block"):
+        call(M + 1)
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        call(M)
+    assert wrapper.launches == before

@@ -177,6 +177,7 @@ def _collision_kernel_vs_plain(ops):
     tol = chip_smoke.MARGIN_TOL[str(ops[0].dtype).split(".")[-1]]
     margins = chip_smoke.sat_margins(torch, *ops)[differ]
     assert bool(torch.all(margins < tol)), margins
+    assert len(differ) == 0, margins
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -204,6 +205,52 @@ def test_collision_kernel_rejects_mixed_devices(cuda):
     with pytest.raises(ValueError):
         collision_kernel.obb_collision(cx, cy, theta.double(), obstacles, hl,
                                        hw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_collision_kernels_match_plain_on_hostile_and_near_touching(cuda,
+                                                                    dtype):
+    """Both forms against their plain versions, 0 differing candidates, on
+    the operands of ``probes.hostile_collision`` (the CPU tests hold the
+    g++-compiled pair test to the plain version on the same arrays): the
+    hostile cases and the near-touching scene, each over the horizon and
+    each step alone."""
+    for label, ops in chip_smoke.collision_cases(torch, dtype, cuda).items():
+        chip_smoke.compare_collision_case(torch, label, ops)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_collision_shared_memory_limit_boundary(cuda, dtype):
+    """The library's shared-memory size and limit are the wrapper's; the
+    most rows a block stages run in both forms and agree with the plain
+    versions, one row more raises ``ValueError``."""
+    lib = collision_kernel.library()
+    size = torch.empty((), dtype=dtype).element_size()
+    for M, T in ((1, 21), (5, 21), (16, 61), (261, 21)):
+        assert collision_kernel.shared_bytes(M, T, dtype) \
+            == lib.crp_collision_shared_bytes(M, T, size)
+    assert collision_kernel.SHARED_BLOCK_LIMIT \
+        == lib.crp_collision_shared_limit()
+    ops = chip_smoke.collision_cases(torch, dtype, cuda, seeds=())
+    chip_smoke.compare_largest_rows(torch, "near-touching",
+                                    ops["near-touching"])
+
+
+def test_collision_wrappers_launch_one_kernel_per_call(cuda):
+    """One device kernel per ``obb_collision``/``obb_collision_fleet`` call
+    (no conversion of the mask afterwards): the profiler sees no other
+    kernel, and no more launches than calls."""
+    from commonroad_rp_tpu_torch.probes.hostile_collision import \
+        problem_operands
+
+    ops = chip_smoke.collision_cases(torch, torch.float64, cuda,
+                                     seeds=())["near-touching"]
+    one = problem_operands(ops, 0)
+    for fn, name in ((lambda: collision_kernel.obb_collision_fleet(*ops),
+                      "obb_collision_fleet_kernel"),
+                     (lambda: collision_kernel.obb_collision(*one),
+                      "obb_collision_kernel")):
+        chip_smoke.check_one_kernel_per_call(torch, name, fn, name)
 
 
 def test_conformance_golden_and_drive_on_card(cuda):
