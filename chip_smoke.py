@@ -83,7 +83,26 @@ Phases (any failure raises and ends the run with a non-zero exit code):
    D, 150 launches each; the probe kernel against its plain version
    (exactly equal), and the time of one ``scoring.trivial_probe`` call
    beside one ``torch.add``, the same call through the same launch path with
-   nothing launched, and the event pair alone.
+   nothing launched, and the event pair alone;
+14. trajectory-set capture: ZAM_Over to the goal through ``plan()`` with
+   ``draw_traj_set`` and ``save_plots`` in the JAX package's 27 steps, with
+   the selected states, counters and reasons of the same drive without
+   capture; one collision-kernel launch per capture with obstacles; the
+   first bundle against the card's float32 conformance bundle (the CPU
+   test's bar); the capture's extra time per cycle (CUDA events); three
+   timestep plots, the final trajectory, the state and input plots and a
+   solution file that reads back and passes ``run_evaluation``, all under
+   ``output/chip_smoke/``;
+15. the checkpointed fleet1024: the fused scan for 75 cycles,
+   ``save_fleet_carry``, ``load_fleet_carry(device="cuda")``, 75 more, bit
+   for bit the uninterrupted 150-cycle scan (final carry, per-cycle metrics,
+   member outcomes);
+16. the numpy oracle at full width: every sampling level of ZAM_Over's
+   first cycle through the card's float64 rollout and cost and through
+   ``baseline.oracle`` on the host (feasibility and reasons identical,
+   arrays and costs within 1e-9, the same argmin);
+17. the six device primitives on the card against their CPU results, and
+   the C++ host module (``native``), which must build.
 
 Every kernel's entry in the JSON line carries its launches on its path, its
 time beside its plain version's, the least time the card could take for the
@@ -101,6 +120,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib.util
 import json
 import os
 import pathlib
@@ -632,12 +652,17 @@ def main():
                         ("conformance", phase_conformance),
                         ("xla", lambda t: phase_xla_fleet(t, results[
                             "fleet1024"])),
-                        ("nccl", phase_nccl_dryrun), ("probe", phase_probe)):
+                        ("nccl", phase_nccl_dryrun), ("probe", phase_probe),
+                        ("capture", phase_capture),
+                        ("resume", lambda t: phase_fleet_resume(t, results[
+                            "fleet1024"])),
+                        ("oracle", phase_oracle),
+                        ("primitives", phase_primitives_native)):
         log(f"[{time.time() - started:.0f} s] phase {name}")
         results[name] = phase(torch)
     log(f"[{time.time() - started:.0f} s] phases done")
     fleet_k, scan, fleet1024, collision, conformance, xla, _, probe = \
-        results.values()
+        list(results.values())[:8]
 
     k_ms, p_ms = timing["main"]
     entry = lambda name, source, replaces, launches, max_abs_err, ms, \
@@ -1844,6 +1869,389 @@ def phase_probe(torch):
     return dict(launches=launches, max_err=max_err, ms=t["kernel"],
                 plain_ms=t["plain"], library_ms=t["torch.add"],
                 bound_ms=bound_ms, bound_by=bound_by, phases=phases)
+
+
+def capture_drive(torch, capture: bool, out_dir, device="cuda"):
+    """ZAM_Over through ``plan()`` on the card, with or without trajectory-set
+    capture: (planner, drive result, per-step record, capture records,
+    launch counts).  A capture record is (CUDA-event ms, the window had
+    obstacles, the bundle)."""
+    from commonroad_rp_tpu_torch.ops import collision_kernel as ck
+    from commonroad_rp_tpu_torch.ops import scoring
+    from commonroad_rp_tpu_torch.run_planner import (drive_to_goal,
+                                                     load_config,
+                                                     make_planner)
+
+    config = load_config("ZAM_Over-1_1", HERE)
+    config.debug.draw_traj_set = capture
+    config.debug.save_plots = capture
+    config.general.path_output = str(out_dir) + "/"
+    planner = make_planner(config, device=device)
+    captures = []
+    if capture:
+        inner = planner._capture_bundle_fast
+
+        def timed(batch, goal_valid):
+            obstacles = planner.collision_checker.obstacles_for_window(
+                planner.x_0.time_step, planner.N, config.planning.factor)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            inner(batch, goal_valid)
+            end.record()
+            end.synchronize()
+            captures.append((start.elapsed_time(end),
+                             obstacles.pose.shape[0] > 0,
+                             planner.stored_trajectories))
+        planner._capture_bundle_fast = timed
+    record = []
+    reset_launch_counts()
+    result = drive_to_goal(planner, max_steps=300,
+                           on_step=lambda _: record.append(
+                               (planner.infeasible_count_kinematics,
+                                planner.infeasible_count_collision,
+                                dict(planner.infeasible_reason_dict),
+                                planner.optimal_cost)))
+    torch.cuda.synchronize()
+    launches = (scoring.score_candidates.launches, ck.obb_collision.launches)
+    return planner, result, record, captures, launches
+
+
+def assert_bundle_matches(got, want):
+    """The bar of tests/test_fast_scoring.py:501-507 (the CPU test's)."""
+    check(got.x.shape == want.x.shape, "capture: bundle shapes differ")
+    check(np.array_equal(got.feasible, want.feasible)
+          and np.array_equal(got.collides, want.collides),
+          "capture: feasible/colliding labels differ from the conformance "
+          "bundle")
+    np.testing.assert_allclose(got.x, want.x, atol=1e-3)
+    np.testing.assert_allclose(got.y, want.y, atol=1e-3)
+    np.testing.assert_allclose(got.costs[want.feasible],
+                               want.costs[want.feasible], rtol=1e-4)
+    return float(max(np.abs(got.x - want.x).max(),
+                     np.abs(got.y - want.y).max()))
+
+
+def write_drive_plots(planner, bundles, out_dir):
+    """Timestep plots of the first cycles (with their captured bundles), the
+    final trajectory and the state and input plots of a drive; returns the
+    paths."""
+    from commonroad_rp_tpu_torch.utils import evaluation
+    from commonroad_rp_tpu_torch.utils import visualization as viz
+
+    cfg = planner.config
+    freq = cfg.planning.replanning_frequency
+    written = []
+    for i, bundle in enumerate(bundles):
+        t = i * freq
+        ego = planner.convert_state_list_to_commonroad_object(
+            planner.record_state_list[t:])
+        written.append(out_dir / f"timestep_{t}.png")
+        viz.visualize_planner_at_timestep(
+            cfg.scenario, cfg.planning_problem, ego, timestep=t,
+            traj_set=bundle, ref_path=planner.reference_path,
+            save_path=str(written[-1]))
+    written.append(out_dir / "final_trajectory.png")
+    viz.plot_final_trajectory(cfg.scenario, cfg.planning_problem,
+                              planner.record_state_list,
+                              save_path=str(written[-1]))
+    written.append(out_dir / "states.png")
+    evaluation.plot_states(cfg, planner.record_state_list,
+                           save_path=str(written[-1]))
+    written.append(out_dir / "inputs.png")
+    evaluation.plot_inputs(cfg, planner.record_input_list,
+                           save_path=str(written[-1]))
+    return written
+
+
+def phase_capture(torch, device="cuda"):
+    """14. Trajectory-set capture on the card: ZAM_Over to the goal through
+    ``plan()`` with ``draw_traj_set`` and ``save_plots`` against the same
+    drive without capture, the first bundle against the card's float32
+    conformance bundle, the collision kernel's launches, the capture's time,
+    and every plot and the solution file written from the drive."""
+    from commonroad_rp_tpu_torch.run_planner import load_config, make_planner
+    from commonroad_rp_tpu_torch.utils import evaluation, solution_writer
+
+    out_dir = HERE / "output" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    runs = {flag: capture_drive(torch, flag, out_dir, device)
+            for flag in (False, True)}
+    planner, result, record, captures, launches = runs[True]
+    _, result_off, record_off, _, launches_off = runs[False]
+    want = EXPECTED_STEPS["ZAM_Over-1_1"]
+    log(f"capture drive: goal_reached={result['goal_reached']} steps="
+        f"{result['steps']} plan() calls={result['plan_calls']} captures="
+        f"{len(captures)}; launches (scorer, collision) {launches} with "
+        f"capture, {launches_off} without")
+    check(result["goal_reached"] and result["steps"] == want,
+          f"capture drive: expected the goal in {want} steps")
+    check(result_off["steps"] == result["steps"], "capture changed the "
+          "step count")
+    states = lambda p: np.array([[s.position[0], s.position[1], s.velocity,
+                                  s.orientation, s.acceleration]
+                                 for s in p.record_state_list])
+    check(np.array_equal(states(planner), states(runs[False][0])),
+          "capture changed the selected states")
+    check(record == record_off, "capture changed the counters or reasons")
+    check(len(captures) == result["plan_calls"], "not every cycle captured")
+    with_obstacles = sum(c[1] for c in captures)
+    check(launches[0] == launches_off[0] == result["plan_calls"],
+          "capture: the scorer did not run once per plan() call")
+    check(launches_off[1] == 0 and launches[1] == with_obstacles > 0,
+          f"capture: {launches[1]} collision-kernel launches for "
+          f"{with_obstacles} captures with obstacles")
+
+    # the first cycle's bundle against the card's conformance float32 one
+    config = load_config("ZAM_Over-1_1", HERE)
+    config.debug.fast_scoring = False
+    config.debug.kernel_dtype = "float32"
+    config.debug.draw_traj_set = True
+    config.debug.save_plots = True
+    conformance = make_planner(config, device=device)
+    conformance.set_desired_velocity(current_speed=conformance.x_0.velocity)
+    check(conformance.plan() is not None, "conformance float32: no plan")
+    err = assert_bundle_matches(captures[0][2],
+                                conformance.stored_trajectories)
+    ms = [c[0] for c in captures]
+    log(f"capture: first bundle K={captures[0][2].x.shape[0]} against the "
+        f"card's float32 conformance bundle: labels identical, max |x, y "
+        f"diff| {err:.3e} m; extra time per cycle (CUDA events) median "
+        f"{statistics.median(ms):.4f} ms, mean {statistics.mean(ms):.4f} ms, "
+        f"first {ms[0]:.4f} ms over {len(ms)} cycles; plan() p50 "
+        f"{1e3 * statistics.median(result['planning_times'][1:]):.3f} ms with"
+        f" capture, {1e3 * statistics.median(result_off['planning_times'][1:]):.3f}"
+        f" ms without (host clock)")
+
+    # plots (where matplotlib is installed) and the solution file
+    cfg = planner.config
+    written = []
+    if importlib.util.find_spec("matplotlib") is None:
+        log("capture: matplotlib is not installed on this host: the six "
+            "plots are not written (tests/test_torch_visualization.py holds "
+            "every plot pixel for pixel against the JAX package on the CPU)")
+    else:
+        written = write_drive_plots(planner, [c[2] for c in captures[:3]],
+                                    out_dir)
+    for path in written:
+        check(path.stat().st_size > 10_000, f"plot {path} is too small")
+    solution, feasible = evaluation.run_evaluation(
+        cfg, planner.record_state_list, planner.record_input_list)
+    solution_path = out_dir / "solution_ZAM_Over-1_1.xml"
+    solution_writer.write_solution_file(solution, str(solution_path))
+    back = solution_writer.read_solution_file(str(solution_path))
+    back_states = back.planning_problem_solutions[0].trajectory.state_list
+    want_states = solution.planning_problem_solutions[0].trajectory.state_list
+    check(len(back_states) == len(want_states) == want + 1,
+          "solution file: wrong state count")
+    np.testing.assert_allclose([s.position for s in back_states],
+                               [s.position for s in want_states], atol=1e-9)
+    ok, detail = evaluation.valid_solution(cfg.scenario,
+                                           cfg.planning_problem_set, back)
+    check(all(feasible) and ok, f"run_evaluation failed: feasible "
+          f"{sum(feasible)}/{len(feasible)}, valid {ok} {detail}")
+    log(f"capture: wrote {len(written)} plots and {solution_path.name} under "
+        f"{out_dir.relative_to(HERE)}; the file reads back ({len(back_states)}"
+        f" states), {sum(feasible)}/{len(feasible)} transitions feasible, "
+        f"valid_solution {ok}")
+    return dict(launches=launches, capture_ms=statistics.median(ms),
+                captures=len(captures), with_obstacles=with_obstacles)
+
+
+def phase_fleet_resume(torch, fused, cycles=150, device="cuda"):
+    """15. The fused fleet1024 scan resumed from a checkpoint: 75 cycles,
+    ``save_fleet_carry``, ``load_fleet_carry(device="cuda")``, 75 more,
+    against the uninterrupted 150-cycle scan (phase 8's scene and carry):
+    the final carry and the per-cycle metrics bit for bit, and the goal
+    outcome member for member."""
+    from commonroad_rp_tpu_torch.ops import scoring
+    from commonroad_rp_tpu_torch.parallel.fleet import FleetCarry
+    from commonroad_rp_tpu_torch.run_fleet import (goal_counts, make_scan,
+                                                   member_outcomes)
+    from commonroad_rp_tpu_torch.utils import checkpoint
+
+    scene, carry, goals, base_idx = fused["fleet"]
+    half = cycles // 2
+    full_run, _ = make_scan(scene, cycles)
+    half_run, _ = make_scan(scene, half)
+    full_carry, full_metrics = no_sync(torch, lambda: full_run(carry))
+    torch.cuda.synchronize()
+    path = HERE / "output" / "chip_smoke" / "fleet1024_carry.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    reset_launch_counts()
+    t0 = time.time()
+    mid_carry, first = no_sync(torch, lambda: half_run(carry))
+    checkpoint.save_fleet_carry(mid_carry, half, str(path))
+    loaded, cycle = checkpoint.load_fleet_carry(str(path), device=device)
+    check(cycle == half and all(getattr(loaded, f).device.type == device
+                                for f in FleetCarry._fields),
+          "fleet1024 resume: the carry did not load onto the card")
+    end_carry, second = no_sync(torch, lambda: half_run(loaded))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = scoring.score_fleet.launches
+    check(launches == cycles, f"fleet1024 resume: {launches} fleet launches "
+          f"for {cycles} cycles")
+    raw = lambda t: t.detach().cpu().numpy().tobytes()
+    for field in FleetCarry._fields:
+        check(raw(getattr(end_carry, field)) == raw(getattr(full_carry,
+                                                            field)),
+              f"fleet1024 resume: final carry field {field} differs")
+    resumed = tuple(torch.cat([a, b]) for a, b in zip(first, second))
+    for i, (a, b) in enumerate(zip(resumed, full_metrics)):
+        check(a.dtype == b.dtype and a.shape == b.shape and raw(a) == raw(b),
+              f"fleet1024 resume: metric {i} differs from the "
+              f"uninterrupted scan")
+    outcomes = member_outcomes(resumed, goals, base_idx)
+    check(outcomes == member_outcomes(full_metrics, goals, base_idx),
+          "fleet1024 resume: member outcomes differ")
+    counts = goal_counts(resumed, goals, base_idx, outcomes=outcomes)
+    log(f"fleet1024 resume: {half} + {half} cycles through {path.name} "
+        f"({path.stat().st_size} B), {launches} fleet launches, "
+        f"{wall:.3f} s; final carry and {len(resumed)} metric rows "
+        f"bit-identical to the {cycles}-cycle scan (whose member outcomes "
+        f"{'equal' if outcomes == fused['outcomes'] else 'DIFFER FROM'} "
+        f"phase 8's); goals "
+        + ", ".join(f"{n} {c['reached']}/{c['total']}"
+                    for n, c in counts.items()))
+    return dict(launches=launches)
+
+
+def phase_oracle(torch, device="cuda"):
+    """16. The numpy oracle at full width: every sampling level of
+    ZAM_Over's first cycle through the card's float64 rollout and default
+    cost and through ``baseline.oracle`` on the host: identical feasibility
+    and reasons, arrays and costs within 1e-9, the same argmin."""
+    from commonroad_rp_tpu_torch.baseline import oracle
+    from commonroad_rp_tpu_torch.ops import cost as cost_ops
+    from commonroad_rp_tpu_torch.ops import kinematics
+    from commonroad_rp_tpu_torch.run_planner import load_config, make_planner
+
+    config = load_config("ZAM_Over-1_1", HERE)
+    config.debug.kernel_dtype = "float64"
+    planner = make_planner(config, device=device)
+    planner.set_desired_velocity(current_speed=planner.x_0.velocity)
+    x0_lon, x0_lat = planner.begin_cycle()
+    veh = planner._vehicle_arrays()
+    ref = oracle.OracleRefPath.from_tables(planner.coordinate_system.tables)
+    cf = planner.cost_function
+    cost_kw = dict(w_a=float(cf.w_a), desired_d=float(cf.desired_d),
+                   desired_speed=float(planner._desired_speed))
+    reason_by_code = {**kinematics.REASON_NAMES,
+                      kinematics.REASON_DOMAIN: "domain"}
+    keys = ("x", "y", "theta_gl", "theta_cl", "v", "a", "kappa_gl",
+            "kappa_dot", "s", "s_dot", "s_ddot", "d", "d_dot", "d_ddot")
+    f64 = lambda a, dtype=torch.float64: torch.as_tensor(
+        np.asarray(a), dtype=dtype, device=device)
+    total, t_host, max_err = 0, 0.0, 0.0
+    for level in range(1, planner.sampling_level):
+        batch = planner._create_trajectory_bundle(x0_lon, x0_lat, level)
+        res = kinematics.rollout(
+            f64(batch.coeffs_lon), f64(batch.coeffs_lat),
+            f64(batch.traj_len, torch.int64), planner.coordinate_system.tables,
+            veh, float(planner.x_0.orientation), planner.dt, planner.N,
+            planner._low_vel_mode)
+        costs = cost_ops.default_cost(res, **cost_kw).cpu().numpy()
+        t0 = time.time()
+        cands = oracle.evaluate_batch(
+            batch, ref, oracle.OracleVehicle(*veh),
+            float(planner.x_0.orientation), planner.dt, planner.N,
+            planner._low_vel_mode, config.planning.constraints_to_check,
+            **cost_kw)
+        t_host += time.time() - t0
+        feasible = res.feasible.cpu().numpy()
+        reasons = res.reason.cpu().numpy()
+        check(np.array_equal(feasible, [c.feasible for c in cands]),
+              f"oracle level {level}: feasibility differs")
+        check(all(reason_by_code[int(reasons[k])] == c.reason
+                  for k, c in enumerate(cands) if not c.feasible),
+              f"oracle level {level}: reasons differ")
+        arrays = {key: getattr(res, key).cpu().numpy() for key in keys}
+        for k, cand in enumerate(cands):
+            if cand.feasible:
+                for key in keys:
+                    np.testing.assert_allclose(arrays[key][k],
+                                               cand.arrays[key], rtol=1e-9,
+                                               atol=1e-9)
+                    max_err = max(max_err, float(np.abs(
+                        arrays[key][k] - cand.arrays[key]).max()))
+        want = np.array([c.cost for c in cands])
+        np.testing.assert_allclose(costs[feasible], want[feasible],
+                                   rtol=1e-9, atol=1e-9)
+        check(int(np.argmin(np.where(feasible, costs, np.inf))) ==
+              int(np.argmin(np.where(feasible, want, np.inf))),
+              f"oracle level {level}: argmin differs")
+        total += batch.size
+        log(f"oracle level {level}: K={batch.size}, {int(feasible.sum())} "
+            f"feasible; feasibility, reasons and argmin identical")
+    log(f"oracle: {total} candidates, card float64 rollout and cost against "
+        f"the host oracle within 1e-9 (max |array diff| {max_err:.3e}); "
+        f"oracle host time {t_host:.2f} s")
+
+
+def phase_primitives_native(torch, device="cuda"):
+    """17. The six device primitives on the card against their CPU results
+    (float64 1e-9, float32 2e-4), and the C++ host module: built with the
+    host's g++, which ``nvcc`` also uses (a failed build fails the run)."""
+    from commonroad_rp_tpu_torch import native
+    from commonroad_rp_tpu_torch.ops import frenet, polynomial
+    from commonroad_rp_tpu_torch.run_planner import load_config, make_planner
+
+    planner = make_planner(load_config("ZAM_Over-1_1", HERE), device="cpu")
+    polyline = planner.coordinate_system.reference
+    rng = np.random.default_rng(0)
+    c = rng.normal(size=(2754, 6)) * [10.0, 5.0, 1.0, 0.5, 0.1, 0.02]
+    tau = rng.uniform(-1.0, 7.0, size=(21, 2754))
+    t_end = rng.uniform(0.4, 6.0, size=2754)
+    s_last = float(frenet.from_polyline(polyline).s[-1])
+    s = rng.uniform(-5.0, s_last + 5.0, 4096)
+    idx_pts = rng.integers(2, len(polyline) - 2, 1024)
+    pts = polyline[idx_pts] + rng.uniform(-3.0, 3.0, (1024, 2))
+    worst = {}
+    for dtype, tol in ((torch.float64, 1e-9), (torch.float32, 2e-4)):
+        outs = {}
+        for where in ("cpu", device):
+            T = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,
+                                          device=where)
+            ref = frenet.from_polyline(polyline, dtype=dtype, device=where)
+            idx = frenet.interp_index(ref, T(s))
+            lam = frenet.interp_fraction(ref, T(s), idx)
+            outs[where] = dict(
+                eval_jerk=polynomial.eval_jerk(T(c)[None], T(tau)),
+                squared_jerk_integral=polynomial.squared_jerk_integral(
+                    T(c), T(t_end)),
+                evaluate_state_at_tau=polynomial.evaluate_state_at_tau(
+                    T(c)[None], T(tau), 0.5, 4.0),
+                interp_fraction=lam,
+                interp_table=frenet.interp_table(ref.curv, idx, lam),
+                to_curvilinear=torch.stack(frenet.to_curvilinear(
+                    ref, T(pts[:, 0]), T(pts[:, 1]))))
+        for name, cpu in outs["cpu"].items():
+            gpu = outs[device][name]
+            check(gpu.device.type == device,
+                  f"{name} did not run on the card")
+            np.testing.assert_allclose(gpu.cpu().numpy(), cpu.numpy(),
+                                       rtol=tol, atol=tol, err_msg=name)
+            rel = float(((gpu.cpu() - cpu).abs() /
+                         cpu.abs().clamp(min=1.0)).max())
+            worst[name] = max(worst.get(name, 0.0), rel)
+    log("primitives on the card against the CPU (max relative diff, both "
+        "dtypes): " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+
+    ok = native.available()
+    log(f"native.available(): {ok} ({native.library_path().name}); "
+        f"build: {(native.build_log or 'built before this run').splitlines()[0]}")
+    check(ok, f"the native library did not build:\n{native.build_log}")
+    ref64 = frenet.from_polyline(polyline)
+    s_n, d_n, _ = native.clcs_project(ref64.points.numpy(), ref64.s.numpy(),
+                                      ref64.tangent.numpy(),
+                                      ref64.normal.numpy(), pts)
+    s_t, d_t = frenet.to_curvilinear(ref64, torch.as_tensor(pts[:, 0]),
+                                     torch.as_tensor(pts[:, 1]))
+    np.testing.assert_allclose(s_n, s_t.numpy(), atol=1e-9)
+    np.testing.assert_allclose(d_n, d_t.numpy(), atol=1e-9)
+    log("native projection against to_curvilinear: within 1e-9 on 1024 "
+        "points")
 
 
 def device_kernel_ms(torch, fn, name, reps=20):

@@ -16,8 +16,9 @@ the output.  Two scoring paths, chosen by ``debug.fast_scoring`` and
 
 ``plan_scan(n)``: n replanning cycles of the fused path on the device
 (``parallel.replanning_scan.make_facade_replanning_scan``) with one readback
-at the end.  Trajectory-set capture for plots (``draw_traj_set``) is not
-ported and raises ``NotImplementedError`` naming its ROADMAP item.
+at the end.  With ``debug.draw_traj_set`` and plots on, every cycle also
+stores its evaluated bundle in ``stored_trajectories`` for the plots
+(``utils.visualization``).
 """
 
 from __future__ import annotations
@@ -43,7 +44,8 @@ from commonroad_rp_tpu_torch.models.sampling import (CandidateBatch,
 from commonroad_rp_tpu_torch.models.state import (InputState,
                                                   ReactivePlannerState,
                                                   TraceState)
-from commonroad_rp_tpu_torch.models.trajectories import (OptimalTrajectory,
+from commonroad_rp_tpu_torch.models.trajectories import (BundleSummary,
+                                                         OptimalTrajectory,
                                                          Trajectory)
 from commonroad_rp_tpu_torch.ops import collision as collision_ops
 from commonroad_rp_tpu_torch.ops import cycle as cycle_ops
@@ -56,7 +58,8 @@ from commonroad_rp_tpu_torch.utils.general import (
     retrieve_desired_velocity_from_pp, shift_orientation_states)
 from commonroad_rp_tpu_torch.utils.geometry import interpolate_angle
 from commonroad_rp_tpu_torch.utils.profiling import StageTimers
-from commonroad_rp_tpu_torch.utils.scenario import Scenario
+from commonroad_rp_tpu_torch.utils.scenario import (DynamicObstacle,
+                                                    Rectangle, Scenario)
 
 logger = logging.getLogger("RP_LOGGER")
 
@@ -77,9 +80,8 @@ def resolve_device(device=None) -> torch.device:
 
 
 def check_fast_scope(config: ReactivePlannerConfiguration):
-    """Resolve the 'auto'/None defaults to the fused float32 path, check the
-    dtype and boundary mode, and raise NotImplementedError for what the port
-    does not have yet (trajectory-set capture for plots)."""
+    """Resolve the 'auto'/None defaults to the fused float32 path and check
+    the dtype and boundary mode."""
     debug = config.debug
     if debug.kernel_dtype == "auto":
         debug.kernel_dtype = "float32"
@@ -90,9 +92,6 @@ def check_fast_scope(config: ReactivePlannerConfiguration):
     if config.planning.boundary_mode not in ("corridor", "segments"):
         raise ValueError(f"unknown boundary_mode "
                          f"{config.planning.boundary_mode!r}")
-    if debug.draw_traj_set and (debug.show_plots or debug.save_plots):
-        raise NotImplementedError(
-            "draw_traj_set (trajectory-set capture) is ROADMAP queue 1 item 9")
 
 
 class CollisionChecker:
@@ -164,10 +163,14 @@ class ReactivePlanner:
         self.stage_timers = StageTimers()
         self._record_state_list: List[ReactivePlannerState] = []
         self._record_input_list: List[InputState] = []
+        self.stored_trajectories: Optional[BundleSummary] = None
 
         self._desired_speed: Optional[float] = None
         self._desired_lon_position: Optional[float] = None
         self._low_vel_mode = False
+
+        self._draw_traj_set = config.debug.draw_traj_set and \
+            (config.debug.show_plots or config.debug.save_plots)
 
         self.config: Optional[ReactivePlannerConfiguration] = None
         self.reset(config)
@@ -683,7 +686,40 @@ class ReactivePlanner:
         logger.info("Rejected %d kinematically infeasible, %d colliding",
                     self._infeasible_count_kinematics,
                     self._infeasible_count_collision)
+        if self._draw_traj_set:
+            # the selected level's slice: the level the escalation loop of
+            # the conformance path stops at
+            batch = batches[int(scalars[5])]
+            self._capture_bundle_fast(batch, self._goal_valid_mask(batch))
         return self._finalize_level(found, scalars, optimal_packed)
+
+    def _capture_bundle_fast(self, batch: CandidateBatch,
+                             goal_valid: np.ndarray):
+        """Trajectory-set capture on the fused path (draw_traj_set): one
+        conformance ``evaluate_level`` of ``batch`` after the selection, in
+        float32 on the planner's device, for its dense [K, T] states and
+        feasibility/collision labels (reactive_planner.py:1122-1123).  The
+        fused scorer stays the selection path: nothing of the selection,
+        the counters or the reason statistics is touched, and only x, y,
+        the costs and the two label rows are read back (one transfer)."""
+        self.stored_trajectories = self._bundle_summary(
+            self._conformance_level(batch, goal_valid))
+
+    @staticmethod
+    def _bundle_summary(result: cycle_ops.LevelResult) -> BundleSummary:
+        """A level result's x, y, costs and labels on the host, read back
+        in one transfer."""
+        K, T = result.rollout.x.shape
+        dtype = result.costs.dtype
+        packed = torch.cat([result.rollout.x.reshape(-1),
+                            result.rollout.y.reshape(-1), result.costs,
+                            result.masks[:2].to(dtype).reshape(-1)]).cpu()
+        packed = packed.numpy()
+        labels = packed[2 * K * T + K:].reshape(2, K).astype(bool)
+        return BundleSummary(x=packed[:K * T].reshape(K, T),
+                             y=packed[K * T:2 * K * T].reshape(K, T),
+                             costs=packed[2 * K * T:2 * K * T + K],
+                             feasible=labels[0], collides=labels[1])
 
     def _finalize_level(self, found: bool, scalars: np.ndarray,
                         optimal_packed: np.ndarray):
@@ -718,24 +754,9 @@ class ReactivePlanner:
         if self._kernel_ok():
             return self._evaluate([batch])
         self._reset_statistics()
-        dtype = self._dtype
         goal_valid = self._goal_valid_mask(batch)
-        ctx = self._scene_context()
-        boundary_mode = ctx["boundary_mode"]
-        dev = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt,
-                                            device=self.device)
         t0 = time.time()
-        result = cycle_ops.evaluate_level(
-            dev(batch.coeffs_lon, dtype), dev(batch.coeffs_lat, dtype),
-            dev(batch.traj_len, torch.int64), dev(goal_valid, torch.bool),
-            self._co.tables, ctx["veh"], ctx["obstacles"],
-            ctx["boundary"] if boundary_mode == "segments" else None,
-            ctx["corridor"], self._scalar(self.x_0.orientation),
-            ctx["cost_params"], dt=self.dt, n_steps=self.N,
-            low_vel_mode=self._low_vel_mode,
-            cost_structure=self.cost_function.structure,
-            constraint_flags=ctx["flags"], boundary_mode=boundary_mode,
-            continuous_check=self.config.planning.continuous_collision_check)
+        result = self._conformance_level(batch, goal_valid)
         # one device->host transfer: the [4] scalar pack + [14, T] winner;
         # the [3, K] masks are read only when the reason dict is
         packed = torch.cat([result.scalars,
@@ -749,8 +770,32 @@ class ReactivePlanner:
         self._infeasible_count_kinematics = int(scalars[2])
         self._infeasible_count_collision = int(scalars[3])
         self._pending_reason_stats = ("xla", result.masks, goal_valid)
+        if self._draw_traj_set:
+            self.stored_trajectories = self._bundle_summary(result)
         return self._finalize_level(found, scalars,
                                     packed[4:].reshape(14, -1))
+
+    def _conformance_level(self, batch: CandidateBatch,
+                           goal_valid: np.ndarray) -> cycle_ops.LevelResult:
+        """``batch`` through the conformance level program
+        (``ops.cycle.evaluate_level``) in the planner's dtype, on its
+        device."""
+        ctx = self._scene_context()
+        boundary_mode = ctx["boundary_mode"]
+        dev = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt,
+                                            device=self.device)
+        return cycle_ops.evaluate_level(
+            dev(batch.coeffs_lon, self._dtype),
+            dev(batch.coeffs_lat, self._dtype),
+            dev(batch.traj_len, torch.int64), dev(goal_valid, torch.bool),
+            self._co.tables, ctx["veh"], ctx["obstacles"],
+            ctx["boundary"] if boundary_mode == "segments" else None,
+            ctx["corridor"], self._scalar(self.x_0.orientation),
+            ctx["cost_params"], dt=self.dt, n_steps=self.N,
+            low_vel_mode=self._low_vel_mode,
+            cost_structure=self.cost_function.structure,
+            constraint_flags=ctx["flags"], boundary_mode=boundary_mode,
+            continuous_check=self.config.planning.continuous_collision_check)
 
     # ------------------------------------------------------------------
     # device replanning loop (commonroad_rp_tpu models/planner.py:586-825)
@@ -1076,3 +1121,13 @@ class ReactivePlanner:
                                  interval_start=self.x_0.orientation - np.pi,
                                  interval_end=self.x_0.orientation + np.pi)
         return cart_traj, cl_traj, lon_list, lat_list
+
+    def convert_state_list_to_commonroad_object(self, state_list,
+                                                obstacle_id: int = 42):
+        """Planner output -> dynamic-obstacle prediction
+        (reactive_planner.py:1138-1159)."""
+        shifted = [s.shift_positions_to_center(self.vehicle_params.wb_rear_axle)
+                   for s in state_list]
+        shape = Rectangle(self.vehicle_params.length, self.vehicle_params.width)
+        return DynamicObstacle(obstacle_id, "car", shape, shifted[0],
+                               trajectory=shifted)

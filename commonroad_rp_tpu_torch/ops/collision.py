@@ -31,6 +31,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from commonroad_rp_tpu_torch import native
 from commonroad_rp_tpu_torch.ops.collision_kernel import (obb_collision,
                                                           obb_collision_fleet)
 from commonroad_rp_tpu_torch.utils.scenario import (Circle, Polygon, Rectangle,
@@ -301,7 +302,9 @@ def compile_corridor(boundary: BoundaryArrays, ref_tables,
     For each reference vertex, intersect the lateral normal line with every
     road-boundary segment; the nearest intersection on each side bounds the
     drivable band.  Where no boundary crosses the normal, a large default
-    keeps the side unbounded.
+    keeps the side unbounded.  The sweep runs in the C++ host module
+    (``native``) when it is built, else in numpy, as the JAX package's
+    does.
     """
     points = _host(ref_tables.points)                              # [P, 2]
     normals = _host(ref_tables.normal)                             # [P, 2]
@@ -313,6 +316,21 @@ def compile_corridor(boundary: BoundaryArrays, ref_tables,
         return CorridorArrays(d_lo=_tensor(d_lo, dtype, device),
                               d_hi=_tensor(d_hi, dtype, device))
 
+    if native.available():
+        d_lo, d_hi = native.corridor_sweep(points, normals, segments,
+                                           d_default=d_default)
+    else:
+        d_lo, d_hi = _corridor_sweep_numpy(points, normals, segments,
+                                           d_default)
+    d_lo, d_hi = quantize_bands(d_lo, d_hi)
+    return CorridorArrays(d_lo=_tensor(d_lo, dtype, device),
+                          d_hi=_tensor(d_hi, dtype, device))
+
+
+def _corridor_sweep_numpy(points: np.ndarray, normals: np.ndarray,
+                          segments: np.ndarray, d_default: float):
+    """The numpy route of the corridor sweep: (d_lo[P], d_hi[P]) before
+    quantization."""
     a = segments[:, 0]                                             # [B, 2]
     b = segments[:, 1]
     ab = b - a                                                     # [B, 2]
@@ -331,9 +349,7 @@ def compile_corridor(boundary: BoundaryArrays, ref_tables,
     t_neg = np.where(hit & (t < -1e-9), t, -np.inf)
     d_hi = np.minimum(t_pos.min(axis=1), d_default)
     d_lo = np.maximum(t_neg.max(axis=1), -d_default)
-    d_lo, d_hi = quantize_bands(d_lo, d_hi)
-    return CorridorArrays(d_lo=_tensor(d_lo, dtype, device),
-                          d_hi=_tensor(d_hi, dtype, device))
+    return d_lo, d_hi
 
 
 def check_corridor(s: torch.Tensor, d: torch.Tensor, theta_cl: torch.Tensor,

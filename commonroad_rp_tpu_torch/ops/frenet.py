@@ -103,6 +103,23 @@ def gather_wrap(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return take_rows(table, torch.remainder(idx, table.shape[-1]), batched)
 
 
+def interp_fraction(ref: RefPathTables, s: torch.Tensor,
+                    idx: torch.Tensor) -> torch.Tensor:
+    """Linear interpolation fraction s_lambda (reactive_planner.py:465-466)."""
+    s_lo = gather_wrap(ref.s, idx)
+    s_hi = gather_wrap(ref.s, idx + 1)
+    return (s - s_lo) / (s_hi - s_lo)
+
+
+def interp_table(ref_table: torch.Tensor, idx: torch.Tensor,
+                 lam: torch.Tensor) -> torch.Tensor:
+    """(table[idx+1] - table[idx]) * lambda + table[idx]
+    (curvature interpolation form of reactive_planner.py:876-880)."""
+    lo = gather_wrap(ref_table, idx)
+    hi = gather_wrap(ref_table, idx + 1)
+    return (hi - lo) * lam + lo
+
+
 class InterpValues(NamedTuple):
     """Per-point reference-table values at idx and idx+1 (wrapped)."""
 
@@ -166,3 +183,32 @@ def to_cartesian(ref: RefPathTables, s: torch.Tensor, d: torch.Tensor
     in_domain = (s >= per_problem(ref.s[..., 0], s)) & \
         (s <= per_problem(ref.s[..., -1], s))
     return x, y, in_domain
+
+
+def to_curvilinear(ref: RefPathTables, x: torch.Tensor, y: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Project Cartesian point(s) onto the reference path -> (s, d).
+
+    Orthogonal projection onto the nearest polyline segment (pycrccosy
+    convert_to_curvilinear_coords, utils_coordinate_system.py:176-178); d is
+    the signed lateral offset (positive left of the path).  x, y of any
+    (equal) shape against [P] tables; every point is measured against every
+    segment.
+    """
+    p = torch.stack([x, y], dim=-1)[..., None, :]          # [..., 1, 2]
+    a = ref.points[:-1]                                     # [P-1, 2]
+    t_hat = ref.tangent[:-1]
+    n_hat = ref.normal[:-1]
+    seg_len = ref.s[1:] - ref.s[:-1]
+
+    rel = p - a                                             # [..., P-1, 2]
+    t_proj = torch.sum(rel * t_hat, dim=-1)                 # [..., P-1]
+    t_clamped = torch.minimum(torch.clamp(t_proj, min=0.0), seg_len)
+    closest = a + t_clamped[..., None] * t_hat
+    dist2 = torch.sum((p - closest) ** 2, dim=-1)
+    best = torch.argmin(dist2, dim=-1, keepdim=True)        # [..., 1]
+
+    t_best = torch.gather(t_clamped, -1, best)[..., 0]
+    s_out = ref.s[:-1][best[..., 0]] + t_best
+    d_out = torch.gather(torch.sum(rel * n_hat, dim=-1), -1, best)[..., 0]
+    return s_out, d_out

@@ -88,3 +88,34 @@ def eval_acceleration(c: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
     t, t2, t3, _, _ = tau_powers(tau)
     return (2.0 * c[..., 2] + 6.0 * c[..., 3] * t + 12.0 * c[..., 4] * t2 +
             20.0 * c[..., 5] * t3)
+
+def eval_jerk(c: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
+    """p'''(tau) (polynomial_trajectory.py:229-238)."""
+    t, t2, _, _, _ = tau_powers(tau)
+    return 6.0 * c[..., 3] + 24.0 * c[..., 4] * t + 60.0 * c[..., 5] * t2
+
+
+def squared_jerk_integral(c: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Integral of the squared jerk over [0, t]
+    (polynomial_trajectory.py:171-190)."""
+    t2 = t * t
+    t3 = t2 * t
+    t4 = t3 * t
+    t5 = t4 * t
+    c3, c4, c5 = c[..., 3], c[..., 4], c[..., 5]
+    return (36.0 * c3 * c3 * t + 144.0 * c3 * c4 * t2 + 240.0 * c3 * c5 * t3 +
+            192.0 * c4 * c4 * t3 + 720.0 * c4 * c5 * t4 + 720.0 * c5 * c5 * t5)
+
+
+def evaluate_state_at_tau(c: torch.Tensor, tau: torch.Tensor, tau_0,
+                          delta_tau) -> torch.Tensor:
+    """[p, p', p''] at tau, with the reference's clamping quirk
+    (polynomial_trajectory.py:192-227: tau is clamped to [tau_0, delta_tau]
+    when tau - tau_0 falls outside [0, delta_tau])."""
+    tau_0 = torch.as_tensor(tau_0, dtype=tau.dtype, device=tau.device)
+    delta_tau = torch.as_tensor(delta_tau, dtype=tau.dtype, device=tau.device)
+    tau_prime = tau - tau_0
+    tau_c = torch.where(tau_prime < 0, tau_0,
+                        torch.where(tau_prime > delta_tau, delta_tau, tau))
+    return torch.stack([eval_position(c, tau_c), eval_velocity(c, tau_c),
+                        eval_acceleration(c, tau_c)], dim=-1)

@@ -34,7 +34,8 @@ colliding ones are masked before the selection (``refine_cheapest``).
 ``make_fleet_scan(mesh=group)`` runs one rank's slice of the fleet under a
 ``torch.distributed`` process group (``parallel.mesh``), its three per-cycle
 aggregates summed by ``parallel.mesh.fleet_all_reduce``.  A CUDA graph over
-the cycle is later work (ROADMAP queue 1 item 6).
+the cycle is performance work for after the port (ROADMAP, "Post-port
+work").
 """
 
 from __future__ import annotations

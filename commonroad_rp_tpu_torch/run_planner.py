@@ -5,9 +5,11 @@ run_planner.py:53-115) on the PyTorch planner: on the host, one ``plan()``
 per cycle (default), or on the device, chunks of cycles per ``plan_scan``
 (``--scan``), or a stop-at-goal mission through ``plan_scan`` only
 (``--mission``).  ``--dtype float64`` plans through the float64 conformance
-level program instead of the fused float32 scorer, and ``--evaluate`` runs
+level program instead of the fused float32 scorer, ``--evaluate`` runs
 the physics certificate (``utils.evaluation.run_evaluation``) on the driven
-states.  Usage, from the repository root:
+states, and ``--plot`` saves the final-trajectory plot to the configuration's
+output directory (``output/`` by default).  Usage, from the repository
+root:
 
     python -m commonroad_rp_tpu_torch.run_planner [--scenario ZAM_Over-1_1]
                                                   [--device cuda|cpu]
@@ -15,7 +17,7 @@ states.  Usage, from the repository root:
                                                   [--max-steps N]
                                                   [--scan] [--mission]
                                                   [--stop-at DS]
-                                                  [--evaluate]
+                                                  [--evaluate] [--plot]
 """
 
 from __future__ import annotations
@@ -283,6 +285,9 @@ def main(argv=None):
                              "plan_scan to the goal region, then stopping-"
                              "mode plan_scan to a standstill at the goal "
                              "(implies --scan)")
+    parser.add_argument("--plot", action="store_true",
+                        help="save the final-trajectory plot to the "
+                             "configuration's output directory (output/)")
     args = parser.parse_args(argv)
 
     from commonroad_rp_tpu_torch.utils.logger import initialize_logger
@@ -358,6 +363,11 @@ def main(argv=None):
         line += (f" p50_cycle={ordered[len(ordered) // 2]:.4f}s "
                  f"min_cycle={ordered[0]:.4f}s max_cycle={ordered[-1]:.4f}s")
     print(f"{line} device={planner.device}", flush=True)
+    if args.plot:
+        from commonroad_rp_tpu_torch.utils.visualization import \
+            plot_final_trajectory
+        plot_final_trajectory(config.scenario, config.planning_problem,
+                              planner.record_state_list, config)
     if args.evaluate:
         from commonroad_rp_tpu_torch.utils.evaluation import run_evaluation
         _, feasibility = run_evaluation(planner.config,

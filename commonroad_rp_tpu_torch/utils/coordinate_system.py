@@ -4,9 +4,10 @@ Counterpart of ``commonroad_rp_tpu/utils/coordinate_system.py`` (reference:
 commonroad_rp/utility/utils_coordinate_system.py:86-178).  Construction runs
 the same host preprocessing (vertex dedup + cubic-spline smoothing + front
 extension + table computation) and puts the ``RefPathTables`` on the
-planner's device.  Point conversions are host numpy code over float64 mirrors
-of the tables; the Cartesian->curvilinear projection is the numpy branch of
-the JAX package (loading its C++ module is ROADMAP queue 1 item 11).
+planner's device.  Point conversions are host code over float64 mirrors of
+the tables; the Cartesian->curvilinear projection runs in the port's C++
+host module (``native``) when it is built, else in numpy, as the JAX
+package's does.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from commonroad_rp_tpu_torch import native
 from commonroad_rp_tpu_torch.ops import frenet as frenet_ops
 from commonroad_rp_tpu_torch.utils import geometry
 
@@ -139,7 +141,19 @@ class CoordinateSystem:
 
     def convert_to_curvilinear_coords(self, x: float, y: float) -> np.ndarray:
         """(x, y) -> (s, d) by orthogonal polyline projection
-        (utils_coordinate_system.py:176-178), numpy."""
+        (utils_coordinate_system.py:176-178).  Native C++ when available,
+        numpy otherwise."""
+        if native.available():
+            s_out, d_out, _ = native.clcs_project(
+                self._reference, self._ref_pos, self._tangent, self._normal,
+                np.array([[x, y]]))
+            # same domain tolerance as the numpy route below: endpoints
+            # (s = 0 or s = s_max) are inside
+            if s_out[0] <= self._ref_pos[0] - 1e-9 or \
+                    s_out[0] >= self._ref_pos[-1] + 1e-9:
+                raise ValueError("Point outside the curvilinear projection "
+                                 "domain")
+            return np.array([s_out[0], d_out[0]])
         p = np.array([x, y])
         a = self._reference[:-1]
         t_hat = self._tangent[:-1]
@@ -215,3 +229,22 @@ class CoordinateSystem:
             d_acceleration = s_acceleration * d_p + s_velocity ** 2 * d_pp
 
         return [s, s_velocity, s_acceleration], [d, d_velocity, d_acceleration]
+
+    def plot_reference_states(self):
+        """Reference state plots (utils_coordinate_system.py:180-212)."""
+        from matplotlib import pyplot as plt
+
+        plt.figure(figsize=(7, 7.5))
+        plt.suptitle("Reference path states")
+        for i, (table, label) in enumerate([
+                (self.ref_theta, "theta_ref"), (self.ref_curv, "kappa_ref"),
+                (self.ref_curv_d, "kappa_dot_ref"),
+                (self.ref_curv_dd, "kappa_dot_dot_ref")]):
+            plt.subplot(4, 1, i + 1)
+            plt.plot(self.ref_pos, table, color="k")
+            plt.xlabel("s")
+            plt.ylabel(label)
+            if i >= 2:
+                plt.ylim(-0.1, 0.1)
+        plt.tight_layout()
+        plt.show()

@@ -7,13 +7,13 @@ transition of the planned trajectory, reconstruct the control inputs of a
 kinematic single-track (KS) model by optimization, forward-simulate them, and
 compare against the planned states.  The collision report runs the port's
 separating-axis tests (``ops.collision``) on CPU tensors in float64.  The
-state and input plots are not ported (ROADMAP queue 1 item 9).
+state and input plots draw with matplotlib on the Agg backend.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -333,6 +333,100 @@ def valid_solution(scenario, planning_problem_set, solution: Solution
             start=start_ok, goal=goal_ok, feasible=feasible, **collision)
         overall = overall and ok
     return overall, results
+
+
+def plot_states(config, state_list: List[TraceState],
+                reconstructed_states: Optional[List[TraceState]] = None,
+                plot_bounds: bool = False, save_path: Optional[str] = None):
+    """State plots: trajectory, steering angle, velocity, orientation, yaw
+    rate — planned vs reconstructed (evaluation.py:168-259)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    from matplotlib import pyplot as plt
+
+    fig = plt.figure(figsize=(7, 8.0))
+    plt.suptitle("States")
+    steps = list(range(len(state_list)))
+
+    plt.subplot(5, 1, 1)
+    plt.plot([s.position[0] for s in state_list],
+             [s.position[1] for s in state_list], color="black", label="planned")
+    if reconstructed_states:
+        plt.plot([s.position[0] for s in reconstructed_states],
+                 [s.position[1] for s in reconstructed_states],
+                 color="blue", label="reconstructed")
+    plt.ylabel("y")
+
+    for i, (attr, label) in enumerate([("steering_angle", "delta"),
+                                       ("velocity", "v"),
+                                       ("orientation", "theta")], start=2):
+        plt.subplot(5, 1, i)
+        plt.plot(steps, [getattr(s, attr) or 0.0 for s in state_list],
+                 color="black")
+        if reconstructed_states:
+            plt.plot(list(range(len(reconstructed_states))),
+                     [getattr(s, attr) or 0.0 for s in reconstructed_states],
+                     color="blue")
+        if plot_bounds and attr == "steering_angle":
+            plt.axhline(config.vehicle.delta_min, color="red")
+            plt.axhline(config.vehicle.delta_max, color="red")
+        plt.ylabel(label)
+
+    plt.subplot(5, 1, 5)
+    plt.plot(steps, [s.yaw_rate or 0.0 for s in state_list], color="black")
+    if reconstructed_states:
+        rec_theta = np.array([s.orientation for s in reconstructed_states])
+        rec_yaw = np.insert(np.diff(rec_theta) / config.planning.dt, 0,
+                            state_list[0].yaw_rate or 0.0)
+        plt.plot(list(range(len(rec_yaw))), rec_yaw, color="blue")
+    plt.ylabel("theta_dot")
+    plt.tight_layout()
+    if save_path:
+        fig.savefig(save_path, dpi=120, bbox_inches="tight")
+    plt.close(fig)
+    return fig
+
+
+def plot_inputs(config, input_list: List[InputState],
+                reconstructed_inputs: Optional[List[InputState]] = None,
+                plot_bounds: bool = False, save_path: Optional[str] = None):
+    """Input plots: steering rate + acceleration, planned vs reconstructed
+    (evaluation.py:262-301)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    from matplotlib import pyplot as plt
+
+    fig = plt.figure()
+    plt.suptitle("Inputs")
+    steps = list(range(len(input_list)))
+
+    plt.subplot(2, 1, 1)
+    plt.plot(steps, [i.steering_angle_speed for i in input_list],
+             color="black", label="planned")
+    if reconstructed_inputs:
+        plt.plot(list(range(len(reconstructed_inputs))),
+                 [i.steering_angle_speed for i in reconstructed_inputs],
+                 color="blue", label="reconstructed")
+    if plot_bounds:
+        plt.axhline(config.vehicle.v_delta_min, color="red")
+        plt.axhline(config.vehicle.v_delta_max, color="red")
+    plt.legend()
+    plt.ylabel("v_delta in rad/s")
+
+    plt.subplot(2, 1, 2)
+    plt.plot(steps, [i.acceleration for i in input_list], color="black")
+    if reconstructed_inputs:
+        plt.plot(list(range(len(reconstructed_inputs))),
+                 [i.acceleration for i in reconstructed_inputs], color="blue")
+    if plot_bounds:
+        plt.axhline(-config.vehicle.a_max, color="red")
+        plt.axhline(config.vehicle.a_max, color="red")
+    plt.ylabel("a_long in m/s^2")
+    plt.tight_layout()
+    if save_path:
+        fig.savefig(save_path, dpi=120, bbox_inches="tight")
+    plt.close(fig)
+    return fig
 
 
 def run_evaluation(config, state_list: List[ReactivePlannerState],

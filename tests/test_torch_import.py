@@ -29,7 +29,10 @@ def _modules():
 def test_every_port_module_imports_without_jax():
     modules = _modules()
     for name in ("ops.scoring", "ops.collision_kernel", "ops.cost",
-                 "ops.cuda_build", "utils.evaluation"):
+                 "ops.cuda_build", "utils.evaluation", "native",
+                 "baseline.oracle", "utils.checkpoint",
+                 "utils.scenario_writer", "utils.solution_writer",
+                 "utils.visualization", "examples.getting_started"):
         assert f"commonroad_rp_tpu_torch.{name}" in modules
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['commonroad_rp_tpu'] = None; import importlib; "

@@ -157,11 +157,19 @@ def test_unported_configurations_raise(repo_root, setting):
 
 
 def test_draw_traj_set_and_custom_cost_raise(repo_root):
+    """``draw_traj_set`` with plots raised until trajectory-set capture was
+    ported (the name is that test's): now it plans and stores the selected
+    level's bundle (compared with the JAX package in
+    ``tests/test_torch_capture.py``).  A custom cost structure still
+    raises."""
     config = load_config(SCENARIO, repo_root)
     config.debug.draw_traj_set = True
     config.debug.save_plots = True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ReactivePlanner(config, device="cpu")
+    planner = make_planner(config, device="cpu")
+    planner.set_desired_velocity(current_speed=planner.x_0.velocity)
+    assert planner.plan() is not None
+    assert planner.stored_trajectories.x.shape[0] == \
+        len(planner.stored_trajectories.labels) > 0
 
     class Custom(CostFunction):
         structure = ("custom",)

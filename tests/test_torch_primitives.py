@@ -153,3 +153,120 @@ def test_sampling_bundles_match(mode, low_vel):
             np.testing.assert_allclose(getattr(got, field),
                                        getattr(want, field), rtol=1e-12,
                                        atol=1e-12, err_msg=field)
+
+
+# the six primitives no planning path calls: float64 to 1e-9, float32 to the
+# file's tolerance
+_PRIM_TOL = {"float64": 1e-9, "float32": _DTYPES["float32"][2]}
+
+
+@pytest.mark.parametrize("dtype", sorted(_DTYPES))
+def test_jerk_primitives_match(dtype):
+    jdt, tdt, _ = _DTYPES[dtype]
+    tol = _PRIM_TOL[dtype]
+    rng = np.random.default_rng(3)
+    c = rng.normal(size=(64, 6)) * [10.0, 5.0, 1.0, 0.5, 0.1, 0.02]
+    tau = rng.uniform(-1.0, 7.0, size=(21, 64))
+    t_end = rng.uniform(0.4, 6.0, size=64)
+    J = lambda a: jnp.asarray(a, jdt)
+    P = lambda a: torch.as_tensor(np.array(a), dtype=tdt)
+    np.testing.assert_allclose(
+        port_poly.eval_jerk(P(c)[None], P(tau)).numpy(),
+        np.asarray(jax_poly.eval_jerk(J(c)[None], J(tau))), rtol=tol,
+        atol=tol)
+    np.testing.assert_allclose(
+        port_poly.squared_jerk_integral(P(c), P(t_end)).numpy(),
+        np.asarray(jax_poly.squared_jerk_integral(J(c), J(t_end))),
+        rtol=tol, atol=tol)
+    for tau_0, delta_tau in ((0.0, 2.0), (0.5, 4.0)):
+        np.testing.assert_allclose(
+            port_poly.evaluate_state_at_tau(P(c)[None], P(tau), tau_0,
+                                            delta_tau).numpy(),
+            np.asarray(jax_poly.evaluate_state_at_tau(J(c)[None], J(tau),
+                                                      tau_0, delta_tau)),
+            rtol=tol, atol=tol)
+
+
+def test_squared_jerk_integral_numeric():
+    """tests/test_polynomial.py's case on the port."""
+    rng = np.random.default_rng(4)
+    c = torch.as_tensor(rng.normal(size=6))
+    T = 1.7
+    taus = np.linspace(0.0, T, 20001)
+    jerk = port_poly.eval_jerk(c, torch.as_tensor(taus)).numpy()
+    numeric = np.trapezoid(jerk ** 2, taus)
+    got = float(port_poly.squared_jerk_integral(c, torch.tensor(T)))
+    np.testing.assert_allclose(got, numeric, rtol=1e-6)
+
+
+def test_evaluate_state_clamps_like_reference():
+    """tests/test_polynomial.py's case on the port: tau outside
+    [tau_0, tau_0 + delta_tau] clamps (polynomial_trajectory.py:205-210)."""
+    c = port_poly.quintic_coeffs(torch.tensor([0.0, 1.0, 0.0]),
+                                 torch.tensor([5.0, 0.0, 0.0]),
+                                 torch.tensor(2.0))
+    inside = port_poly.evaluate_state_at_tau(c, torch.tensor(2.0), 0.0, 2.0)
+    beyond = port_poly.evaluate_state_at_tau(c, torch.tensor(3.5), 0.0, 2.0)
+    np.testing.assert_allclose(beyond.numpy(), inside.numpy(), atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", sorted(_DTYPES))
+def test_interp_primitives_match(dtype):
+    jdt, tdt, _ = _DTYPES[dtype]
+    tol = _PRIM_TOL[dtype]
+    ref_j = jax_frenet.from_polyline(_polyline(), dtype=jdt)
+    ref_p = port_frenet.from_polyline(_polyline(), dtype=tdt)
+    s_last = float(ref_p.s[-1])
+    s = np.concatenate([np.linspace(-5.0, s_last + 5.0, 997),
+                        ref_p.s[::37].double().numpy(), [s_last]])
+    s_j, s_p = jnp.asarray(s, jdt), torch.as_tensor(s, dtype=tdt)
+    idx = port_frenet.interp_index(ref_p, s_p)
+    np.testing.assert_array_equal(
+        idx.numpy(), np.asarray(jax_frenet.interp_index(ref_j, s_j)))
+    idx_j = jnp.asarray(idx.numpy())
+    lam_p = port_frenet.interp_fraction(ref_p, s_p, idx)
+    lam_j = jax_frenet.interp_fraction(ref_j, s_j, idx_j)
+    np.testing.assert_allclose(lam_p.numpy(), np.asarray(lam_j), rtol=tol,
+                               atol=tol)
+    for field in ("curv", "curv_d", "theta"):
+        np.testing.assert_allclose(
+            port_frenet.interp_table(getattr(ref_p, field), idx,
+                                     lam_p).numpy(),
+            np.asarray(jax_frenet.interp_table(getattr(ref_j, field), idx_j,
+                                               lam_j)), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", sorted(_DTYPES))
+def test_to_curvilinear_matches(dtype, monkeypatch):
+    """Against the JAX function, and against the host projection of
+    ``CoordinateSystem.convert_to_curvilinear_coords`` (its native and its
+    numpy route) on the same tables."""
+    from commonroad_rp_tpu_torch import native
+    from commonroad_rp_tpu_torch.utils.coordinate_system import \
+        CoordinateSystem
+
+    jdt, tdt, _ = _DTYPES[dtype]
+    tol = _PRIM_TOL[dtype]
+    ref_j = jax_frenet.from_polyline(_polyline(), dtype=jdt)
+    ref_p = port_frenet.from_polyline(_polyline(), dtype=tdt)
+    rng = np.random.default_rng(5)
+    pts = _polyline()[rng.integers(2, 398, 300)] + \
+        rng.uniform(-4.0, 4.0, (300, 2))
+    s_j, d_j = jax_frenet.to_curvilinear(ref_j, jnp.asarray(pts[:, 0], jdt),
+                                         jnp.asarray(pts[:, 1], jdt))
+    s_p, d_p = port_frenet.to_curvilinear(
+        ref_p, torch.as_tensor(pts[:, 0], dtype=tdt),
+        torch.as_tensor(pts[:, 1], dtype=tdt))
+    np.testing.assert_allclose(s_p.numpy(), np.asarray(s_j), rtol=tol,
+                               atol=tol)
+    np.testing.assert_allclose(d_p.numpy(), np.asarray(d_j), rtol=tol,
+                               atol=tol)
+    if dtype != "float64":
+        return
+    co = CoordinateSystem(tables=ref_p)
+    for route in ("native", "numpy"):
+        if route == "numpy":
+            monkeypatch.setattr(native, "available", lambda: False)
+        host = np.array([co.convert_to_curvilinear_coords(*p) for p in pts])
+        np.testing.assert_allclose(s_p.numpy(), host[:, 0], atol=1e-9)
+        np.testing.assert_allclose(d_p.numpy(), host[:, 1], atol=1e-9)
