@@ -23,27 +23,37 @@ Phases (any failure raises and ends the run with a non-zero exit code):
    medians), and ``plan()`` p50/p90 over the drives' calls;
 6. the fleet kernel against its plain version on the card: the 12-problem
    fleet (4 scenarios x 3 vehicle types, level 3, T=21), first cycle, at
-   the bar of phase 3, and again with its tables padded to the most rows a
-   block's shared memory holds; the hostile operands of
+   the bar of phase 3; its 3-cycle scan with the tables padded to the most
+   rows a block's shared memory holds, captured bit for bit against
+   uncaptured before any other launch at that size (the warm-up cycle must
+   raise the kernel's shared-memory limit before the capture), then the
+   kernel at that size against its plain version; the hostile operands of
    ``probes.hostile_inputs`` (the table search's edge cases, the early
-   exits'); then a 10-cycle fleet scan through the kernel
+   exits'); then a 10-cycle captured fleet scan through the kernel
    against the same scan through the plain version (identical ``alive``,
    states within 2e-3);
-7. ``plan_scan`` on the card: the four scenarios reach their goals in one
-   ``plan_scan`` of the JAX package's cycle count each (9/12/15/49 cycles,
-   27/35/44/146 steps) with one kernel launch per cycle, each scan first
-   run under ``torch.cuda.set_sync_debug_mode("error")`` (no cycle reads
-   the device); ZAM_Over at T=61 through the kernel against the plain
-   version (same found flags, states within 5e-3); ms/cycle at T=21 and
-   T=61;
+7. ``plan_scan`` on the card, as a captured CUDA graph per cycle: each of
+   the four scenarios' scans (9/12/15/49 cycles) bit for bit its
+   uncaptured twin (``graph=False``), both run under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no cycle reads the device),
+   with one ``score_kernel`` execution per cycle (profiler) and a replay
+   at a desired speed 2 m/s above the captured one bit for bit the twin at
+   that speed (the states must move with the speed somewhere), then the
+   scenario to its goal in 27/35/44/146 steps through ``plan_scan``, which
+   replays the captured cycle; the single-problem scan captured against
+   uncaptured; ZAM_Over at T=61 captured against uncaptured, and through
+   the kernel against the plain version (same found flags, states within
+   5e-3); ms/cycle and device busy share of both forms at T=21 and T=61;
+   for every captured scan, the first call's extra time over a warm call
+   (warm-up cycle and capture) and the device memory it reserved;
 8. the 1024-problem heterogeneous fleet at full width (K=2754 per problem,
-   150 cycles at replanning frequency 1): one fleet-kernel launch per
-   cycle, no device read between cycles, per-scenario goal counts beside
-   the JAX package's, the fleet kernel against the plain version, how the
-   first cycle's candidates
-   end (prefiltered, first violation, colliding, selectable), the fleet
-   kernel's and the plain version's times, candidate-evals/s of the warm
-   scan and the device's busy share;
+   150 cycles at replanning frequency 1), captured: bit for bit the
+   uncaptured twin (carry, metrics, member outcomes), one fleet-kernel
+   execution per cycle, no device read between cycles, the JAX package's
+   per-scenario goal counts; both forms' ms/cycle, candidate-evals/s and
+   busy share; the fleet kernel against the plain version, how the first
+   cycle's candidates end (prefiltered, first violation, colliding,
+   selectable), the fleet kernel's and the plain version's times;
 9. the OBB collision kernel (``csrc/collision.cu``) against its plain
    version in float32 and float64: synthetic scenes (K=3414, T=21 and 61,
    M=16 with disc rows and padded invalid rows) and every sampling level of
@@ -61,8 +71,9 @@ Phases (any failure raises and ends the run with a non-zero exit code):
    kernel launch per level evaluation that has obstacles, ``plan()``
    p50/p90 (and with the plain obstacle pass in the kernel's place), and
    the four scenarios through ``segments`` and continuous ``plan_scan`` to
-   their goals, with no device read between cycles and the largest
-   per-cycle re-selection count of the scan's exact refinement;
+   their goals, each scan captured and bit for bit its uncaptured twin,
+   with no device read between cycles and the largest per-cycle
+   re-selection count of the scan's exact refinement;
 11. the XLA fleet path (``parallel.fleet.make_fleet_rollout``) on the card:
    the bench shape (16 copies of ZAM_Over-1_1, K=2754, T=21, 10 cycles) with
    one fleet collision-kernel launch per cycle and ms/cycle; the fleet form
@@ -93,7 +104,7 @@ Phases (any failure raises and ends the run with a non-zero exit code):
    timestep plots, the final trajectory, the state and input plots and a
    solution file that reads back and passes ``run_evaluation``, all under
    ``output/chip_smoke/``;
-15. the checkpointed fleet1024: the fused scan for 75 cycles,
+15. the checkpointed fleet1024: the captured fused scan for 75 cycles,
    ``save_fleet_carry``, ``load_fleet_carry(device="cuda")``, 75 more, bit
    for bit the uninterrupted 150-cycle scan (final carry, per-cycle metrics,
    member outcomes);
@@ -104,11 +115,15 @@ Phases (any failure raises and ends the run with a non-zero exit code):
 17. the six device primitives on the card against their CPU results, and
    the C++ host module (``native``), which must build.
 
-Every kernel's entry in the JSON line carries its launches on its path, its
-time beside its plain version's, the least time the card could take for the
-same work (``bound_ms``: the larger of the bytes over 3.35 TB/s and the
-operations over the card's peak for their type, from this run's inputs) and,
-where one PyTorch call computes the same function, that call's time.
+Every kernel's entry in the JSON line carries its launches on its path (the
+wrappers count eager launches and captures, not the replays of a captured
+scan: a captured scan's entry adds ``executions``, the profiler's count), its
+time per call beside its plain version's (and the scorers' and the probe's
+``device_ms``, the profiler's device time per call), the least time the card
+could take for the same work (``bound_ms``: the larger of the bytes over
+3.35 TB/s and the operations over the card's peak for their type, from this
+run's inputs) and, where one PyTorch call computes the same function, that
+call's time.
 
 The card's name and power limit, then a JSON object of per-kernel results,
 come on the two lines before the last; the last line is ``{"ok": true,
@@ -358,7 +373,7 @@ def prepared_in_domain(torch, inp):
 
 def captured_operands(run_scan):
     """The scorer operands of a scan's first cycle: ``run_scan(scorer)``
-    runs a one-cycle scan with the given scoring function."""
+    runs a one-cycle uncaptured scan with the given scoring function."""
     from commonroad_rp_tpu_torch.ops import scoring
 
     captured = []
@@ -434,6 +449,161 @@ def compare_largest_table(torch, label, inp, plain_out):
     return compare(torch, f"{label}, tables padded to {n_rows} rows "
                    f"({scoring.shared_bytes(n_rows, M, T)} B shared)", out_k,
                    plain_out, prepared_in_domain(torch, inp))
+
+
+def single_problem_scan(torch, n_cycles, device, graph=True, n_steps=20):
+    """(run, carry) of ``make_replanning_scan`` on ZAM_Over-1_1: sampling
+    level 2, replanning offset 3, the scenario's desired speed."""
+    from commonroad_rp_tpu_torch.ops import grid
+    from commonroad_rp_tpu_torch.parallel import replanning_scan
+    from commonroad_rp_tpu_torch.parallel.dryrun import (over_problem,
+                                                         shared_vehicle)
+
+    p = over_problem(n_steps, horizon_pad=60, root=HERE)
+    on = lambda tup: type(tup)(*(x.to(device) if isinstance(x, torch.Tensor)
+                                 else x for x in tup))
+    run = replanning_scan.make_replanning_scan(
+        on(p["ref_tables"]), on(p["corridor"]), on(p["obstacles"]),
+        shared_vehicle(),
+        grid.make_static_grid(2, 0.4, n_steps * 0.1, 0.1, -3.0, 3.0, 4),
+        0.1, n_steps, replan_offset=3, low_vel_threshold=4.0,
+        horizon=n_steps * 0.1, desired_speed=float(p["desired_speed"]),
+        n_cycles=n_cycles, graph=graph)
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
+    carry = replanning_scan.ReplanningCarry(
+        x0_lon=f32(p["x0_lon"]), x0_lat=f32(p["x0_lat"]),
+        orientation=f32(p["orientation"]), velocity=f32(p["velocity"]),
+        time_step=torch.zeros((), dtype=torch.int32, device=device),
+        alive=torch.ones((), dtype=torch.bool, device=device))
+    return run, carry
+
+
+def assert_bit_identical(torch, label, got, want):
+    """Two scan results (carry, metrics) bit for bit: the same dtypes,
+    shapes and bytes in every carry field and metric."""
+    raw = lambda t: t.detach().cpu().numpy().tobytes()
+    (carry_g, metrics_g), (carry_w, metrics_w) = got, want
+    for name, a, b in zip(carry_w._fields, carry_g, carry_w):
+        check(a.dtype == b.dtype and a.shape == b.shape and raw(a) == raw(b),
+              f"{label}: carry field {name} differs")
+    check(len(metrics_g) == len(metrics_w), f"{label}: metric counts differ")
+    for i, (a, b) in enumerate(zip(metrics_g, metrics_w)):
+        check(a.dtype == b.dtype and a.shape == b.shape and raw(a) == raw(b),
+              f"{label}: metric {i} differs")
+
+
+def captured_and_twin(torch, label, run, twin, carry, *args):
+    """The first call of a captured scan program (warm-up, capture, one
+    replay per cycle) against its uncaptured twin, both without a device
+    read between cycles: bit for bit, and the replay count; then a second,
+    warm call of the program, bit for bit the first.  Logs the first
+    call's extra time over the warm one (the warm-up cycle and the
+    capture, host clock) and the device memory the first call reserved
+    (``memory_reserved`` delta after ``empty_cache``: the static buffers,
+    the warm-up's blocks and the graph's pool).  Returns (captured result,
+    uncaptured result, the scorer wrappers' counts of the first call: the
+    warm-up's launch and the captured one)."""
+    from commonroad_rp_tpu_torch.ops import scoring
+
+    check(run.graph and not twin.graph and run.replays == 0,
+          f"{label}: not a fresh captured program and its twin")
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    got = no_sync(torch, lambda: run(carry, *args))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    pool = torch.cuda.memory_reserved() - reserved
+    counts = {"score_candidates": scoring.score_candidates.launches,
+              "score_fleet": scoring.score_fleet.launches}
+    want = no_sync(torch, lambda: twin(carry, *args))
+    assert_bit_identical(torch, label, got, want)
+    check(run.replays == run.n_cycles, f"{label}: {run.replays} replays "
+          f"for {run.n_cycles} cycles")
+    t0 = time.perf_counter()
+    again = run(carry, *args)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    assert_bit_identical(torch, f"{label}, warm call", again, got)
+    log(f"{label}: captured == uncaptured bit for bit ({run.n_cycles} "
+        f"cycles, {len(got[1])} metrics), a warm call too; first call "
+        f"{first_s * 1e3:.1f} ms, warm {warm_s * 1e3:.1f} ms (warm-up cycle "
+        f"and capture {(first_s - warm_s) * 1e3:.1f} ms); first call "
+        f"reserved {pool} B ({pool / 2**20:.1f} MiB); wrapper counts of the "
+        f"first call {counts}")
+    return got, want, counts
+
+
+def kernel_executions(torch, fn, pattern, expected, attempts=8):
+    """Executions of the device kernels whose name matches ``pattern`` (a
+    regular expression) in one warm call of ``fn`` under ``torch.profiler``,
+    and the names of every kernel traced.  The profiler drops events now
+    and then (a trace may hold none), so a trace that holds fewer than
+    ``expected`` is taken again, up to ``attempts`` times (logged when more
+    than one was needed); the largest count is returned."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    best, names = 0, []
+    for attempt in range(attempts):
+        if attempt:
+            log(f"  {attempt} trace(s) held at most {best} of {expected} "
+                f"executions of {pattern}: traced again")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [evt for evt in prof.key_averages()
+                   if evt.device_type == DeviceType.CUDA]
+        count = sum(evt.count for evt in kernels
+                    if re.search(pattern, evt.key))
+        if count >= best:
+            best, names = count, sorted({evt.key for evt in kernels})
+        if best >= expected:
+            break
+    return best, names
+
+
+# the scorers' device kernels by name (fleet_score_kernel also ends in
+# score_kernel)
+SCORE_KERNEL, FLEET_SCORE_KERNEL = r"(?<!fleet_)score_kernel", \
+    r"fleet_score_kernel"
+
+
+def padded_fleet_scene(torch, scene, n_rows):
+    """``scene`` with every reference table padded to ``n_rows`` rows the
+    way ``parallel.fleet.build_fleet_scene`` pads a short path: arclength
+    sentinels 1e6 apart along the final tangent, every other row a copy of
+    the last, the corridor band repeated."""
+    ref = scene.ref
+    pad = n_rows - ref.s.shape[1]
+    steps = 1e6 * torch.arange(1, pad + 1, dtype=ref.s.dtype,
+                               device=ref.s.device)
+    rep = lambda a: torch.cat([a, a[:, -1:].expand(
+        (a.shape[0], pad) + a.shape[2:])], dim=1).contiguous()
+    fields = {f: rep(getattr(ref, f)) for f in ref._fields}
+    fields["s"] = torch.cat([ref.s, ref.s[:, -1:] + steps], dim=1)
+    fields["points"] = torch.cat(
+        [ref.points, ref.points[:, -1:] + steps[None, :, None]
+         * ref.tangent[:, -1:]], dim=1)
+    padded = ref._replace(**fields)
+    return scene._replace(ref=padded, corridor_lo=rep(scene.corridor_lo),
+                          corridor_hi=rep(scene.corridor_hi))
+
+
+def largest_table_rows(fleet_scene, n_steps=20):
+    """Reference rows that give a fleet scan's packed tables (one sentinel
+    row more) the most rows a scorer block's shared memory holds."""
+    from commonroad_rp_tpu_torch.ops import scoring
+
+    M = fleet_scene.obs_pose.shape[1]
+    most = (scoring.SHARED_BLOCK_LIMIT
+            - scoring.shared_bytes(0, M, n_steps + 1)) // 4
+    return most - 1
 
 
 def no_sync(torch, fn):
@@ -631,10 +801,14 @@ def main():
         if label == "main":
             main_bound = scorer_bound(torch, inp)
         k_ms, p_ms = time_prepared(torch, inp, KERNEL_REPS, PLAIN_REPS)
+        with uncounted():
+            dev_ms = device_kernel_ms(
+                torch, lambda: scoring.score_prepared(inp), "score_kernel")
         K = args[0].shape[0]
-        timing[label] = (k_ms, p_ms)
+        timing[label] = (k_ms, p_ms, dev_ms)
         log(f"time {label}: K={K} T={kw['n_steps'] + 1} kernel "
-            f"{k_ms:.4f} ms ({K / k_ms * 1e3:.6g} candidate-evals/s), plain "
+            f"{k_ms:.4f} ms per call ({K / k_ms * 1e3:.6g} "
+            f"candidate-evals/s; device time {dev_text(dev_ms)}), plain "
             f"{p_ms:.4f} ms")
     q = np.percentile(plan_ms, [50, 90])
     log(f"plan(): p50 {q[0]:.3f} ms, p90 {q[1]:.3f} ms over {len(plan_ms)} "
@@ -664,29 +838,36 @@ def main():
     fleet_k, scan, fleet1024, collision, conformance, xla, _, probe = \
         list(results.values())[:8]
 
-    k_ms, p_ms = timing["main"]
+    k_ms, p_ms, dev_ms = timing["main"]
+    # ``device_ms``: the kernel's device time per call (profiler), beside
+    # the per-call time of the Python launch path; ``executions``: the
+    # kernel's executions in a traced call of a captured scan (the wrappers
+    # count the warm-up's launch and the captured one, not the replays)
     entry = lambda name, source, replaces, launches, max_abs_err, ms, \
-        plain_ms, bound, library_ms=None: {
+        plain_ms, bound, library_ms=None, **extra: {
             "name": name, "route": "cuda",
             "source": f"commonroad_rp_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches,
             "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1],
-            "library_ms": library_ms}
+            "library_ms": library_ms, **extra}
     log(smi)
     log(json.dumps({"kernels": [
         entry("score_candidates", "scoring.cu",
               "commonroad_rp_tpu/ops/pallas_cycle.py:490", launches,
-              max_err, k_ms, p_ms, main_bound),
+              max_err, k_ms, p_ms, main_bound, device_ms=dev_ms),
         entry("score_candidates (plan_scan, T=61)", "scoring.cu",
               "commonroad_rp_tpu/ops/pallas_cycle.py:420",
               scan["launches61"], scan["max_err61"], scan["ms61"],
-              scan["plain_ms61"], scan["bound61"]),
+              scan["plain_ms61"], scan["bound61"], device_ms=scan["dev61"],
+              executions=scan["executions61"]),
         entry("score_fleet", "scoring.cu",
               "commonroad_rp_tpu/ops/pallas_cycle.py:455",
               fleet1024["launches"],
               max(fleet_k["max_err"], fleet1024["max_err"]),
-              fleet1024["ms"], fleet1024["plain_ms"], fleet1024["bound"]),
+              fleet1024["ms"], fleet1024["plain_ms"], fleet1024["bound"],
+              device_ms=fleet1024["dev_ms"],
+              executions=fleet1024["executions"]),
         entry("obb_collision", "collision.cu",
               "commonroad_rp_tpu/ops/pallas_kernels.py:33",
               conformance["launches"], collision["max_err"],
@@ -699,7 +880,7 @@ def main():
               "scripts/t61_overhead_probe.py:200", probe["launches"],
               probe["max_err"], probe["ms"], probe["plain_ms"],
               (probe["bound_ms"], probe["bound_by"]),
-              probe["library_ms"])]}))
+              probe["library_ms"], device_ms=probe["dev_ms"])]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -716,12 +897,14 @@ def phase_fleet_kernel(torch):
     scene, carry, _, _ = heterogeneous_fleet(12, 10, device="cuda",
                                              root=HERE)
     inp = captured_operands(
-        lambda scorer: make_scan(scene, 1, scorer=scorer)[0](carry))
+        lambda scorer: make_scan(scene, 1, scorer=scorer,
+                                        graph=False)[0](carry))
     out_k = scoring.score_prepared(inp)
     out_p = scoring.score_prepared_reference(inp)
     torch.cuda.synchronize()
     max_err = compare(torch, "fleet F=12 first cycle", out_k, out_p,
                       prepared_in_domain(torch, inp))
+    largest_table_scan(torch, scene, carry)
     max_err = max(max_err, compare_largest_table(
         torch, "fleet F=12 first cycle", inp, out_p))
     max_err = max(max_err, hostile_cases(torch))
@@ -737,8 +920,9 @@ def phase_fleet_kernel(torch):
     final_k, metrics_k = no_sync(torch, lambda: run_k(carry))
     n_launch = scoring.score_fleet.launches
     final_p, metrics_p = run_p(carry)
-    check(n_launch == 10, f"fleet scan: {n_launch} kernel launches for 10 "
-          "cycles")
+    check(n_launch == 2 and run_k.replays == 10,
+          f"fleet scan: {n_launch} kernel launches (the warm-up's and the "
+          f"captured one) and {run_k.replays} replays for 10 cycles")
     check(bool(torch.equal(metrics_k[0], metrics_p[0])),
           "fleet scan: alive flags differ between kernel and plain")
     worst = 0.0
@@ -752,6 +936,36 @@ def phase_fleet_kernel(torch):
         f"{worst:.3e}")
     check(worst <= SCAN_ATOL, f"fleet scan states differ by {worst}")
     return dict(max_err=max_err, ms12=k_ms, plain_ms12=p_ms)
+
+
+def largest_table_scan(torch, scene, carry, n_cycles=3):
+    """The 12-problem fleet's scan with its tables padded to the most rows
+    a scorer block's shared memory holds, captured against uncaptured, bit
+    for bit, before any other launch at that size: the warm-up cycle must
+    raise the fleet kernel's shared-memory limit (``cudaFuncSetAttribute``
+    in ``csrc/scoring.cu::launch_scorer``) before the capture.  The padding
+    changes no found flag."""
+    from commonroad_rp_tpu_torch.ops import scoring
+    from commonroad_rp_tpu_torch.run_fleet import make_scan
+
+    n_rows = largest_table_rows(scene)
+    M, T = scene.obs_pose.shape[1], 21
+    nbytes = scoring.shared_bytes(n_rows + 1, M, T)
+    natural = scoring.shared_bytes(scene.ref.s.shape[1] + 1, M, T)
+    check(nbytes > max(natural, 48 * 1024),
+          f"largest table: {nbytes} B of shared memory, not above the "
+          f"scene's own {natural} B and 48 KB")
+    padded = padded_fleet_scene(torch, scene, n_rows)
+    label = f"fleet F=12 scan, tables padded to {n_rows} rows ({nbytes} B " \
+        f"shared, the scene's own {natural} B)"
+    got, _, counts = captured_and_twin(
+        torch, label, make_scan(padded, n_cycles)[0],
+        make_scan(padded, n_cycles, graph=False)[0], carry)
+    check(counts == {"score_candidates": 0, "score_fleet": 2},
+          f"{label}: wrapper counts {counts}")
+    _, metrics = make_scan(scene, n_cycles, graph=False)[0](carry)
+    check(bool(torch.equal(got[1][0], metrics[0])),
+          f"{label}: found flags differ from the unpadded scan's")
 
 
 def hostile_cases(torch, seeds=(0, 1, 2)):
@@ -787,33 +1001,63 @@ def hostile_cases(torch, seeds=(0, 1, 2)):
 
 
 def phase_plan_scan(torch):
-    """7. plan_scan on the card: the four scenarios to their goals, T=61
-    kernel against plain, ms/cycle."""
+    """7. plan_scan on the card, captured: each scenario's scan bit for bit
+    its uncaptured twin with one ``score_kernel`` execution per cycle, then
+    the scenario to its goal through ``plan_scan`` (which replays the
+    cached captured program); the single-problem scan; ZAM_Over at T=61
+    captured against uncaptured and through the kernel against the plain
+    version; ms/cycle and busy share of both forms at T=21 and T=61, the
+    capture's time and its graph pool."""
     from commonroad_rp_tpu_torch.ops import scoring
     from commonroad_rp_tpu_torch.run_planner import load_config, make_planner
 
+    moved = {}
     for name, cycles in EXPECTED_CYCLES.items():
         planner = make_planner(load_config(name, HERE), device="cuda")
         planner.set_desired_velocity(current_speed=planner.x_0.velocity)
+        ds = float(planner._desired_speed)
         run, carry = planner.scan_program(cycles)
-        no_sync(torch, lambda: run(carry, float(planner._desired_speed)))
+        twin, _ = planner.scan_program(cycles, graph=False)
+        got, _, counts = captured_and_twin(torch, f"plan_scan {name}", run,
+                                           twin, carry, ds)
+        check(counts == {"score_candidates": 2, "score_fleet": 0},
+              f"plan_scan {name}: wrapper counts {counts}")
+        # the desired speed is read from device memory, not frozen in the
+        # graph: a replay at another speed equals the twin at that speed
+        other = no_sync(torch, lambda: run(carry, ds + 2.0))
+        assert_bit_identical(torch, f"plan_scan {name} at {ds + 2.0} m/s",
+                             other, twin(carry, ds + 2.0))
+        moved[name] = (other[1][4].cpu().numpy().tobytes()
+                       != got[1][4].cpu().numpy().tobytes())
+        log(f"plan_scan {name}: a replay at {ds + 2.0} m/s (captured at "
+            f"{ds} m/s) == uncaptured at {ds + 2.0} m/s bit for bit; the "
+            f"recorded states {'differ from' if moved[name] else 'equal'} "
+            f"those at {ds} m/s")
+        executions, names = kernel_executions(
+            torch, lambda: run(carry, ds), SCORE_KERNEL, cycles)
+        check(executions == cycles, f"plan_scan {name}: {executions} "
+              f"score_kernel executions for {cycles} cycles ({names})")
+        replays = run.replays
         planner.record_state_and_input(planner.x_0)
-        scoring.score_candidates.launches = 0
-        scoring.score_fleet.launches = 0
         info = planner.plan_scan(cycles)
-        n_launch = scoring.score_candidates.launches
         log(f"plan_scan {name}: goal_reached={info['goal_reached']} "
-            f"steps={info['steps']} cycles_run={info['cycles_run']} kernel "
-            f"launches={n_launch} ({info['wall_time'] * 1e3:.1f} ms, first "
-            "call of this scan)")
+            f"steps={info['steps']} cycles_run={info['cycles_run']}, "
+            f"{executions} score_kernel executions in a traced call "
+            f"(profiler), {run.replays - replays} replays of the captured "
+            f"cycle ({info['wall_time'] * 1e3:.1f} ms)")
         check(info["goal_reached"], f"plan_scan {name}: goal not reached")
         check(info["steps"] == EXPECTED_STEPS[name],
               f"plan_scan {name}: {info['steps']} steps, expected "
               f"{EXPECTED_STEPS[name]}")
-        check(n_launch == info["cycles_run"] == cycles
-              and scoring.score_fleet.launches == 0,
-              f"plan_scan {name}: {n_launch} launches for "
-              f"{info['cycles_run']} cycles")
+        check(run.replays - replays == info["cycles_run"] == cycles,
+              f"plan_scan {name}: not the captured program's replays")
+
+    check(any(moved.values()), "plan_scan: no scenario's states moved with "
+          "the desired speed, so the replays at another speed show nothing")
+    run, carry = single_problem_scan(torch, 12, "cuda")
+    twin, _ = single_problem_scan(torch, 12, "cuda", graph=False)
+    captured_and_twin(torch, "single-problem scan ZAM_Over", run, twin,
+                      carry)
 
     def t61_planner():
         config = load_config("ZAM_Over-1_1", HERE)
@@ -826,7 +1070,9 @@ def phase_plan_scan(torch):
     planner = t61_planner()
     ds = float(planner._desired_speed)
     run_k, carry = planner.scan_program(n61)
-    _, metrics_k = no_sync(torch, lambda: run_k(carry, ds))
+    twin, _ = planner.scan_program(n61, graph=False)
+    (_, metrics_k), _, _ = captured_and_twin(
+        torch, "plan_scan T=61 ZAM_Over", run_k, twin, carry, ds)
     run_p, _ = planner.scan_program(
         n61, scorer=scoring.score_prepared_reference)
     _, metrics_p = run_p(carry, ds)
@@ -840,49 +1086,98 @@ def phase_plan_scan(torch):
     check(diff <= SCAN61_ATOL, f"plan_scan T=61: states differ by {diff}")
 
     inp61 = captured_operands(
-        lambda scorer: t61_planner().scan_program(1, scorer=scorer)[0](
-            carry, ds))
+        lambda scorer: t61_planner().scan_program(
+            1, scorer=scorer, graph=False)[0](carry, ds))
     out_k = scoring.score_prepared(inp61)
     out_p = scoring.score_prepared_reference(inp61)
     torch.cuda.synchronize()
     max_err61 = compare(torch, "plan_scan T=61 union", out_k, out_p,
                         prepared_in_domain(torch, inp61))
     ms61, plain_ms61 = time_prepared(torch, inp61, KERNEL_REPS, PLAIN_REPS)
+    with uncounted():
+        dev61 = device_kernel_ms(torch, lambda: scoring.score_prepared(inp61),
+                                 "score_kernel")
     bound61 = scorer_bound(torch, inp61)
     log(f"time plan_scan T=61 union: K={inp61.coeffs_lon.shape[0]} kernel "
-        f"{ms61:.4f} ms, plain {plain_ms61:.4f} ms")
+        f"{ms61:.4f} ms per call (device time {dev_text(dev61)}), plain "
+        f"{plain_ms61:.4f} ms")
 
     planner = t61_planner()
+    run61, carry61 = planner.scan_program(n61)
     planner.record_state_and_input(planner.x_0)
-    scoring.score_candidates.launches = 0
+    reset_launch_counts()
     info = planner.plan_scan(n61)
     launches61 = scoring.score_candidates.launches
+    executions61, names = kernel_executions(
+        torch, lambda: run61(carry61, ds), SCORE_KERNEL, n61)
     log(f"plan_scan T=61 drive: goal_reached={info['goal_reached']} "
-        f"steps={info['steps']} cycles_run={info['cycles_run']} kernel "
-        f"launches={launches61}")
-    check(launches61 == n61, "plan_scan T=61: one launch per cycle")
+        f"steps={info['steps']} cycles_run={info['cycles_run']}, wrapper "
+        f"launches {launches61} (warm-up and capture), {run61.replays} "
+        f"replays, {executions61} score_kernel executions in a traced call")
+    check(launches61 == 2 and executions61 == n61
+          and run61.replays >= n61 and info["cycles_run"] == n61,
+          f"plan_scan T=61: {launches61} launches, {executions61} "
+          f"executions for {n61} cycles ({names})")
 
+    forms = {}
     for label, make in (("T=21", lambda: make_planner(
             load_config("ZAM_Over-1_1", HERE), device="cuda")),
             ("T=61", t61_planner)):
         planner = make()
         planner.set_desired_velocity(current_speed=planner.x_0.velocity)
+        ds = float(planner._desired_speed)
+        run, carry = planner.scan_program(12)
+        twin, _ = planner.scan_program(12, graph=False)
+        forms[label] = scan_forms_timed(torch, f"plan_scan {label} ZAM_Over",
+                                        {"captured": run,
+                                         "uncaptured": twin},
+                                        lambda fn: fn(carry, ds), 12)
         planner.plan_scan(12, record=False)
         times = []
         for _ in range(5):
             t0 = time.time()
             planner.plan_scan(12, record=False)
             times.append(time.time() - t0)
-        log(f"plan_scan ms/cycle {label} ZAM_Over (12 cycles per call, warm, "
-            f"median of 5, host clock incl. readback): "
+        log(f"plan_scan ms/cycle {label} ZAM_Over (captured, 12 cycles per "
+            f"call, warm, median of 5, host clock incl. readback and the "
+            f"host's state reconstruction): "
             f"{statistics.median(times) / 12 * 1e3:.3f} "
             f"(min {min(times) / 12 * 1e3:.3f})")
-        run, carry = planner.scan_program(12)
-        ds = float(planner._desired_speed)
-        log(f"plan_scan {label} device busy share over 12 cycles: "
-            f"{device_busy_share(torch, lambda: run(carry, ds))}")
-    return dict(launches61=launches61, max_err61=max_err61, ms61=ms61,
-                plain_ms61=plain_ms61, bound61=bound61)
+    return dict(launches61=launches61, executions61=executions61,
+                max_err61=max_err61, ms61=ms61, dev61=dev61,
+                plain_ms61=plain_ms61, bound61=bound61, forms=forms)
+
+
+def scan_forms_timed(torch, label, forms, call, n_cycles, rounds=3):
+    """Warm wall time per cycle (host clock around a call and a
+    synchronize; each form once per turn, the order alternating) and the
+    device busy share of each form of a scan; logs them.  Returns {form:
+    (median ms/cycle, busy share text)}."""
+    for fn in forms.values():
+        call(fn)
+    torch.cuda.synchronize()
+    walls = {form: [] for form in forms}
+    order = list(forms)
+    for r in range(2 * rounds):
+        for form in (order if r % 2 == 0 else order[::-1]):
+            t0 = time.time()
+            call(forms[form])
+            torch.cuda.synchronize()
+            walls[form].append(time.time() - t0)
+    out = {}
+    for form, fn in forms.items():
+        ms = [w / n_cycles * 1e3 for w in walls[form]]
+        busy = device_busy_share(torch, lambda: call(fn))
+        out[form] = (statistics.median(ms), busy)
+        log(f"{label} {form}: {statistics.median(ms):.3f} ms/cycle (median "
+            f"of {len(ms)} warm calls of {n_cycles} cycles in turns, min "
+            f"{min(ms):.3f}, host clock and synchronize); device busy share "
+            f"{busy}")
+    return out
+
+
+def dev_text(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def candidate_fates(torch, inp, plain_out, chunk: int = 128):
@@ -928,7 +1223,11 @@ def candidate_fates(torch, inp, plain_out, chunk: int = 128):
 
 
 def phase_fleet1024(torch):
-    """8. The 1024-problem heterogeneous fleet at full width."""
+    """8. The 1024-problem heterogeneous fleet at full width: the captured
+    scan bit for bit its uncaptured twin (carry, metrics, member outcomes)
+    with one fleet-kernel execution per cycle and the JAX package's goal
+    counts; both forms' ms/cycle and busy share; the fleet kernel against
+    its plain version on the first cycle and their times."""
     from commonroad_rp_tpu_torch.ops import scoring
     from commonroad_rp_tpu_torch.run_fleet import (goal_counts,
                                                    heterogeneous_fleet,
@@ -942,40 +1241,42 @@ def phase_fleet1024(torch):
                                                         device="cuda",
                                                         root=HERE)
     run, K = make_scan(scene, cycles)
+    twin, _ = make_scan(scene, cycles, graph=False)
     log(f"fleet{F}: built in {time.time() - t0:.1f} s, K={K}, "
         f"{F * K} candidates per cycle")
 
-    scoring.score_candidates.launches = 0
-    scoring.score_fleet.launches = 0
-    t0 = time.time()
-    _, metrics = no_sync(torch, lambda: run(carry))
-    torch.cuda.synchronize()
-    first = time.time() - t0
-    n_launch = scoring.score_fleet.launches
-    check(n_launch == cycles and scoring.score_candidates.launches == 0,
-          f"fleet1024: {n_launch} fleet launches for {cycles} cycles")
-    walls = []
-    for _ in range(2):
-        t0 = time.time()
-        _, metrics = run(carry)
-        torch.cuda.synchronize()
-        walls.append(time.time() - t0)
-    wall = min(walls)
-    log(f"fleet1024: {cycles} cycles, {n_launch} fleet-kernel launches; "
-        f"first scan {first:.3f} s, warm {', '.join(f'{w:.3f}' for w in walls)}"
-        f" s; {F * K * cycles / wall:.6g} candidate-evals/s (warm, best of "
-        f"2), {wall / cycles * 1e3:.3f} ms/cycle")
+    got, want, launches = captured_and_twin(torch, f"fleet{F}", run, twin,
+                                            carry)
+    metrics = got[1]
+    check(launches == {"score_candidates": 0, "score_fleet": 2},
+          f"fleet1024: wrapper counts {launches}")
+    executions, names = kernel_executions(torch, lambda: run(carry),
+                                          FLEET_SCORE_KERNEL, cycles)
+    check(executions == cycles, f"fleet1024: {executions} fleet-kernel "
+          f"executions for {cycles} cycles ({names})")
+    forms = scan_forms_timed(torch, f"fleet{F} ({cycles} cycles)",
+                             {"captured": run, "uncaptured": twin},
+                             lambda fn: fn(carry), cycles, rounds=2)
+    for form, (ms, _) in forms.items():
+        log(f"fleet{F} {form}: {F * K / ms * 1e3:.6g} candidate-evals/s")
     outcomes = member_outcomes(metrics, goals, base_idx)
+    check(outcomes == member_outcomes(want[1], goals, base_idx),
+          "fleet1024: member outcomes differ between the forms")
     counts = goal_counts(metrics, goals, base_idx, outcomes=outcomes)
     for name, c in counts.items():
-        log(f"fleet1024 {name}: {c['reached']}/{c['total']} reached"
-            f"{', misses ' + str(c['misses']) if c['misses'] else ''} "
+        text = f"{c['reached']}/{c['total']}" + "".join(
+            f" ({n} {kind})" for kind, n in c["misses"].items())
+        log(f"fleet1024 {name}: {text} reached, captured and uncaptured "
             f"(JAX package on the TPU: {JAX_FLEET1024[name]})")
-    check(all(c["reached"] > 0 for c in counts.values()),
-          "fleet1024: a scenario reached no goal")
+        check(text == JAX_FLEET1024[name],
+              f"fleet1024 {name}: {text}, the JAX package "
+              f"{JAX_FLEET1024[name]}")
+    log(f"fleet1024: {executions} fleet-kernel executions in a traced "
+        f"call, member outcomes identical in both forms")
 
     inp = captured_operands(
-        lambda scorer: make_scan(scene, 1, scorer=scorer)[0](carry))
+        lambda scorer: make_scan(scene, 1, scorer=scorer,
+                                 graph=False)[0](carry))
     out_k = scoring.score_prepared(inp)
     out_p = scoring.score_prepared_reference(inp)
     torch.cuda.synchronize()
@@ -989,16 +1290,17 @@ def phase_fleet1024(torch):
         f"prefiltered or violating throughout {dead:.3f}")
     del out_p
     ms, plain_ms = time_prepared(torch, inp, 20, 3)
+    with uncounted():
+        dev_ms = device_kernel_ms(torch, lambda: scoring.score_prepared(inp),
+                                  "fleet_score_kernel")
     bound = scorer_bound(torch, inp)
-    log(f"time fleet F=1024: kernel {ms:.4f} ms "
-        f"({F * K / ms * 1e3:.6g} candidate-evals/s), plain {plain_ms:.4f} "
-        f"ms")
-    run3, _ = make_scan(scene, 3)
-    log(f"fleet1024 device busy share over a 3-cycle scan: "
-        f"{device_busy_share(torch, lambda: run3(carry))}")
-    return dict(launches=n_launch, max_err=max_err, ms=ms,
-                plain_ms=plain_ms, bound=bound, outcomes=outcomes,
-                trace=winner_trace(metrics),
+    log(f"time fleet F=1024: kernel {ms:.4f} ms per call (device time "
+        f"{dev_text(dev_ms)}; {F * K / ms * 1e3:.6g} candidate-evals/s), "
+        f"plain {plain_ms:.4f} ms")
+    return dict(launches=launches["score_fleet"], executions=executions,
+                max_err=max_err, ms=ms,
+                dev_ms=dev_ms, plain_ms=plain_ms, bound=bound,
+                outcomes=outcomes, trace=winner_trace(metrics),
                 cost=metrics[1].cpu().numpy(),
                 fleet=(scene, carry, goals, base_idx))
 
@@ -1298,11 +1600,10 @@ def phase_collision_kernel(torch):
                                      "obb_collision_kernel")
             p_dev = device_kernel_ms(
                 torch, lambda: ck.obb_collision_reference(*ops), "")
-            dev = lambda x: "not measured" if x is None else f"{x:.4f} ms"
             log(f"time collision {label}: T={T} K={K} M={M} kernel "
                 f"{k_ms:.4f} ms per obb_collision call, plain {p_ms:.4f} ms "
-                f"(CUDA events); device time of their kernels {dev(k_dev)} "
-                f"and {dev(p_dev)} (profiler)")
+                f"(CUDA events); device time of their kernels "
+                f"{dev_text(k_dev)} and {dev_text(p_dev)} (profiler)")
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).split(".")[-1]
         for label, ops in collision_cases(torch, dtype, "cuda").items():
@@ -1326,7 +1627,8 @@ def phase_conformance(torch):
     collision-kernel launch per level evaluation that has obstacles, plan()
     p50/p90 beside the same drives with the plain obstacle pass, and the
     four scenarios through ``segments`` and continuous ``plan_scan`` to
-    their goals without device reads between cycles."""
+    their goals without device reads between cycles, each scan captured
+    and bit for bit its uncaptured twin."""
     from commonroad_rp_tpu_torch.ops import collision as collision_ops
     from commonroad_rp_tpu_torch.ops import collision_kernel as ck
     from commonroad_rp_tpu_torch.ops import cycle as cycle_ops
@@ -1433,7 +1735,9 @@ def phase_conformance(torch):
             planner = make_planner(config, device="cuda")
             planner.set_desired_velocity(current_speed=planner.x_0.velocity)
             run, carry = planner.scan_program(cycles + 3)
-            no_sync(torch, lambda: run(carry, float(planner._desired_speed)))
+            twin, _ = planner.scan_program(cycles + 3, graph=False)
+            captured_and_twin(torch, f"plan_scan {key}={value} {name}", run,
+                              twin, carry, float(planner._desired_speed))
             planner.record_state_and_input(planner.x_0)
             info = planner.plan_scan(cycles + 3)
             log(f"plan_scan {key}={value} {name}: goal_reached="
@@ -1774,8 +2078,7 @@ def phase_xla_fleet(torch, fused):
         torch, ops)
     ck.obb_collision_fleet.launches = launches
     log(f"time fleet collision F={F}: kernel {ms:.4f} ms per "
-        f"obb_collision_fleet call (device time "
-        f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}), plain "
+        f"obb_collision_fleet call (device time {dev_text(dev_ms)}), plain "
         f"{plain_ms:.4f} ms (8 calls of 128 problems); bound {bound_ms:.6f} "
         f"ms by {bound_by} ({steps} evaluated steps, {headings} with their "
         f"heading computed, {pairs} live pairs, {full} full pair tests: the "
@@ -1859,15 +2162,19 @@ def phase_probe(torch):
         rounds = [{name: cuda_time_ms(torch, fn, KERNEL_REPS // 2)
                    for name, fn in timed.items()} for _ in range(4)]
     t = {name: statistics.median(r[name] for r in rounds) for name in timed}
+    with uncounted():
+        dev_ms = device_kernel_ms(torch, timed["kernel"], "trivial_kernel")
     bound_ms, bound_by = bound_of(3 * K, 8 * K + 12)
     log(f"time probe kernel K={K}: {t['kernel']:.4f} ms per "
         f"scoring.trivial_probe call, plain {t['plain']:.4f} ms, torch.add "
         f"{t['torch.add']:.4f} ms; floor: the same launch path with nothing "
         f"launched {t['empty call']:.4f} ms, the event pair alone "
-        f"{t['events alone']:.4f} ms; bound {bound_ms:.6f} ms by {bound_by} "
+        f"{t['events alone']:.4f} ms; device time of the kernel "
+        f"{dev_text(dev_ms)} (profiler); bound {bound_ms:.6f} ms by "
+        f"{bound_by} "
         f"(medians of 4 rounds of {KERNEL_REPS // 2} calls, taken in turns)")
     return dict(launches=launches, max_err=max_err, ms=t["kernel"],
-                plain_ms=t["plain"], library_ms=t["torch.add"],
+                dev_ms=dev_ms, plain_ms=t["plain"], library_ms=t["torch.add"],
                 bound_ms=bound_ms, bound_by=bound_by, phases=phases)
 
 
@@ -2090,8 +2397,10 @@ def phase_fleet_resume(torch, fused, cycles=150, device="cuda"):
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = scoring.score_fleet.launches
-    check(launches == cycles, f"fleet1024 resume: {launches} fleet launches "
-          f"for {cycles} cycles")
+    check(launches == 2 and half_run.replays == cycles,
+          f"fleet1024 resume: {launches} fleet launches (the warm-up's and "
+          f"the captured one) and {half_run.replays} replays for {cycles} "
+          "cycles")
     raw = lambda t: t.detach().cpu().numpy().tobytes()
     for field in FleetCarry._fields:
         check(raw(getattr(end_carry, field)) == raw(getattr(full_carry,
@@ -2107,7 +2416,8 @@ def phase_fleet_resume(torch, fused, cycles=150, device="cuda"):
           "fleet1024 resume: member outcomes differ")
     counts = goal_counts(resumed, goals, base_idx, outcomes=outcomes)
     log(f"fleet1024 resume: {half} + {half} cycles through {path.name} "
-        f"({path.stat().st_size} B), {launches} fleet launches, "
+        f"({path.stat().st_size} B), {launches} fleet launches and "
+        f"{half_run.replays} replays of the captured cycle, "
         f"{wall:.3f} s; final carry and {len(resumed)} metric rows "
         f"bit-identical to the {cycles}-cycle scan (whose member outcomes "
         f"{'equal' if outcomes == fused['outcomes'] else 'DIFFER FROM'} "
@@ -2254,25 +2564,29 @@ def phase_primitives_native(torch, device="cuda"):
         "points")
 
 
-def device_kernel_ms(torch, fn, name, reps=20):
+def device_kernel_ms(torch, fn, name, reps=20, attempts=5):
     """Device time (ms) per call of ``fn`` spent in the kernels whose name
     contains ``name`` (every kernel for ""): ``torch.profiler`` device
-    events over ``reps`` warm calls; None when the trace holds no such
-    event.  A named kernel, launched once per call, is timed as the mean of
-    the launches the trace kept (the profiler drops events now and then)."""
+    events over ``reps`` warm calls, the trace taken again (up to
+    ``attempts`` times) while it holds no such event; None when none did.
+    A named kernel, launched once per call, is timed as the mean of the
+    launches the trace kept (the profiler drops events now and then)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [evt for evt in prof.key_averages()
-               if evt.device_type == DeviceType.CUDA and name in evt.key]
-    device_us = sum(float(evt.self_device_time_total) for evt in kernels)
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [evt for evt in prof.key_averages()
+                   if evt.device_type == DeviceType.CUDA and name in evt.key]
+        device_us = sum(float(evt.self_device_time_total) for evt in kernels)
+        if device_us > 0:
+            break
     calls = sum(evt.count for evt in kernels) if name else reps
     return device_us / 1e3 / calls if device_us > 0 else None
 

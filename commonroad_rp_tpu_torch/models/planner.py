@@ -16,8 +16,9 @@ the output.  Two scoring paths, chosen by ``debug.fast_scoring`` and
 
 ``plan_scan(n)``: n replanning cycles of the fused path on the device
 (``parallel.replanning_scan.make_facade_replanning_scan``) with one readback
-at the end.  With ``debug.draw_traj_set`` and plots on, every cycle also
-stores its evaluated bundle in ``stored_trajectories`` for the plots
+at the end; on the card each call replays one captured cycle n times.
+With ``debug.draw_traj_set`` and plots on, every cycle also stores its
+evaluated bundle in ``stored_trajectories`` for the plots
 (``utils.visualization``).
 """
 
@@ -801,13 +802,17 @@ class ReactivePlanner:
     # device replanning loop (commonroad_rp_tpu models/planner.py:586-825)
     # ------------------------------------------------------------------
 
-    def scan_program(self, n_cycles: int, scorer=None):
+    def scan_program(self, n_cycles: int, scorer=None, graph: bool = True):
         """(run, carry) of the device loop ``plan_scan`` drives: ``run(carry,
         desired_speed)`` runs ``n_cycles`` cycles from the planner's current
         state and returns (carry, metrics) without reading the device.
-        Built scans are cached (LRU of 4) on everything they close over.
-        ``scorer`` replaces the scan's scoring function
-        (``ops.scoring.score_prepared``), e.g. by its plain version."""
+        Built scans are cached (LRU of 4) on everything they close over; a
+        built scan on the card holds its captured cycle and the graph's
+        memory pool (``parallel.replanning_scan.ScanProgram``), and
+        ``graph=False`` builds the uncaptured twin (the CPU runs eagerly
+        whatever ``graph`` says).  ``scorer`` replaces
+        the scan's scoring function (``ops.scoring.score_prepared``), e.g.
+        by its plain version."""
         check_fast_scope(self.config)
         assert self.x_0 is not None and self._co is not None
         if not self.x_0_cl:
@@ -881,7 +886,7 @@ class ReactivePlanner:
                      flags, longitudinal_mode, desired_s, s_window, lookahead,
                      factor, boundary_mode, continuous,
                      None if corridor_pin is None else id(corridor_pin),
-                     scorer)
+                     scorer, bool(graph))
         cache = self.__dict__.setdefault("_plan_scan_cache", OrderedDict())
         hit = cache.get(cache_key)
         if hit is not None and hit[1] is corridor_pin:
@@ -904,6 +909,7 @@ class ReactivePlanner:
                 boundary=self._cc.boundary if boundary_mode == "segments"
                 else None,
                 continuous=continuous, corridor_grids=corridor_grids,
+                graph=graph,
                 **({} if scorer is None else dict(scorer=scorer)))
             # LRU over the last few built scans: mode-alternating missions
             # (velocity keeping <-> stopping) must not rebuild per switch

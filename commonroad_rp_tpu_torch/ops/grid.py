@@ -71,13 +71,16 @@ def constant(values: tuple, dtype: torch.dtype,
     return torch.tensor(values, dtype=dtype, device=device)
 
 
-def upload_constants(grid, device, dtype=torch.float32) -> None:
+def upload_constants(grid, device, dtype=torch.float32) -> tuple:
     """Upload a StaticGrid's or CorridorGrid's static values once, before a
-    scan's loop, so that no cycle copies from the host."""
-    constant(grid.t_values, dtype, device)
-    constant(grid.traj_len, torch.int32, device)
+    scan's loop, so that no cycle copies from the host.  Returns the
+    tensors: a captured scan holds them for as long as its graph reads
+    them (the cache may drop them)."""
+    held = (constant(grid.t_values, dtype, device),
+            constant(grid.traj_len, torch.int32, device))
     if isinstance(grid, StaticGrid):
-        constant(grid.d_values, dtype, device)
+        held += (constant(grid.d_values, dtype, device),)
+    return held
 
 
 def linspace(start: torch.Tensor, stop: torch.Tensor, num: int) -> torch.Tensor:

@@ -817,7 +817,10 @@ def _launch(wrapper, entry, what, inp, args, out_shape):
     checks the operands ``inp`` (raises on what the kernels do not take),
     allocates the float32 output, calls the library's ``entry`` with
     ``args``, the output and the stream, checks the return code and counts
-    the launch on ``wrapper``."""
+    the launch on ``wrapper``.  Under a CUDA graph capture (a scan's first
+    call on the card) the launch is recorded, not run, and counts once;
+    the graph's replays run the kernel without this function and count
+    nothing: a captured scan's kernel executions come from the profiler."""
     _check_kernel_operands(inp, wrapper.__name__)
     out = inp.scalars.new_empty(out_shape)
     # the stream's handle without a torch.cuda.Stream object around it
@@ -881,7 +884,8 @@ def score_candidates(coeffs_lon, coeffs_lat, traj_len, goal_valid,
     for the fail-safe cost.
 
     CUDA inputs launch the kernel (``score_candidates.launches`` counts the
-    launches) and raise if it cannot be built or launched; CPU inputs run
+    wrapper's launches, eager or captured, not the replays of a captured
+    scan) and raise if it cannot be built or launched; CPU inputs run
     :func:`score_candidates_reference`.
     """
     return score_prepared(prepare_inputs(
@@ -908,7 +912,8 @@ def score_fleet(coeffs_lon, coeffs_lat, traj_len, goal_valid, packed_tables,
     fail-safe cost in the fleet.
 
     CUDA inputs launch the fleet kernel (``score_fleet.launches`` counts the
-    launches) and raise if it cannot be built or launched; CPU inputs run
+    wrapper's launches, eager or captured, not the replays of a captured
+    scan) and raise if it cannot be built or launched; CPU inputs run
     :func:`score_fleet_reference`.
     """
     return score_prepared(prepare_fleet_inputs(

@@ -13,13 +13,19 @@ Counterpart of ``commonroad_rp_tpu/parallel/pallas_fleet.py``:
 Each cycle generates its candidate grids on the device around the carried
 state, scores them in one kernel launch, selects the winner by argmin, and
 re-rolls only the winner (K = 1 per problem) through ``kinematics.rollout``
-to advance the carry.  ``lax.scan`` becomes a Python loop over cycles that
-never reads the device: every per-cycle value stays a device tensor, the
-metrics are stacked on the device after the loop, and the constant operands
-(packed tables, scalar rows, obstacle tables) are built once before it.
-The obstacle window reproduces ``dynamic_slice``'s clamp: the window starts
-at the carried time step clamped to [0, T_table - T], and a step is valid
-only while the unclamped step is inside the prediction span.
+to advance the carry.  The jitted ``lax.scan`` becomes a
+:class:`ScanProgram`: the carry lives in static buffers, each cycle writes
+its metrics into preallocated [n_cycles, ...] buffers at a device-side
+cycle counter, and no cycle reads the device.  On a CUDA device the program
+captures one cycle as a CUDA graph at its first call and replays it
+``n_cycles`` times per call, so the host does no per-cycle work, as the JAX
+scan's one dispatch does; ``graph=False`` runs the same cycles eagerly (the
+twin the captured scan is held against), and the CPU always runs them
+eagerly.  The constant operands (packed tables, scalar rows, obstacle
+tables, grid constants) are built once before the first cycle.  The
+obstacle window reproduces ``dynamic_slice``'s clamp: the window starts at
+the carried time step clamped to [0, T_table - T], and a step is valid only
+while the unclamped step is inside the prediction span.
 
 ``scorer`` is the scoring function on prepared operands: by default
 ``ops.scoring.score_prepared`` (the CUDA kernels on the card, the plain
@@ -33,9 +39,10 @@ candidates, in selection order, are re-rolled and checked at once, and the
 colliding ones are masked before the selection (``refine_cheapest``).
 ``make_fleet_scan(mesh=group)`` runs one rank's slice of the fleet under a
 ``torch.distributed`` process group (``parallel.mesh``), its three per-cycle
-aggregates summed by ``parallel.mesh.fleet_all_reduce``.  A CUDA graph over
-the cycle is performance work for after the port (ROADMAP, "Post-port
-work").
+aggregates summed by ``parallel.mesh.fleet_all_reduce``; it stays uncaptured
+(a captured collective needs a multi-card run to be held against).  The
+dense XLA fleet rollout (``parallel.fleet``) and ``plan()``, whose
+obstacle count and level shapes change per call, are not captured either.
 """
 
 from __future__ import annotations
@@ -179,6 +186,116 @@ def _window(table, rows):
     return table[:, rows]
 
 
+class ScanProgram:
+    """``run(carry, *args) -> (carry, metrics)``: ``n_cycles`` cycles of a
+    scan in buffered form, the counterpart of the JAX package's jitted
+    ``lax.scan`` (pallas_fleet.py:135-136, :354-382, :737-738).
+
+    ``cycle(carry) -> (new carry, metrics)`` reads the static carry
+    buffers; each step writes every metric into its preallocated
+    [n_cycles, ...] buffer at a device-side cycle counter (``index_copy_``
+    at a 0-d index), copies the new carry into the static buffers and
+    advances the counter, so that steps chain without the host.  The same
+    step runs three ways:
+
+    * on a CUDA device (``graph=True``, the default): the first call runs
+      one warm-up step on a side stream (it builds the kernels and raises
+      their shared-memory limits before the capture, as PyTorch requires),
+      then captures one step as a CUDA graph in the graph's own memory
+      pool; every call replays the graph ``n_cycles`` times (``replays``
+      counts them).  A capture or a replay that fails raises: nothing falls
+      back to the eager loop;
+    * on a CUDA device with ``graph=False``: the same steps eagerly, one
+      dispatch per op (the twin the captured scan is held against);
+    * on the CPU, whatever ``graph`` says: eagerly (``self.graph`` is then
+      False).
+
+    Each call copies the caller's carry into the static buffers, runs
+    ``prepare(*args)`` (the facade scan writes its desired speed into its
+    scalar row there) and resets the counter; it returns clones, so the
+    caller never holds memory that the next call overwrites.  ``keep``
+    holds tensors a cycle reads that nothing else keeps alive for the
+    graph's life (the grids' cached constants).
+    """
+
+    def __init__(self, cycle, n_cycles: int, device, graph: bool = True,
+                 keep=(), prepare=None):
+        device = torch.device(device)
+        self.cycle = cycle
+        self.n_cycles = n_cycles
+        self.device = device
+        self.graph = bool(graph) and device.type == "cuda"
+        self.replays = 0
+        self._keep = tuple(keep)
+        self._prepare = prepare
+        self._carry = None
+        self._outputs = None
+        self._counter = torch.zeros((), dtype=torch.int64, device=device)
+        self._graph = None
+
+    def _load(self, carry):
+        """The caller's carry into the static buffers, the counter to 0."""
+        if self._carry is None:
+            self._carry = type(carry)(*(torch.empty_like(x, device=self.device)
+                                        for x in carry))
+        for name, static, x in zip(carry._fields, self._carry, carry):
+            if x.shape != static.shape or x.dtype != static.dtype:
+                raise ValueError(
+                    f"carry field {name}: {tuple(x.shape)} {x.dtype}, the "
+                    f"program was built for {tuple(static.shape)} "
+                    f"{static.dtype}")
+            static.copy_(x)
+        self._counter.zero_()
+
+    def _step(self):
+        new_carry, metrics = self.cycle(self._carry)
+        if self._outputs is None:
+            self._outputs = tuple(m.new_empty((self.n_cycles,) + m.shape)
+                                  for m in metrics)
+        for out, m in zip(self._outputs, metrics):
+            out.index_copy_(0, self._counter, m.unsqueeze(0))
+        for name, static, new in zip(new_carry._fields, self._carry,
+                                     new_carry):
+            if new.shape != static.shape or new.dtype != static.dtype:
+                raise ValueError(
+                    f"the cycle turns carry field {name} into "
+                    f"{tuple(new.shape)} {new.dtype}, from "
+                    f"{tuple(static.shape)} {static.dtype}")
+            static.copy_(new)
+        self._counter.add_(1)
+
+    def _capture(self):
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self._step()
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._step()
+        self._graph = graph
+
+    def __call__(self, carry, *args):
+        self._load(carry)
+        if self._prepare is not None:
+            self._prepare(*args)
+        if self.n_cycles == 0:
+            return type(carry)(*(x.clone() for x in self._carry)), ()
+        if not self.graph:
+            for _ in range(self.n_cycles):
+                self._step()
+        else:
+            with torch.cuda.device(self.device):
+                if self._graph is None:
+                    self._capture()
+                    self._load(carry)
+                for _ in range(self.n_cycles):
+                    self._graph.replay()
+                    self.replays += 1
+        return (type(carry)(*(x.clone() for x in self._carry)),
+                tuple(out.clone() for out in self._outputs))
+
+
 def window_obstacle_arrays(obs: torch.Tensor, poly, half_ext: torch.Tensor,
                            radius, n_poly_verts: int) -> ObstacleArrays:
     """One cycle's obstacle window as ObstacleArrays (the continuous pass's
@@ -209,10 +326,11 @@ def make_replanning_scan(ref: frenet_ops.RefPathTables,
                          dt: float, n_steps: int, replan_offset: int,
                          low_vel_threshold: float, horizon: float,
                          desired_speed: float, n_cycles: int,
-                         scorer=scoring.score_prepared):
+                         scorer=scoring.score_prepared, graph: bool = True):
     """``run(carry: ReplanningCarry) -> (carry, metrics)`` running
     ``n_cycles`` fused-scorer cycles of one problem; metrics (found, cost,
-    x, y), each [n_cycles]."""
+    x, y), each [n_cycles].  ``run`` is a :class:`ScanProgram`: on a CUDA
+    device it replays a captured cycle unless ``graph=False``."""
     device = ref.s.device
     T = n_steps + 1
     ref32 = _f32_tensors(ref)
@@ -228,7 +346,7 @@ def make_replanning_scan(ref: frenet_ops.RefPathTables,
     goal_valid = torch.ones(static_grid.size, dtype=_F32, device=device)
     no_obs = torch.zeros((0, T, scoring._OBS_COLS), dtype=_F32, device=device)
     no_poly = torch.zeros((0, T, 3), dtype=_F32, device=device)
-    grid_ops.upload_constants(static_grid, device)
+    held = grid_ops.upload_constants(static_grid, device)
     r = replan_offset
 
     def cycle(carry: ReplanningCarry):
@@ -269,19 +387,7 @@ def make_replanning_scan(ref: frenet_ops.RefPathTables,
             alive=alive)
         return new_carry, (found, best_cost, ro.x[0, r], ro.y[0, r])
 
-    def run(carry: ReplanningCarry):
-        return _loop(cycle, carry, n_cycles)
-
-    return run
-
-
-def _loop(cycle, carry, n_cycles):
-    """``lax.scan`` as a Python loop: metrics stacked after the loop."""
-    metrics = []
-    for _ in range(n_cycles):
-        carry, m = cycle(carry)
-        metrics.append(m)
-    return carry, tuple(torch.stack(column) for column in zip(*metrics))
+    return ScanProgram(cycle, n_cycles, device, graph, keep=held)
 
 
 # ---------------------------------------------------------------------------
@@ -295,7 +401,7 @@ def make_fleet_scan(scene: FleetScene, static_grid: grid_ops.StaticGrid,
                     longitudinal_mode: str = "velocity_keeping",
                     desired_s=None, s_window=None, w_a: float = 5.0,
                     standstill_lookahead: int = 10,
-                    scorer=scoring.score_prepared):
+                    scorer=scoring.score_prepared, graph: bool = True):
     """Fleet replanning scan on the fused fleet scorer.
 
     Takes a :class:`parallel.fleet.FleetScene` and returns
@@ -321,12 +427,19 @@ def make_fleet_scan(scene: FleetScene, static_grid: grid_ops.StaticGrid,
     group by three one-element ``fleet_all_reduce`` calls per cycle (the JAX
     scan's ``psum``, pallas_fleet.py:335-343); the mean divides by the
     global found count, at least 1.
+
+    ``run`` is a :class:`ScanProgram`: on a CUDA device it replays a
+    captured cycle unless ``graph=False``.  Under a group the scan runs
+    uncaptured whatever ``graph`` says: a captured collective is not held
+    against a multi-card run.
     """
     stopping = longitudinal_mode == "stopping"
     if longitudinal_mode not in ("velocity_keeping", "stopping"):
         raise ValueError(f"unknown longitudinal mode {longitudinal_mode!r}")
     if stopping and (desired_s is None or s_window is None):
         raise ValueError("stopping mode requires desired_s and s_window")
+    if mesh is not None:
+        graph = False
 
     device = scene.ref.s.device
     T = n_steps + 1
@@ -372,7 +485,7 @@ def make_fleet_scan(scene: FleetScene, static_grid: grid_ops.StaticGrid,
     flags = scoring._flags((True,) * 5, stopping, True)
     ones = torch.ones((F, K), dtype=_F32, device=device)
     inf = torch.full((), np.inf, dtype=_F32, device=device)
-    grid_ops.upload_constants(static_grid, device)
+    held = grid_ops.upload_constants(static_grid, device)
     lookahead = min(standstill_lookahead, n_steps)
     r = replan_offset
 
@@ -478,10 +591,7 @@ def make_fleet_scan(scene: FleetScene, static_grid: grid_ops.StaticGrid,
                    n_kin_infeasible, n_colliding, new_theta, new_v)
         return new_carry, metrics
 
-    def run(carry: FleetCarry):
-        return _loop(cycle, carry, n_cycles)
-
-    return run
+    return ScanProgram(cycle, n_cycles, device, graph, keep=held)
 
 
 # ---------------------------------------------------------------------------
@@ -542,7 +652,8 @@ def make_facade_replanning_scan(ref: frenet_ops.RefPathTables,
                                 boundary=None,
                                 continuous: bool = False,
                                 corridor_grids: tuple | None = None,
-                                scorer=scoring.score_prepared):
+                                scorer=scoring.score_prepared,
+                                graph: bool = True):
     """The loop behind ``ReactivePlanner.plan_scan``: ``n_cycles`` fused
     level-escalated planning cycles, none of which reads the device.
 
@@ -582,7 +693,10 @@ def make_facade_replanning_scan(ref: frenet_ops.RefPathTables,
     states [C, 14, replan_offset + 1] -- CANDIDATE_FIELDS rows for offsets
     0..replan_offset of each cycle's winner, reselections [C] -- winners the
     refinement masked, refine_overflow [C] -- the refinement needed more
-    than ``REFINE_WIDTH`` re-selections).
+    than ``REFINE_WIDTH`` re-selections).  ``run`` is a
+    :class:`ScanProgram`: on a CUDA device it replays a captured cycle
+    unless ``graph=False``; a run's ``desired_speed`` (None: the build's) is
+    written into the scan's static scalar row before the first cycle.
     """
     device = ref.s.device
     T = n_steps + 1
@@ -612,8 +726,8 @@ def make_facade_replanning_scan(ref: frenet_ops.RefPathTables,
     level_ids = torch.as_tensor(np.concatenate(
         [np.full(k, j, np.int32) for j, k in enumerate(sizes)]),
         device=device)
-    for g in corridor_grids or static_grids:
-        grid_ops.upload_constants(g, device)
+    held = tuple(t for g in corridor_grids or static_grids
+                 for t in grid_ops.upload_constants(g, device))
     d_values = [grid_ops.constant(g.d_values, _F32, device)
                 for g in static_grids or ()]
 
@@ -636,10 +750,11 @@ def make_facade_replanning_scan(ref: frenet_ops.RefPathTables,
     no_overflow = torch.zeros((), dtype=torch.bool, device=device)
 
     f32 = lambda x: float(np.float32(x))
-    template = _scan_scalar_row(veh32, dt, f32(desired_speed),
-                                f32(desired_d), f32(w_a), ref_s_last,
-                                f32(desired_s) if stopping else None,
-                                packed[0, 0])
+    # the scalar row the cycles read; each run writes its desired speed
+    scalars_run = _scan_scalar_row(veh32, dt, f32(desired_speed),
+                                   f32(desired_d), f32(w_a), ref_s_last,
+                                   f32(desired_s) if stopping else None,
+                                   packed[0, 0])
     slots = torch.tensor(_DYNAMIC_SLOTS, device=device)
     flags = scoring._flags(constraint_flags, stopping, True)
     if stopping:
@@ -649,7 +764,7 @@ def make_facade_replanning_scan(ref: frenet_ops.RefPathTables,
     offsets = torch.arange(r + 1, device=device)
     cv, ck_v, ck, ckd, cy = constraint_flags
 
-    def cycle(carry: FacadeScanCarry, scalars_run):
+    def cycle(carry: FacadeScanCarry):
         v_min = torch.clamp(carry.velocity - 0.125 * horizon * veh32.a_max,
                             min=0.0)
         v_max = torch.maximum(v_min + 5.0, carry.velocity + 2.0)
@@ -762,13 +877,12 @@ def make_facade_replanning_scan(ref: frenet_ops.RefPathTables,
         return new_carry, (step_alive, best_cost, n_inf_kin, n_coll, states,
                            reselections, overflow)
 
-    def run(carry: FacadeScanCarry, desired_speed_val: float | None = None):
-        scalars_run = template
-        if desired_speed_val is not None:
-            # the desired speed varies per run (velocity-tracking missions)
-            # without rebuilding the scan: a fill, not a host copy
-            scalars_run = template.clone()
-            scalars_run[scoring._S_DESIRED_V].fill_(f32(desired_speed_val))
-        return _loop(lambda c: cycle(c, scalars_run), carry, n_cycles)
+    def prepare(desired_speed_val: float | None = None):
+        # the desired speed varies per run (velocity-tracking missions)
+        # without rebuilding the scan: a fill, not a host copy
+        scalars_run[scoring._S_DESIRED_V].fill_(f32(
+            desired_speed if desired_speed_val is None
+            else desired_speed_val))
 
-    return run
+    return ScanProgram(cycle, n_cycles, device, graph, keep=held,
+                       prepare=prepare)

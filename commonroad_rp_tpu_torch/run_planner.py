@@ -4,18 +4,22 @@ The replanning loop of the reference's run script (reference:
 run_planner.py:53-115) on the PyTorch planner: on the host, one ``plan()``
 per cycle (default), or on the device, chunks of cycles per ``plan_scan``
 (``--scan``), or a stop-at-goal mission through ``plan_scan`` only
-(``--mission``).  ``--dtype float64`` plans through the float64 conformance
-level program instead of the fused float32 scorer, ``--evaluate`` runs
-the physics certificate (``utils.evaluation.run_evaluation``) on the driven
-states, and ``--plot`` saves the final-trajectory plot to the configuration's
-output directory (``output/`` by default).  Usage, from the repository
-root:
+(``--mission``).  ``--sampling-iteration-outside`` escalates the sampling
+levels in the loop instead of inside ``plan()``: ``plan(level)`` from level
+1 up until one finds a trajectory (the reference's run script, its
+``sampling_iteration_outside`` mode).  ``--dtype float64`` plans through
+the float64 conformance level program instead of the fused float32
+scorer, ``--evaluate`` runs the physics certificate
+(``utils.evaluation.run_evaluation``) on the driven states, and ``--plot``
+saves the final-trajectory plot to the configuration's output directory
+(``output/`` by default).  Usage, from the repository root:
 
     python -m commonroad_rp_tpu_torch.run_planner [--scenario ZAM_Over-1_1]
                                                   [--device cuda|cpu]
                                                   [--dtype float32|float64]
                                                   [--max-steps N]
                                                   [--scan] [--mission]
+                                                  [--sampling-iteration-outside]
                                                   [--stop-at DS]
                                                   [--evaluate] [--plot]
 """
@@ -58,13 +62,17 @@ def make_planner(config, device="cuda"):
 
 
 def drive_to_goal(planner, max_steps: int = 300, on_step=None,
-                  stop_s: float = None) -> dict:
+                  stop_s: float = None,
+                  sampling_iteration_outside: bool = False) -> dict:
     """The reference's replanning loop (run_planner.py:61-107): plan every
     ``replanning_frequency`` steps, follow the previous optimum in between,
     and reset with the carried collision checker and coordinate system.
     With ``stop_s`` every cycle plans in stopping mode toward that arclength
-    and the loop ends when the vehicle halts.  Returns goal_reached, steps,
-    plan_calls and the planning times."""
+    and the loop ends when the vehicle halts.  With
+    ``sampling_iteration_outside`` the loop escalates the sampling levels
+    itself (run_planner.py:72-75): ``plan(level)`` from level 1 up until one
+    returns a trajectory.  Returns goal_reached, steps, plan_calls and the
+    planning times."""
     logger = logging.getLogger("RP_LOGGER")
     freq = planner.config.planning.replanning_frequency
     planner.record_state_and_input(planner.x_0)
@@ -85,8 +93,16 @@ def drive_to_goal(planner, max_steps: int = 300, on_step=None,
             else:
                 planner.set_desired_velocity(
                     current_speed=planner.x_0.velocity)
-            optimal = planner.plan()
-            plan_calls += 1
+            if sampling_iteration_outside:
+                optimal = None
+                level = 1
+                while optimal is None and level < planner.sampling_level:
+                    optimal = planner.plan(level)
+                    plan_calls += 1
+                    level += 1
+            else:
+                optimal = planner.plan()
+                plan_calls += 1
             if not optimal:
                 logger.error("Planner returned no trajectory — stopping")
                 break
@@ -276,6 +292,11 @@ def main(argv=None):
                         help="drive the replanning loop as plan_scan "
                              "dispatches of 12 cycles each, with no device "
                              "readback between the cycles of a dispatch")
+    parser.add_argument("--sampling-iteration-outside", action="store_true",
+                        help="escalate the sampling levels in the loop: "
+                             "plan(level) from level 1 up until one finds "
+                             "a trajectory (the reference run script's "
+                             "mode; host loop only)")
     parser.add_argument("--stop-at", type=float, default=None, metavar="DS",
                         help="stopping mode: plan to a halt DS meters ahead "
                              "along the reference path (the loop ends when "
@@ -293,6 +314,9 @@ def main(argv=None):
     from commonroad_rp_tpu_torch.utils.logger import initialize_logger
 
     config = load_config(args.scenario)
+    if args.sampling_iteration_outside and (args.scan or args.mission):
+        parser.error("--sampling-iteration-outside drives the host loop; "
+                     "drop --scan and --mission")
     if args.dtype == "float64" and (args.scan or args.mission):
         parser.error("--scan and --mission run the fused float32 scorer; "
                      "drop --dtype float64")
@@ -345,7 +369,8 @@ def main(argv=None):
         result = drive_to_goal(
             planner, args.max_steps, stop_s=stop_s,
             on_step=lambda count: print(f"current time step: {count}",
-                                        flush=True))
+                                        flush=True),
+            sampling_iteration_outside=args.sampling_iteration_outside)
         n_cycles = result["plan_calls"]
     wall = time.time() - t_start
     reached = result["goal_reached"]

@@ -1,6 +1,7 @@
 """The CUDA kernels (scorers, OBB collision in both forms, the probe kernel)
-against their plain PyTorch versions, the conformance level program and the
-XLA fleet path, on the card.
+against their plain PyTorch versions, the captured replanning scans against
+their uncaptured twins, the conformance level program and the XLA fleet
+path, on the card.
 
 Marked ``gpu``: without a card every test skips.  On a machine with one,
 run (from the repository root; no JAX needed):
@@ -27,6 +28,70 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (torch.cuda.is_available() is false)")
     return torch.device("cuda")
+
+
+def test_largest_table_through_captured_scan(cuda):
+    """The F=12 fleet's scan with its tables padded to the most rows a
+    scorer block's shared memory holds: captured == uncaptured bit for
+    bit, and the padding changes no found flag.  The warm-up cycle raises
+    the kernel's shared-memory limit past 48 KB (``cudaFuncSetAttribute``)
+    before the capture only where no earlier call in the process raised
+    it: this module runs it first, and ``chip_smoke.py`` phase 6 runs the
+    same check before any other launch at that size."""
+    scene, carry, _, _ = heterogeneous_fleet(12, 3, device=cuda)
+    padded = chip_smoke.padded_fleet_scene(
+        torch, scene, chip_smoke.largest_table_rows(scene))
+    run, twin = (make_scan(padded, 3, graph=g)[0] for g in (True, False))
+    got, _, counts = chip_smoke.captured_and_twin(torch, "largest table",
+                                                  run, twin, carry)
+    assert counts == {"score_candidates": 0, "score_fleet": 2}
+    _, metrics = make_scan(scene, 3)[0](carry)
+    assert torch.equal(got[1][0], metrics[0])
+
+
+def _facade_forms(n_cycles, n_steps=None):
+    config = load_config("ZAM_Over-1_1")
+    if n_steps is not None:
+        config.planning.time_steps_computation = n_steps
+    planner = make_planner(config, "cuda")
+    planner.set_desired_velocity(current_speed=planner.x_0.velocity)
+    run, carry = planner.scan_program(n_cycles)
+    twin, _ = planner.scan_program(n_cycles, graph=False)
+    return run, twin, carry, (float(planner._desired_speed),)
+
+
+def _scan_forms(which, cuda):
+    """(captured program, uncaptured twin, carry, run arguments)."""
+    if which == "plan_scan T=21":
+        return _facade_forms(9)
+    if which == "plan_scan T=61":
+        return _facade_forms(12, n_steps=60)
+    if which == "fleet F=12":
+        scene, carry, _, _ = heterogeneous_fleet(12, 10, device=cuda)
+        return (make_scan(scene, 10)[0], make_scan(scene, 10, graph=False)[0],
+                carry, ())
+    run, carry = chip_smoke.single_problem_scan(torch, 4, cuda)
+    twin, _ = chip_smoke.single_problem_scan(torch, 4, cuda, graph=False)
+    return run, twin, carry, ()
+
+
+@pytest.mark.parametrize("which", ["plan_scan T=21", "plan_scan T=61",
+                                   "fleet F=12", "single problem"])
+def test_captured_scan_equals_uncaptured(cuda, which):
+    """The default program on the card replays a captured cycle (its replay
+    counter) and gives the uncaptured twin's carry, metrics and recorded
+    states bit for bit, in a first and a warm call; a third call, from
+    where the first ended and (``plan_scan``) at a desired speed 2 m/s
+    above the captured one, replays again and still equals the twin at
+    that speed."""
+    run, twin, carry, args = _scan_forms(which, cuda)
+    got, _, _ = chip_smoke.captured_and_twin(torch, which, run, twin, carry,
+                                             *args)
+    faster = tuple(ds + 2.0 for ds in args)
+    again = run(got[0], *faster)
+    assert run.replays == 3 * run.n_cycles
+    chip_smoke.assert_bit_identical(torch, which, again,
+                                    twin(got[0], *faster))
 
 
 def _kernel_vs_plain(label, args, kwargs):
@@ -83,7 +148,8 @@ def fleet12(cuda):
 def test_fleet_kernel_matches_plain_first_cycle(fleet12):
     scene, carry = fleet12
     inp = chip_smoke.captured_operands(
-        lambda scorer: make_scan(scene, 1, scorer=scorer)[0](carry))
+        lambda scorer: make_scan(scene, 1, scorer=scorer,
+                                        graph=False)[0](carry))
     before = scoring.score_fleet.launches
     out_k = scoring.score_prepared(inp)
     out_p = scoring.score_prepared_reference(inp)
@@ -99,7 +165,9 @@ def test_fleet_scan_kernel_matches_plain_without_device_reads(fleet12):
     run_p, _ = make_scan(scene, 5, scorer=scoring.score_prepared_reference)
     before = scoring.score_fleet.launches
     final_k, metrics_k = chip_smoke.no_sync(torch, lambda: run_k(carry))
-    assert scoring.score_fleet.launches == before + 5
+    # the warm-up cycle's launch and the captured one; 5 replays
+    assert scoring.score_fleet.launches == before + 2
+    assert run_k.replays == 5
     final_p, metrics_p = run_p(carry)
     assert torch.equal(metrics_k[0], metrics_p[0])
     torch.testing.assert_close(final_k.x0_lon, final_p.x0_lon, rtol=0,
@@ -109,7 +177,8 @@ def test_fleet_scan_kernel_matches_plain_without_device_reads(fleet12):
 def test_fleet_kernel_rejects_bad_operands(fleet12):
     scene, carry = fleet12
     inp = chip_smoke.captured_operands(
-        lambda scorer: make_scan(scene, 1, scorer=scorer)[0](carry))
+        lambda scorer: make_scan(scene, 1, scorer=scorer,
+                                        graph=False)[0](carry))
     with pytest.raises(ValueError):
         scoring.score_prepared(inp._replace(
             coeffs_lon=inp.coeffs_lon.transpose(0, 1)))
@@ -141,7 +210,8 @@ def test_shared_memory_size_and_limit_are_the_library_s(fleet12):
     padded to the limit."""
     scene, carry = fleet12
     inp = chip_smoke.captured_operands(
-        lambda scorer: make_scan(scene, 1, scorer=scorer)[0](carry))
+        lambda scorer: make_scan(scene, 1, scorer=scorer,
+                                        graph=False)[0](carry))
     out_p = scoring.score_prepared_reference(inp)
     lib = scoring._library()
     P, (M, T) = inp.tables.shape[1], inp.obs.shape[1:3]
@@ -157,13 +227,22 @@ def test_shared_memory_size_and_limit_are_the_library_s(fleet12):
 
 
 def test_plan_scan_on_card_one_launch_per_cycle(cuda):
+    """``plan_scan`` takes the cached captured program; the wrapper counts
+    the warm-up's launch and the captured one, the profiler one
+    ``score_kernel`` execution per cycle of a replayed call."""
     planner = make_planner(load_config("ZAM_Over-1_1"), "cuda")
     planner.set_desired_velocity(current_speed=planner.x_0.velocity)
+    run, carry = planner.scan_program(9)
     planner.record_state_and_input(planner.x_0)
     scoring.score_candidates.launches = 0
     info = planner.plan_scan(9)
     assert info["goal_reached"] and info["steps"] == 27
-    assert scoring.score_candidates.launches == info["cycles_run"] == 9
+    assert run.graph and run.replays == info["cycles_run"] == 9
+    assert scoring.score_candidates.launches == 2
+    count, names = chip_smoke.kernel_executions(
+        torch, lambda: run(carry, float(planner._desired_speed)),
+        chip_smoke.SCORE_KERNEL, 9)
+    assert count == 9, names
 
 
 def _collision_kernel_vs_plain(ops):

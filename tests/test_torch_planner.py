@@ -201,3 +201,62 @@ def test_device_defaults_and_explicit_cuda(repo_root):
     assert planner.device.type == "cpu"
     planner.set_desired_velocity(current_speed=planner.x_0.velocity)
     assert planner.plan() is not None
+
+
+def _jax_run_script_levels_outside(planner, x0_cl, n_steps):
+    """The JAX run script's loop with ``--sampling-iteration-outside``
+    (run_planner.py:313-355, the per-level escalation at :331-338) for
+    ``n_steps`` steps; returns the driven states."""
+    planner.x_0_cl = x0_cl
+    planner.record_state_and_input(planner.x_0)
+    freq = planner.config.planning.replanning_frequency
+    optimal = None
+    while len(planner.record_state_list) - 1 < n_steps:
+        count = len(planner.record_state_list) - 1
+        if count % freq == 0:
+            planner.set_desired_velocity(current_speed=planner.x_0.velocity)
+            optimal = None
+            level = 1
+            while optimal is None and level < planner.sampling_level:
+                optimal = planner.plan(level)
+                level += 1
+            assert optimal
+            offset = 1
+        else:
+            offset = 1 + count % freq
+        planner.record_state_and_input(optimal[0].state_list[offset])
+        planner.reset(initial_state_cart=planner.record_state_list[-1],
+                      initial_state_curv=(optimal[2][offset],
+                                          optimal[3][offset]),
+                      collision_checker=planner.collision_checker,
+                      coordinate_system=planner.coordinate_system)
+    return planner.record_state_list
+
+
+def test_sampling_iteration_outside_matches_jax_run_script(repo_root):
+    """``drive_to_goal(sampling_iteration_outside=True)`` (the port's
+    ``--sampling-iteration-outside``) selects the JAX run script's states over
+    the first 3 replanning cycles of ZAM_Over-1_1, from the same
+    curvilinear initial state, at the bar of the plan() comparison above
+    (atol 1e-4)."""
+    jax_planner = _jax_planner(repo_root)
+    x0_cl = jax_planner._compute_initial_states(jax_planner.x_0)
+    port = make_planner(load_config(SCENARIO, repo_root), device="cpu")
+    n_steps = N_CYCLES * port.config.planning.replanning_frequency
+    want = _jax_run_script_levels_outside(jax_planner, x0_cl, n_steps)
+    port.x_0_cl = x0_cl
+    levels = []
+    plan = port.plan
+    port.plan = lambda level=None: (levels.append(level), plan(level))[1]
+    result = drive_to_goal(port, max_steps=n_steps,
+                           sampling_iteration_outside=True)
+    got = port.record_state_list
+    assert result["steps"] == len(want) - 1 == n_steps
+    # every cycle asked for a level: the loop escalated, not plan()
+    assert len(levels) == result["plan_calls"] >= N_CYCLES
+    assert None not in levels
+    for field in ("position", "velocity", "orientation"):
+        np.testing.assert_allclose(
+            np.array([getattr(s, field) for s in got], float),
+            np.array([getattr(s, field) for s in want], float), rtol=0,
+            atol=1e-4, err_msg=field)
