@@ -16,11 +16,20 @@ Phases (any failure raises and ends the run with a non-zero exit code):
    OBB, disc and polygon obstacles at T=21 and T=61;
 4. the main path: ``ReactivePlanner(device="cuda")`` drives ZAM_Over-1_1
    (and the other three bundled scenarios) through the host replanning loop
-   to the goal in the JAX fast path's step counts; the kernel's launch count
-   must equal the number of ``plan()`` calls, and the first cycle's winner
-   must match the CPU plain-version planner on the same inputs;
+   to the goal in the JAX fast path's step counts, each ``plan()`` one
+   replay of the captured fused level program (``ops.level_program``), bit
+   for bit the uncaptured twin's drive (``graph=False``: states, costs,
+   counters, reason dicts); the scorer wrapper counts the warm-up's launch
+   and the captured one per built program, and a warm drive executes
+   ``score_kernel`` once per ``plan()`` call (profiler) and reads the
+   device once per call; a replay at a desired speed 2 m/s higher equals
+   the twin at that speed; each built program's first-call cost (warm-up
+   and capture) and reserved memory; the first cycle's winner must match
+   the CPU plain-version planner on the same inputs;
 5. times: kernel and plain version at both shapes (CUDA events, warm,
-   medians), and ``plan()`` p50/p90 over the drives' calls;
+   medians), and ``plan()`` p50/p90 of both forms over the drives' calls,
+   two rounds in turns, with the planner's stage timers and the device busy
+   share of 20 ``plan()`` calls in each form;
 6. the fleet kernel against its plain version on the card: the 12-problem
    fleet (4 scenarios x 3 vehicle types, level 3, T=21), first cycle, at
    the bar of phase 3; its 3-cycle scan with the tables padded to the most
@@ -67,9 +76,12 @@ Phases (any failure raises and ends the run with a non-zero exit code):
    kernel per ``obb_collision`` call; kernel and plain times;
 10. the conformance level program (``kernel_dtype: float64``) on the card:
    the four first-cycle goldens of tests/test_precision_and_golden.py, the
-   four drives to their goals in 27/35/44/146 steps with one collision
-   kernel launch per level evaluation that has obstacles, ``plan()``
-   p50/p90 (and with the plain obstacle pass in the kernel's place), and
+   four drives to their goals in 27/35/44/146 steps through the captured
+   level programs, bit for bit their uncaptured twins, with one collision
+   kernel execution per level evaluation that has obstacles (profiler) and
+   one device read per level evaluation, a replay at a new desired speed
+   against the twin, ``plan()`` p50/p90 and busy share of both forms (and
+   with the plain obstacle pass in the kernel's place), and
    the four scenarios through ``segments`` and continuous ``plan_scan`` to
    their goals, each scan captured and bit for bit its uncaptured twin,
    with no device read between cycles and the largest per-cycle
@@ -98,8 +110,11 @@ Phases (any failure raises and ends the run with a non-zero exit code):
 14. trajectory-set capture: ZAM_Over to the goal through ``plan()`` with
    ``draw_traj_set`` and ``save_plots`` in the JAX package's 27 steps, with
    the selected states, counters and reasons of the same drive without
-   capture; one collision-kernel launch per capture with obstacles; the
-   first bundle against the card's float32 conformance bundle (the CPU
+   capture; the bundles through the captured level program, bit for bit
+   the uncaptured twin's, with one collision-kernel execution per capture
+   with obstacles (profiler) and a replay at a new desired speed against
+   the twin; the first bundle against the card's float32 conformance
+   bundle (the CPU
    test's bar); the capture's extra time per cycle (CUDA events); three
    timestep plots, the final trajectory, the state and input plots and a
    solution file that reads back and passes ``run_evaluation``, all under
@@ -117,7 +132,8 @@ Phases (any failure raises and ends the run with a non-zero exit code):
 
 Every kernel's entry in the JSON line carries its launches on its path (the
 wrappers count eager launches and captures, not the replays of a captured
-scan: a captured scan's entry adds ``executions``, the profiler's count), its
+program: the entry of a captured path adds ``executions``, the profiler's
+count), its
 time per call beside its plain version's (and the scorers' and the probe's
 ``device_ms``, the profiler's device time per call), the least time the card
 could take for the same work (``bound_ms``: the larger of the bytes over
@@ -536,17 +552,19 @@ def captured_and_twin(torch, label, run, twin, carry, *args):
     return got, want, counts
 
 
-def kernel_executions(torch, fn, pattern, expected, attempts=8):
+def kernel_executions(torch, fn, pattern, expected, attempts=8, warm=True):
     """Executions of the device kernels whose name matches ``pattern`` (a
     regular expression) in one warm call of ``fn`` under ``torch.profiler``,
-    and the names of every kernel traced.  The profiler drops events now
-    and then (a trace may hold none), so a trace that holds fewer than
+    and the names of every kernel traced (``warm=False``: ``fn`` builds
+    nothing, so no untraced call comes first).  The profiler drops events
+    now and then (a trace may hold none), so a trace that holds fewer than
     ``expected`` is taken again, up to ``attempts`` times (logged when more
     than one was needed); the largest count is returned."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     best, names = 0, []
     for attempt in range(attempts):
@@ -569,9 +587,10 @@ def kernel_executions(torch, fn, pattern, expected, attempts=8):
 
 
 # the scorers' device kernels by name (fleet_score_kernel also ends in
-# score_kernel)
+# score_kernel), and the single-problem collision kernel's
 SCORE_KERNEL, FLEET_SCORE_KERNEL = r"(?<!fleet_)score_kernel", \
     r"fleet_score_kernel"
+COLLISION_KERNEL = r"obb_collision_kernel"
 
 
 def padded_fleet_scene(torch, scene, n_rows):
@@ -615,6 +634,256 @@ def no_sync(torch, fn):
         return fn()
     finally:
         torch.cuda.set_sync_debug_mode(0)
+
+
+def plan_drive(torch, name, graph=True, dtype=None, programs=None,
+               configure=None, device="cuda", before=None):
+    """``name`` to its goal through ``plan()`` (``drive_to_goal``):
+    (planner, result, record), the record holding each step's rejection
+    counters, reason dict and optimal cost.  ``graph=False`` drives the
+    uncaptured twin; ``programs`` (a planner's ``level_programs``) makes the
+    drive reuse built level programs, so that it builds and captures
+    nothing; ``configure(config)`` edits the configuration first and
+    ``before(planner)`` sees the planner before the drive."""
+    from commonroad_rp_tpu_torch.run_planner import (drive_to_goal,
+                                                     load_config,
+                                                     make_planner)
+
+    config = load_config(name, HERE)
+    if dtype is not None:
+        config.debug.kernel_dtype = dtype
+    if configure is not None:
+        configure(config)
+    planner = make_planner(config, device=device, graph=graph)
+    if programs is not None:
+        planner.level_programs = programs
+    if before is not None:
+        before(planner)
+    record = []
+    result = drive_to_goal(planner, max_steps=300, on_step=lambda _: (
+        record.append((planner.infeasible_count_kinematics,
+                       planner.infeasible_count_collision,
+                       dict(planner.infeasible_reason_dict),
+                       planner.optimal_cost))))
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return planner, result, record
+
+
+def drive_states(planner):
+    """A drive's recorded states as one float64 array (time step,
+    position, orientation, velocity, acceleration, yaw rate, steering
+    angle; NaN where a value is unset)."""
+    value = lambda x: np.nan if x is None else float(x)
+    return np.array([[value(getattr(s, f)) for f in (
+        "time_step", "orientation", "velocity", "acceleration", "yaw_rate",
+        "steering_angle")] + [float(x) for x in s.position]
+        for s in planner.record_state_list])
+
+
+def assert_drives_identical(label, got, want):
+    """Two ``plan_drive`` results bit for bit: steps, calls, every recorded
+    state, each step's counters, reason dict and cost."""
+    (pg, rg, recg), (pw, rw, recw) = got, want
+    check(rg["steps"] == rw["steps"]
+          and rg["plan_calls"] == rw["plan_calls"],
+          f"{label}: {rg['steps']} steps / {rg['plan_calls']} calls against "
+          f"{rw['steps']} / {rw['plan_calls']}")
+    check(np.array_equal(drive_states(pg), drive_states(pw), equal_nan=True),
+          f"{label}: the selected states differ")
+    check(recg == recw, f"{label}: counters, reasons or costs differ")
+
+
+def device_reads(torch, fn):
+    """(fn(), the device reads it made): host reads of CUDA tensor values
+    (``_local_scalar_dense``) and copies from the card to the host,
+    counted under a ``TorchDispatchMode``."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Reads(TorchDispatchMode):
+        count = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            name = func.overloadpacket.__name__
+            if name == "_local_scalar_dense" and args[0].is_cuda:
+                self.count += 1
+            elif name == "copy_" and args[1].is_cuda and not args[0].is_cuda:
+                self.count += 1
+            elif name == "_to_copy" and args[0].is_cuda and torch.device(
+                    kwargs.get("device") or args[0].device).type == "cpu":
+                self.count += 1
+            return func(*args, **kwargs)
+
+    with Reads() as reads:
+        out = fn()
+    return out, reads.count
+
+
+def reads_per_plan(torch, name, **kwargs):
+    """(device reads, level-program readbacks) of each ``plan()`` call of
+    a drive (``plan_drive``'s keyword arguments).  A planner's first call
+    also compiles the scene's corridor bands on the host from the card's
+    tables, once per planner and reference path."""
+    rows = []
+
+    def counting(planner):
+        inner = planner.plan
+        readbacks = lambda: sum(p.readbacks
+                                for p in planner.level_programs.values())
+
+        def plan(*args):
+            before = readbacks()
+            out, reads = device_reads(torch, lambda: inner(*args))
+            rows.append((reads, readbacks() - before))
+            return out
+        planner.plan = plan
+
+    plan_drive(torch, name, before=counting, **kwargs)
+    return rows
+
+
+def check_reads(label, rows, per_call=None):
+    """Every ``plan()`` call after the first reads the device exactly as
+    often as its level programs read back (``per_call`` each, where
+    given); logs the first call's reads."""
+    later = rows[1:]
+    check(all(reads == back for reads, back in later)
+          and (per_call is None or all(back == per_call
+                                       for _, back in rows)),
+          f"{label}: device reads and program readbacks per plan() call "
+          f"{rows}")
+    log(f"{label}: {sum(r for r, _ in later)} device reads in "
+        f"{len(later)} plan() calls after the first, one per level-program "
+        f"readback; the first call {rows[0][0]} (its readbacks "
+        f"{rows[0][1]} and the corridor's compilation)")
+
+
+@contextlib.contextmanager
+def program_calls():
+    """Records every level-program call made inside as (program, host
+    seconds up to its readback, whether its window had obstacles)."""
+    from commonroad_rp_tpu_torch.ops import level_program
+
+    calls = []
+    inner = level_program.LevelProgram.__call__
+
+    def timed(self, args):
+        t0 = time.perf_counter()
+        out = inner(self, args)
+        calls.append((self, time.perf_counter() - t0,
+                      args.obstacles.pose.shape[0] > 0))
+        return out
+
+    level_program.LevelProgram.__call__ = timed
+    try:
+        yield calls
+    finally:
+        level_program.LevelProgram.__call__ = inner
+
+
+def log_builds(label, calls):
+    """Per built level program: its first call's extra time over the
+    median of its warm calls (the warm-up and the capture, host clock), its
+    graph's pool and its static buffers."""
+    by_program = {}
+    for program, seconds, _ in calls:
+        by_program.setdefault(id(program), (program, []))[1].append(seconds)
+    for program, times in by_program.values():
+        warm = statistics.median(times[1:]) if len(times) > 1 else None
+        extra = "no warm call" if warm is None else (
+            f"{(times[0] - warm) * 1e3:.1f} ms more than a warm call "
+            f"({warm * 1e3:.3f} ms)")
+        pool = program.pool_bytes
+        log(f"{label}: {'captured' if program.graph else 'uncaptured'} "
+            f"{program.kind} program K={program.K} T={program.T}, "
+            f"{len(times)} calls: first call {extra}; graph pool "
+            + ("none" if pool is None else
+               f"{pool} B ({pool / 2**20:.2f} MiB)")
+            + f", static buffers {program.buffer_bytes} B")
+
+
+def plan_busy(torch, name, graph, programs, dtype=None, calls=20):
+    """Device busy share (``device_busy_share``) of ``calls`` ``plan()``
+    calls at the scenario's start on built level programs (the obstacle
+    window and the corridor are compiled by a call before)."""
+    from commonroad_rp_tpu_torch.run_planner import load_config, make_planner
+
+    config = load_config(name, HERE)
+    if dtype is not None:
+        config.debug.kernel_dtype = dtype
+    planner = make_planner(config, device="cuda", graph=graph)
+    planner.level_programs = programs[name]
+    planner.set_desired_velocity(current_speed=planner.x_0.velocity)
+    planner.plan()
+    return device_busy_share(torch, lambda: [planner.plan()
+                                             for _ in range(calls)])
+
+
+def first_plans(torch, name, graph, dtype=None, configure=None, delta=2.0):
+    """Two ``plan()`` calls at the scenario's start: at the desired speed,
+    then at ``delta`` m/s above it.  Returns (per call: the plan's states,
+    cost, counters, reasons, stored bundle, level programs built so far;
+    the planner)."""
+    from commonroad_rp_tpu_torch.run_planner import load_config, make_planner
+
+    config = load_config(name, HERE)
+    if dtype is not None:
+        config.debug.kernel_dtype = dtype
+    if configure is not None:
+        configure(config)
+    planner = make_planner(config, device="cuda", graph=graph)
+    planner.set_desired_velocity(current_speed=planner.x_0.velocity)
+    rows = []
+    for step in range(2):
+        if step:
+            planner.set_desired_velocity(planner._desired_speed + delta,
+                                         current_speed=planner.x_0.velocity)
+        plan = planner.plan()
+        bundle = planner.stored_trajectories
+        rows.append((np.array([[s.position[0], s.position[1], s.velocity,
+                                s.orientation, s.acceleration]
+                               for s in plan[0].state_list]),
+                     planner.optimal_cost,
+                     (planner.infeasible_count_kinematics,
+                      planner.infeasible_count_collision),
+                     dict(planner.infeasible_reason_dict),
+                     None if bundle is None else bundle_arrays(bundle),
+                     len(planner.level_programs)))
+    return rows, planner
+
+
+def bundle_arrays(bundle):
+    """A stored ``BundleSummary``'s arrays: x, y, costs and the labels."""
+    return (bundle.x, bundle.y, bundle.costs, bundle.feasible,
+            bundle.collides)
+
+
+def replay_at_new_speed(torch, label, name, dtype=None, configure=None):
+    """A replay at a changed desired speed equals the twin at that speed:
+    the captured planner's second ``plan()`` (2 m/s above the first's
+    speed) replays the programs the first built, and both calls equal the
+    uncaptured twin's bit for bit; the speed moves the plan."""
+    got, planner = first_plans(torch, name, True, dtype, configure)
+    want, _ = first_plans(torch, name, False, dtype, configure)
+    programs = list(planner.level_programs.values())
+    replays = sum(p.replays for p in programs)
+    check(all(p.graph for p in programs) and got[0][5] == got[1][5]
+          and replays == sum(p.calls for p in programs) >= 2,
+          f"{label}: the second plan() did not replay the first's programs")
+    for g, w in zip(got, want):
+        check(np.array_equal(g[0], w[0]) and g[1:4] == w[1:4],
+              f"{label}: a replay differs from the twin")
+        check((g[4] is None) == (w[4] is None) and all(
+            np.array_equal(a, b) for a, b in zip(g[4] or (), w[4] or ())),
+            f"{label}: a replay's stored bundle differs from the twin's")
+    moved = not np.array_equal(got[0][0], got[1][0]) \
+        or got[0][1] != got[1][1]
+    check(moved, f"{label}: the desired speed did not move the plan")
+    log(f"{label}: plan() at the desired speed and 2 m/s above it, "
+        f"{len(programs)} captured program(s), {replays} replays: both "
+        f"calls bit for bit the twin's (costs {got[0][1]:.6f} and "
+        f"{got[1][1]:.6f})")
 
 
 def synthetic_args(torch, n_steps, device):
@@ -704,15 +973,14 @@ def main():
     import commonroad_rp_tpu_torch
     from commonroad_rp_tpu_torch.ops import cycle as cycle_ops
     from commonroad_rp_tpu_torch.ops import scoring
-    from commonroad_rp_tpu_torch.run_planner import (drive_to_goal,
-                                                     load_config,
-                                                     make_planner)
+    from commonroad_rp_tpu_torch.run_planner import load_config, make_planner
 
     pkg_root = pathlib.Path(commonroad_rp_tpu_torch.__file__).resolve()
     if pkg_root.parent.parent != HERE:
         raise RuntimeError(f"commonroad_rp_tpu_torch imported from "
                            f"{pkg_root}, not from this checkout {HERE}")
     logging_off()
+    memoize_road_boundaries(torch)
     started = time.time()
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -751,26 +1019,58 @@ def main():
         f"obstacles={args_main[5].pose.shape[0]} levels={n_levels}")
 
     # ---- 4. the main path on the card: each bundled scenario to its goal
-    plan_ms, first_ms = [], []
-    launches = None
-    for name, want_steps in EXPECTED_STEPS.items():
-        planner = make_planner(load_config(name, HERE), device="cuda")
-        scoring.score_candidates.launches = 0
-        result = drive_to_goal(planner, max_steps=300)
-        torch.cuda.synchronize()
-        n_launch = scoring.score_candidates.launches
-        log(f"drive {name}: goal_reached={result['goal_reached']} steps="
-            f"{result['steps']} plan() calls={result['plan_calls']} kernel "
-            f"launches={n_launch}")
-        check(result["goal_reached"], f"{name} did not reach its goal")
-        check(result["steps"] == want_steps,
-              f"{name}: expected {want_steps} steps, got {result['steps']}")
-        check(n_launch == result["plan_calls"] > 0,
-              f"{name}: the scoring kernel did not run once per plan() call")
-        if name == "ZAM_Over-1_1":
-            launches = n_launch
-        first_ms.append(1e3 * result["planning_times"][0])
-        plan_ms += [1e3 * t for t in result["planning_times"][1:]]
+    # through the captured plan(), bit for bit its uncaptured twin
+    plan_ms = {True: [], False: []}
+    first_ms = []
+    programs = {True: {}, False: {}}
+    launches = executions = None
+    with program_calls() as calls:
+        for name, want_steps in EXPECTED_STEPS.items():
+            reset_launch_counts()
+            got = plan_drive(torch, name)
+            n_launch = scoring.score_candidates.launches
+            planner, result, _ = got
+            built = list(planner.level_programs.values())
+            log(f"drive {name}: goal_reached={result['goal_reached']} steps="
+                f"{result['steps']} plan() calls={result['plan_calls']} "
+                f"built programs={len(built)} kernel launches={n_launch} "
+                f"(the warm-ups' and the captured ones)")
+            check(result["goal_reached"], f"{name} did not reach its goal")
+            check(result["steps"] == want_steps,
+                  f"{name}: expected {want_steps} steps, got "
+                  f"{result['steps']}")
+            check(all(p.graph and p.kind == "fast" for p in built)
+                  and n_launch == 2 * len(built) > 0,
+                  f"{name}: {n_launch} scorer launches for {len(built)} "
+                  "captured fused programs")
+            want = plan_drive(torch, name, graph=False)
+            assert_drives_identical(f"drive {name}", got, want)
+            programs[True][name] = planner.level_programs
+            programs[False][name] = want[0].level_programs
+            again = lambda: plan_drive(torch, name,
+                                       programs=programs[True][name])
+            n_exec, names = kernel_executions(torch, again, SCORE_KERNEL,
+                                              result["plan_calls"],
+                                              warm=False)
+            check(n_exec == result["plan_calls"],
+                  f"{name}: {n_exec} score_kernel executions for "
+                  f"{result['plan_calls']} plan() calls ({names})")
+            rows = reads_per_plan(torch, name, programs=programs[True][name])
+            check(len(rows) == result["plan_calls"],
+                  f"{name}: the warm drive made {len(rows)} plan() calls")
+            check_reads(f"drive {name}", rows, per_call=1)
+            log(f"drive {name}: captured == uncaptured bit for bit (states, "
+                f"costs, counters, reasons); a warm drive: {n_exec} "
+                f"score_kernel executions (profiler) for "
+                f"{result['plan_calls']} plan() calls")
+            if name == "ZAM_Over-1_1":
+                launches, executions = n_launch, n_exec
+            first_ms.append(1e3 * result["planning_times"][0])
+            for graph, (_, res, _) in ((True, got), (False, want)):
+                plan_ms[graph] += [1e3 * t for t in res["planning_times"][1:]]
+    log_builds("main path", [c for c in calls if c[0].graph])
+    replay_at_new_speed(torch, "main path replay at a new speed",
+                        "ZAM_Over-1_1")
 
     # the first cycle's winner: card kernel against the CPU plain version
     first = {}
@@ -810,10 +1110,32 @@ def main():
             f"{k_ms:.4f} ms per call ({K / k_ms * 1e3:.6g} "
             f"candidate-evals/s; device time {dev_text(dev_ms)}), plain "
             f"{p_ms:.4f} ms")
-    q = np.percentile(plan_ms, [50, 90])
-    log(f"plan(): p50 {q[0]:.3f} ms, p90 {q[1]:.3f} ms over {len(plan_ms)} "
-        f"calls of the four drives (first call of each drive, excluded: "
-        f"{', '.join(f'{x:.1f}' for x in first_ms)} ms)")
+    # plan() in both forms, in turns: phase 4's drives (captured, then the
+    # twin) and one more round the other way on the built programs
+    stages = {True: {}, False: {}}
+    for graph in (False, True):
+        for name in EXPECTED_STEPS:
+            planner, result, _ = plan_drive(torch, name, graph=graph,
+                                            programs=programs[graph][name])
+            plan_ms[graph] += [1e3 * t for t in result["planning_times"][1:]]
+            for stage, values in planner.stage_timers.history.items():
+                stages[graph].setdefault(stage, []).extend(values[1:])
+    for graph in (True, False):
+        q = np.percentile(plan_ms[graph], [50, 90])
+        log(f"plan() {'captured' if graph else 'uncaptured'}: p50 "
+            f"{q[0]:.3f} ms, p90 {q[1]:.3f} ms over {len(plan_ms[graph])} "
+            f"calls of the four drives, two rounds in turns (first call "
+            f"of each drive excluded)")
+    log(f"plan() first calls of phase 4's captured drives (build, warm-up "
+        f"and capture): {', '.join(f'{x:.1f}' for x in first_ms)} ms")
+    for graph in (True, False):
+        log(f"plan() {'captured' if graph else 'uncaptured'} stages, p50 "
+            f"over the second round (first call of each drive excluded): "
+            + ", ".join(f"{stage} {1e3 * statistics.median(v):.3f} ms"
+                        for stage, v in sorted(stages[graph].items())))
+        log(f"plan() {'captured' if graph else 'uncaptured'}, ZAM_Over's "
+            f"first cycle planned 20 times: device busy share "
+            f"{plan_busy(torch, 'ZAM_Over-1_1', graph, programs[graph])}")
 
     if opts.profile:
         profile_plans(torch, opts.profile)
@@ -855,7 +1177,8 @@ def main():
     log(json.dumps({"kernels": [
         entry("score_candidates", "scoring.cu",
               "commonroad_rp_tpu/ops/pallas_cycle.py:490", launches,
-              max_err, k_ms, p_ms, main_bound, device_ms=dev_ms),
+              max_err, k_ms, p_ms, main_bound, device_ms=dev_ms,
+              executions=executions),
         entry("score_candidates (plan_scan, T=61)", "scoring.cu",
               "commonroad_rp_tpu/ops/pallas_cycle.py:420",
               scan["launches61"], scan["max_err61"], scan["ms61"],
@@ -871,7 +1194,8 @@ def main():
         entry("obb_collision", "collision.cu",
               "commonroad_rp_tpu/ops/pallas_kernels.py:33",
               conformance["launches"], collision["max_err"],
-              collision["ms"], collision["plain_ms"], collision["bound"]),
+              collision["ms"], collision["plain_ms"], collision["bound"],
+              executions=conformance["executions"]),
         entry("obb_collision_fleet", "collision.cu",
               "commonroad_rp_tpu/ops/pallas_kernels.py:33",
               xla["launches"], 0.0, xla["ms"], xla["plain_ms"],
@@ -1350,7 +1674,9 @@ def level_collision_operands(torch, name, dtype_name):
     """The collision kernel's operands of every sampling level of a
     scenario's first cycle on the conformance path (``fast_scoring: False``,
     ``kernel_dtype`` ``dtype_name``), captured from ``plan(level)`` calls
-    on the card."""
+    on the card through the uncaptured level programs (a captured one
+    would call the pass at its warm-up and at its capture, the latter on
+    operands not yet computed)."""
     from commonroad_rp_tpu_torch.ops import collision as collision_ops
     from commonroad_rp_tpu_torch.ops import collision_kernel
     from commonroad_rp_tpu_torch.run_planner import load_config, make_planner
@@ -1358,7 +1684,7 @@ def level_collision_operands(torch, name, dtype_name):
     config = load_config(name, HERE)
     config.debug.fast_scoring = False
     config.debug.kernel_dtype = dtype_name
-    planner = make_planner(config, device="cuda")
+    planner = make_planner(config, device="cuda", graph=False)
     planner.set_desired_velocity(current_speed=planner.x_0.velocity)
     captured = []
 
@@ -1623,17 +1949,19 @@ def phase_collision_kernel(torch):
 
 def phase_conformance(torch):
     """10. The float64 conformance plan() on the card: the four goldens, the
-    four drives to their goals in the JAX package's step counts with one
-    collision-kernel launch per level evaluation that has obstacles, plan()
-    p50/p90 beside the same drives with the plain obstacle pass, and the
-    four scenarios through ``segments`` and continuous ``plan_scan`` to
-    their goals without device reads between cycles, each scan captured
-    and bit for bit its uncaptured twin."""
+    four drives to their goals in the JAX package's step counts through the
+    captured level programs, bit for bit their uncaptured twins, with one
+    collision-kernel execution per level evaluation that has obstacles
+    (profiler) and one device read per level evaluation; a replay at a new
+    desired speed against the twin; plan() p50/p90 of both forms beside the
+    same drives with the plain obstacle pass, and the four scenarios
+    through ``segments`` and continuous ``plan_scan`` to their goals
+    without device reads between cycles, each scan captured and bit for bit
+    its uncaptured twin."""
     from commonroad_rp_tpu_torch.ops import collision as collision_ops
     from commonroad_rp_tpu_torch.ops import collision_kernel as ck
     from commonroad_rp_tpu_torch.ops import cycle as cycle_ops
     from commonroad_rp_tpu_torch.ops import scoring
-    from commonroad_rp_tpu_torch.parallel import replanning_scan
     from commonroad_rp_tpu_torch.run_planner import (drive_to_goal,
                                                      load_config,
                                                      make_planner)
@@ -1665,50 +1993,77 @@ def phase_conformance(torch):
         check(counters == g["counters"] and reasons == g["reasons"],
               f"golden {name}: counters or reasons differ")
 
-    calls = {"levels": 0, "with_obstacles": 0}
-    evaluate_level = cycle_ops.evaluate_level
-
-    def counting(*args, **kwargs):
-        calls["levels"] += 1
-        calls["with_obstacles"] += int(args[6].pose.shape[0] > 0)
-        return evaluate_level(*args, **kwargs)
-
-    plan_ms = []
-    launches = None
-    cycle_ops.evaluate_level = counting
-    try:
-        for name, want_steps in CONFORMANCE_STEPS.items():
-            planner = conformance_planner(name)
-            calls.update(levels=0, with_obstacles=0)
-            ck.obb_collision.launches = 0
-            scoring.score_candidates.launches = 0
-            result = drive_to_goal(planner, max_steps=300)
-            torch.cuda.synchronize()
-            n_launch = ck.obb_collision.launches
-            log(f"conformance drive {name}: goal_reached="
-                f"{result['goal_reached']} steps={result['steps']} plan() "
-                f"calls={result['plan_calls']} level evaluations="
-                f"{calls['levels']} (with obstacles "
-                f"{calls['with_obstacles']}) collision-kernel launches="
-                f"{n_launch}")
-            check(result["goal_reached"] and result["steps"] == want_steps,
-                  f"conformance {name}: expected the goal in {want_steps} "
-                  f"steps, got {result['steps']}")
-            check(n_launch == calls["with_obstacles"]
-                  and scoring.score_candidates.launches == 0,
-                  f"conformance {name}: {n_launch} collision-kernel launches "
-                  f"for {calls['with_obstacles']} level evaluations with "
-                  "obstacles")
-            if name == "ZAM_Over-1_1":
-                launches = n_launch
-                check(n_launch > 0, "ZAM_Over: the collision kernel never ran")
-            plan_ms += [1e3 * t for t in result["planning_times"][1:]]
-    finally:
-        cycle_ops.evaluate_level = evaluate_level
-    q = np.percentile(plan_ms, [50, 90])
-    log(f"conformance plan() float64: p50 {q[0]:.3f} ms, p90 {q[1]:.3f} ms "
-        f"over {len(plan_ms)} calls of the four drives (first call of each "
-        "drive excluded)")
+    plan_ms = {True: [], False: []}
+    by_form = {True: {}, False: {}}
+    launches = executions = None
+    for name, want_steps in CONFORMANCE_STEPS.items():
+        reset_launch_counts()
+        with program_calls() as calls:
+            got = plan_drive(torch, name, dtype="float64")
+        n_launch = ck.obb_collision.launches
+        planner, result, _ = got
+        built = list(planner.level_programs.values())
+        built_obs = sum(p._args.obstacles.pose.shape[0] > 0 for p in built)
+        with_obstacles = sum(c[2] for c in calls)
+        log(f"conformance drive {name}: goal_reached="
+            f"{result['goal_reached']} steps={result['steps']} plan() "
+            f"calls={result['plan_calls']} level evaluations={len(calls)} "
+            f"(with obstacles {with_obstacles}) built programs={len(built)} "
+            f"(with obstacles {built_obs}) collision-kernel launches="
+            f"{n_launch} (the warm-ups' and the captured ones)")
+        check(result["goal_reached"] and result["steps"] == want_steps,
+              f"conformance {name}: expected the goal in {want_steps} "
+              f"steps, got {result['steps']}")
+        check(all(p.graph and p.kind == "level" for p in built)
+              and n_launch == 2 * built_obs
+              and scoring.score_candidates.launches == 0,
+              f"conformance {name}: {n_launch} collision-kernel launches "
+              f"for {built_obs} captured programs with obstacles")
+        want = plan_drive(torch, name, graph=False, dtype="float64")
+        assert_drives_identical(f"conformance drive {name}", got, want)
+        by_form[True][name] = planner.level_programs
+        by_form[False][name] = want[0].level_programs
+        again = lambda: plan_drive(torch, name, dtype="float64",
+                                   programs=planner.level_programs)
+        n_exec = 0
+        if with_obstacles:
+            n_exec, names = kernel_executions(
+                torch, again, COLLISION_KERNEL, with_obstacles, warm=False)
+            check(n_exec == with_obstacles,
+                  f"conformance {name}: {n_exec} collision-kernel "
+                  f"executions for {with_obstacles} level evaluations with "
+                  f"obstacles ({names})")
+        rows = reads_per_plan(torch, name, dtype="float64",
+                              programs=planner.level_programs)
+        check(sum(back for _, back in rows) == len(calls),
+              f"conformance {name}: the warm drive evaluated "
+              f"{sum(back for _, back in rows)} levels, the first "
+              f"{len(calls)}")
+        check_reads(f"conformance drive {name}", rows)
+        log(f"conformance drive {name}: captured == uncaptured bit for bit; "
+            f"a warm drive: {n_exec} collision-kernel executions "
+            f"(profiler) for {with_obstacles} level evaluations with "
+            f"obstacles")
+        if name == "ZAM_Over-1_1":
+            launches, executions = n_launch, n_exec
+            check(n_exec > 0, "ZAM_Over: the collision kernel never ran")
+        log_builds(f"conformance {name}", calls)
+        for graph, (_, res, _) in ((True, got), (False, want)):
+            plan_ms[graph] += [1e3 * t for t in res["planning_times"][1:]]
+    for graph in (True, False):
+        q = np.percentile(plan_ms[graph], [50, 90])
+        log(f"conformance plan() float64 "
+            f"{'captured' if graph else 'uncaptured'}: p50 {q[0]:.3f} ms, "
+            f"p90 {q[1]:.3f} ms over {len(plan_ms[graph])} calls of the "
+            "four drives (first call of each drive excluded)")
+    for graph in (True, False):
+        log(f"conformance plan() float64 "
+            f"{'captured' if graph else 'uncaptured'}, ZAM_Over's first "
+            f"cycle planned 20 times: device busy share "
+            f"{plan_busy(torch, 'ZAM_Over-1_1', graph, by_form[graph], 'float64')}")
+    q = np.percentile(plan_ms[True], [50, 90])
+    replay_at_new_speed(torch, "conformance replay at a new speed",
+                        "ZAM_Over-1_1", dtype="float64")
     # the same drives with the plain obstacle pass in the kernel's place
     plain_ms = []
     collision_ops.obb_collision = ck.obb_collision_reference
@@ -1723,7 +2078,8 @@ def phase_conformance(torch):
     finally:
         collision_ops.obb_collision = ck.obb_collision
     q_plain = np.percentile(plain_ms, [50, 90])
-    log(f"conformance plan() float64 with the plain obstacle pass: p50 "
+    log(f"conformance plan() float64 with the plain obstacle pass "
+        f"(captured): p50 "
         f"{q_plain[0]:.3f} ms, p90 {q_plain[1]:.3f} ms over "
         f"{len(plain_ms)} calls")
 
@@ -1744,12 +2100,13 @@ def phase_conformance(torch):
                 f"{info['goal_reached']} steps={info['steps']} cycles_run="
                 f"{info['cycles_run']}, largest re-selection count in a "
                 f"cycle {max(info['reselections'])} (bound "
-                f"{replanning_scan.REFINE_WIDTH}), no device read between "
+                f"{cycle_ops.REFINE_WIDTH}), no device read between "
                 f"cycles")
             check(info["goal_reached"] and info["steps"] == EXPECTED_STEPS[
                 name], f"plan_scan {key}={value} {name}: goal not reached "
                 f"in {EXPECTED_STEPS[name]} steps")
-    return dict(launches=launches, p50=q[0], p90=q[1])
+    return dict(launches=launches, executions=executions, p50=q[0],
+                p90=q[1])
 
 
 def bound_of(ops, nbytes, dtype_name="float32"):
@@ -2178,11 +2535,13 @@ def phase_probe(torch):
                 bound_ms=bound_ms, bound_by=bound_by, phases=phases)
 
 
-def capture_drive(torch, capture: bool, out_dir, device="cuda"):
+def capture_drive(torch, capture: bool, out_dir, device="cuda", graph=True,
+                  programs=None):
     """ZAM_Over through ``plan()`` on the card, with or without trajectory-set
-    capture: (planner, drive result, per-step record, capture records,
-    launch counts).  A capture record is (CUDA-event ms, the window had
-    obstacles, the bundle)."""
+    capture (``graph=False``: the uncaptured twin; ``programs``: reuse built
+    level programs): (planner, drive result, per-step record, capture
+    records, launch counts).  A capture record is (CUDA-event ms, the
+    window had obstacles, the bundle)."""
     from commonroad_rp_tpu_torch.ops import collision_kernel as ck
     from commonroad_rp_tpu_torch.ops import scoring
     from commonroad_rp_tpu_torch.run_planner import (drive_to_goal,
@@ -2190,10 +2549,10 @@ def capture_drive(torch, capture: bool, out_dir, device="cuda"):
                                                      make_planner)
 
     config = load_config("ZAM_Over-1_1", HERE)
-    config.debug.draw_traj_set = capture
-    config.debug.save_plots = capture
-    config.general.path_output = str(out_dir) + "/"
-    planner = make_planner(config, device=device)
+    configure_capture(config, capture, out_dir)
+    planner = make_planner(config, device=device, graph=graph)
+    if programs is not None:
+        planner.level_programs = programs
     captures = []
     if capture:
         inner = planner._capture_bundle_fast
@@ -2222,6 +2581,15 @@ def capture_drive(torch, capture: bool, out_dir, device="cuda"):
     torch.cuda.synchronize()
     launches = (scoring.score_candidates.launches, ck.obb_collision.launches)
     return planner, result, record, captures, launches
+
+
+def configure_capture(config, capture: bool, out_dir=None):
+    """Trajectory-set capture on (``draw_traj_set`` with ``save_plots``,
+    output under ``out_dir``) or off."""
+    config.debug.draw_traj_set = capture
+    config.debug.save_plots = capture
+    if out_dir is not None:
+        config.general.path_output = str(out_dir) + "/"
 
 
 def assert_bundle_matches(got, want):
@@ -2286,11 +2654,13 @@ def phase_capture(torch, device="cuda"):
             for flag in (False, True)}
     planner, result, record, captures, launches = runs[True]
     _, result_off, record_off, _, launches_off = runs[False]
+    twin = capture_drive(torch, True, out_dir, device, graph=False)
     want = EXPECTED_STEPS["ZAM_Over-1_1"]
     log(f"capture drive: goal_reached={result['goal_reached']} steps="
         f"{result['steps']} plan() calls={result['plan_calls']} captures="
         f"{len(captures)}; launches (scorer, collision) {launches} with "
-        f"capture, {launches_off} without")
+        f"capture, {launches_off} without (the warm-ups' and the captured "
+        "ones)")
     check(result["goal_reached"] and result["steps"] == want,
           f"capture drive: expected the goal in {want} steps")
     check(result_off["steps"] == result["steps"], "capture changed the "
@@ -2303,11 +2673,43 @@ def phase_capture(torch, device="cuda"):
     check(record == record_off, "capture changed the counters or reasons")
     check(len(captures) == result["plan_calls"], "not every cycle captured")
     with_obstacles = sum(c[1] for c in captures)
-    check(launches[0] == launches_off[0] == result["plan_calls"],
-          "capture: the scorer did not run once per plan() call")
-    check(launches_off[1] == 0 and launches[1] == with_obstacles > 0,
+    # the capture bundle through its level program, bit for bit the twin's
+    check(np.array_equal(states(planner), states(twin[0]))
+          and record == twin[2] and len(twin[3]) == len(captures)
+          and all(np.array_equal(a, b) for g, w in zip(captures, twin[3])
+                  for a, b in zip(bundle_arrays(g[2]), bundle_arrays(w[2]))),
+          "capture: the captured drive's states, counters or bundles "
+          "differ from the uncaptured twin's")
+    built = list(planner.level_programs.values())
+    fused = sum(p.kind == "fast" for p in built)
+    bundles_obs = sum(p.kind == "level"
+                      and p._args.obstacles.pose.shape[0] > 0 for p in built)
+    check(launches[0] == launches_off[0] == 2 * fused > 0,
+          f"capture: {launches[0]} scorer launches for {fused} captured "
+          "fused programs")
+    check(launches_off[1] == 0 and launches[1] == 2 * bundles_obs > 0,
           f"capture: {launches[1]} collision-kernel launches for "
-          f"{with_obstacles} captures with obstacles")
+          f"{bundles_obs} captured bundle programs with obstacles")
+    warm_drive = lambda: capture_drive(torch, True, out_dir, device,
+                                       programs=planner.level_programs)
+    n_exec, names = kernel_executions(torch, warm_drive, COLLISION_KERNEL,
+                                      with_obstacles, warm=False)
+    check(n_exec == with_obstacles,
+          f"capture: {n_exec} collision-kernel executions for "
+          f"{with_obstacles} captures with obstacles ({names})")
+    n_score, names = kernel_executions(torch, warm_drive, SCORE_KERNEL,
+                                       result["plan_calls"], warm=False)
+    check(n_score == result["plan_calls"],
+          f"capture: {n_score} score_kernel executions for "
+          f"{result['plan_calls']} plan() calls ({names})")
+    log(f"capture drive: captured == uncaptured bit for bit (states, "
+        f"counters, reasons, {len(captures)} bundles); a warm drive: "
+        f"{n_exec} collision-kernel executions for {with_obstacles} "
+        f"captures with obstacles, {n_score} score_kernel executions for "
+        f"{result['plan_calls']} plan() calls (profiler)")
+    replay_at_new_speed(torch, "capture replay at a new speed",
+                        "ZAM_Over-1_1", configure=lambda c: configure_capture(
+                            c, True, out_dir))
 
     # the first cycle's bundle against the card's conformance float32 one
     config = load_config("ZAM_Over-1_1", HERE)
@@ -2635,6 +3037,26 @@ def profile_plans(torch, out_dir):
                                       row_limit=25)
     pathlib.Path(out_dir, "key_averages.txt").write_text(table)
     log(f"profile: {out_dir}/trace.json, {out_dir}/key_averages.txt")
+
+
+def memoize_road_boundaries(torch):
+    """Compile each scenario's road boundary once per run: the many
+    planners this script builds share ``ops.collision.compile_road_boundary``
+    memoized on the scenario, dtype and device.  It is a planner's set-up
+    outside ``plan()`` (seconds of point-in-polygon tests in Python per
+    planner), and the tensors it returns are never written."""
+    from commonroad_rp_tpu_torch.ops import collision as collision_ops
+
+    inner = collision_ops.compile_road_boundary
+    memo = {}
+
+    def compile_once(scenario, dtype=torch.float64, device="cpu"):
+        key = (scenario.scenario_id, dtype, str(torch.device(device)))
+        if key not in memo:
+            memo[key] = inner(scenario, dtype=dtype, device=device)
+        return memo[key]
+
+    collision_ops.compile_road_boundary = compile_once
 
 
 def logging_off():

@@ -7,12 +7,18 @@ the output.  Two scoring paths, chosen by ``debug.fast_scoring`` and
 ``debug.kernel_dtype`` as the JAX planner chooses them:
 
 * the fused float32 path (the default: ``"auto"``/None resolve to it): one
-  ``ops.cycle.evaluate_levels_fast`` call per cycle scores the union of the
+  ``ops.cycle.evaluate_levels_fast`` per cycle scores the union of the
   levels in one kernel launch, selects the winner with the reference's
   escalation semantics, and re-rolls it;
 * the conformance level program (``fast_scoring: False`` or
   ``kernel_dtype: float64``): the sequential escalation loop, one
   ``ops.cycle.evaluate_level`` per level, in the planner's dtype.
+
+Both run as compiled level programs (``ops.level_program.LevelProgram``, the
+counterpart of the JAX package's jits): one built program per signature,
+kept in an LRU on the planner, one staging copy in, one replay of the
+captured body on the card (``graph=False``: the body eagerly) and one
+packed readback per call.
 
 ``plan_scan(n)``: n replanning cycles of the fused path on the device
 (``parallel.replanning_scan.make_facade_replanning_scan``) with one readback
@@ -52,6 +58,7 @@ from commonroad_rp_tpu_torch.ops import collision as collision_ops
 from commonroad_rp_tpu_torch.ops import cycle as cycle_ops
 from commonroad_rp_tpu_torch.ops import grid as grid_ops
 from commonroad_rp_tpu_torch.ops import kinematics as kin_ops
+from commonroad_rp_tpu_torch.ops import level_program
 from commonroad_rp_tpu_torch.parallel import replanning_scan
 from commonroad_rp_tpu_torch.utils.config import ReactivePlannerConfiguration
 from commonroad_rp_tpu_torch.utils.coordinate_system import CoordinateSystem
@@ -66,6 +73,9 @@ logger = logging.getLogger("RP_LOGGER")
 
 _CONSTRAINT_ORDER = ("velocity", "acceleration", "kappa", "kappa_dot",
                      "yaw_rate")
+# built level programs kept per planner: a drive's signatures (each level x
+# low_vel_mode of plan(level), the fused union, the capture bundle's level)
+LEVEL_PROGRAMS = 8
 
 
 def resolve_device(device=None) -> torch.device:
@@ -136,10 +146,25 @@ class ReactivePlanner:
     ``device`` is ``cuda`` unless one is named, and raises without a card
     (``resolve_device``); the CPU runs only when asked (``device="cpu"``),
     and there the kernels run their plain PyTorch versions.
+
+    ``plan()`` and ``plan_scan()`` run compiled programs: on the card each
+    ``plan()`` replays one captured CUDA graph per level program call
+    (``ops.level_program``; the LRU ``level_programs`` holds up to
+    ``LEVEL_PROGRAMS`` signatures) and ``plan_scan`` one per cycle
+    (``parallel.replanning_scan.ScanProgram``).  ``graph=False`` runs the
+    same programs eagerly: the twin the captured forms are held against.
+    ``refine_continuations`` counts the fused calls whose exact refinement
+    needed more than ``ops.cycle.REFINE_WIDTH`` re-selections and went on
+    eagerly.
     """
 
-    def __init__(self, config: ReactivePlannerConfiguration, device=None):
+    def __init__(self, config: ReactivePlannerConfiguration, device=None,
+                 graph: bool = True):
         self.device = resolve_device(device)
+        self.graph = bool(graph)
+        self.level_programs = OrderedDict()     # signature -> LevelProgram
+        self.refine_continuations = 0
+        self._unbounded = None
         check_fast_scope(config)
         self._dtype = torch.float64 if config.debug.kernel_dtype == "float64" \
             else torch.float32
@@ -211,7 +236,6 @@ class ReactivePlanner:
 
     @property
     def infeasible_reason_dict(self) -> dict:
-        self._materialize_reason_stats()
         return self._infeasible_reason_dict
 
     @property
@@ -442,32 +466,16 @@ class ReactivePlanner:
         self._optimal_cost = 0
         self._infeasible_count_kinematics = 0
         self._infeasible_count_collision = 0
-        self._pending_reason_stats = None
         for constraint in self.config.planning.constraints_to_check:
             self._infeasible_reason_dict[constraint] = 0
 
-    def _materialize_reason_stats(self):
-        """Deferred device->host readback of the per-constraint counters
-        (paid only when the statistics are read): from the conformance
-        program's [3, K] mask pack ("xla") or the scorer's reason row
-        ("fast")."""
-        pending = self._pending_reason_stats
-        if pending is None:
-            return
-        self._pending_reason_stats = None
-        if pending[0] == "xla":
-            _, masks_dev, goal_valid = pending
-            masks = masks_dev.cpu().numpy()
-            feasible = masks[0].astype(bool)
-            reasons = masks[2]
-        else:
-            _, reasons_dev, kin_dev, goal_valid = pending
-            reasons = reasons_dev.cpu().numpy()
-            feasible = np.isfinite(kin_dev.cpu().numpy())
+    def _add_reason_counts(self, counts: np.ndarray):
+        """The per-constraint counters from a level program's readback
+        (goal-valid, kinematically infeasible candidates of the evaluated or
+        selected level, per first-failure reason code)."""
         for code, name in kin_ops.REASON_NAMES.items():
             if name in self._infeasible_reason_dict:
-                self._infeasible_reason_dict[name] += int(
-                    np.sum((reasons == code) & goal_valid & ~feasible))
+                self._infeasible_reason_dict[name] += int(counts[code])
 
     def _create_trajectory_bundle(self, x_0_lon, x_0_lat,
                                   samp_level: int) -> CandidateBatch:
@@ -619,56 +627,89 @@ class ReactivePlanner:
 
     def _corridor_or_unbounded(self, corridor):
         """Without a road boundary the bands are unbounded (+-BAND_CLAMP,
-        which never binds under the 19.9 m lateral domain cap)."""
+        which never binds under the 19.9 m lateral domain cap); built once
+        per reference path."""
         if corridor is not None:
             return corridor
         P = int(self._co.tables.s.shape[0])
-        full = lambda v: torch.full((P,), v, dtype=torch.float32,
-                                    device=self.device)
-        return collision_ops.CorridorArrays(
-            d_lo=full(-collision_ops.BAND_CLAMP),
-            d_hi=full(collision_ops.BAND_CLAMP))
+        if self._unbounded is None or self._unbounded[0] is not self._co:
+            full = lambda v: torch.full((P,), v, dtype=torch.float32,
+                                        device=self.device)
+            self._unbounded = (self._co, collision_ops.CorridorArrays(
+                d_lo=full(-collision_ops.BAND_CLAMP),
+                d_hi=full(collision_ops.BAND_CLAMP)))
+        return self._unbounded[1]
+
+    def _level_program(self, kind: str, args: level_program.LevelArgs,
+                       static: dict) -> level_program.LevelProgram:
+        """The built level program of this call's signature (LRU of
+        ``LEVEL_PROGRAMS``), built on a miss."""
+        key = level_program.signature(kind, args, static, self.graph)
+        program = self.level_programs.get(key)
+        if program is None:
+            program = level_program.LevelProgram(kind, args, static,
+                                                 self.graph)
+            self.level_programs[key] = program
+            while len(self.level_programs) > LEVEL_PROGRAMS:
+                self.level_programs.popitem(last=False)
+        else:
+            self.level_programs.move_to_end(key)
+        return program
+
+    def fast_arguments(self, batches: List[CandidateBatch]):
+        """(LevelArgs, static arguments) of the fused level program for the
+        union of ``batches``."""
+        ctx = self._scene_context()
+        cat = lambda parts: np.concatenate(parts)
+        args = level_program.LevelArgs(
+            coeffs_lon=cat([b.coeffs_lon for b in batches]),
+            coeffs_lat=cat([b.coeffs_lat for b in batches]),
+            traj_len=cat([b.traj_len for b in batches]),
+            goal_valid=cat([self._goal_valid_mask(b) for b in batches]),
+            level_ids=cat([np.full(b.size, j, np.int32)
+                           for j, b in enumerate(batches)]),
+            x0_orientation=float(np.float32(self.x_0.orientation)),
+            cost_params=ctx["cost_params"], veh=ctx["veh"],
+            ref=self._co.tables,
+            corridor=self._corridor_or_unbounded(ctx["corridor"]),
+            obstacles=ctx["obstacles"],
+            boundary=ctx["boundary"] if ctx["boundary_mode"] == "segments"
+            else None)
+        static = dict(dt=self.dt, n_steps=self.N,
+                      low_vel_mode=self._low_vel_mode,
+                      cost_structure=self.cost_function.structure,
+                      constraint_flags=ctx["flags"], n_levels=len(batches),
+                      continuous=self.config.planning
+                      .continuous_collision_check)
+        return args, static
 
     def cycle_inputs(self, batches: List[CandidateBatch]) -> dict:
         """Keyword arguments of ``ops.cycle.evaluate_levels_fast`` for the
-        union of ``batches`` (tensors on the planner's device)."""
-        ctx = self._scene_context()
-        dev = lambda parts, dtype: torch.as_tensor(
-            np.concatenate(parts), dtype=dtype, device=self.device)
-        return dict(
-            coeffs_lon=dev([b.coeffs_lon for b in batches], torch.float32),
-            coeffs_lat=dev([b.coeffs_lat for b in batches], torch.float32),
-            traj_len=dev([b.traj_len for b in batches], torch.int32),
-            goal_valid=dev([self._goal_valid_mask(b) for b in batches],
-                           torch.bool),
-            level_ids=dev([np.full(b.size, j, np.int32)
-                           for j, b in enumerate(batches)], torch.int32),
-            ref=self._co.tables, veh=ctx["veh"], obstacles=ctx["obstacles"],
-            corridor=self._corridor_or_unbounded(ctx["corridor"]),
-            x0_orientation=float(np.float32(self.x_0.orientation)),
-            cost_params=ctx["cost_params"], dt=self.dt, n_steps=self.N,
-            low_vel_mode=self._low_vel_mode,
-            cost_structure=self.cost_function.structure,
-            constraint_flags=ctx["flags"], n_levels=len(batches))
+        union of ``batches`` (tensors on the planner's device), without the
+        refinement's (``boundary``, ``continuous``)."""
+        args, static = self.fast_arguments(batches)
+        kwargs = level_program.eager_arguments(level_program.FAST, args,
+                                               self.device)
+        kwargs.pop("boundary")
+        static.pop("continuous")
+        return dict(kwargs, **static)
 
     def _evaluate(self, batches: List[CandidateBatch]):
-        """Score the union of ``batches`` in one launch and read back the
-        winner (one device->host transfer)."""
-        goal_valid = np.concatenate([self._goal_valid_mask(b)
-                                     for b in batches])
-        level_ids = np.concatenate([np.full(b.size, j, np.int32)
-                                    for j, b in enumerate(batches)])
+        """Score the union of ``batches`` in one launch through the fused
+        level program and read back the winner (one device->host transfer;
+        one more when the bounded refinement overflows and the lazy loop
+        goes on eagerly)."""
         self._reset_statistics()
         t0 = time.time()
-        result = cycle_ops.evaluate_levels_fast(
-            **self.cycle_inputs(batches),
-            boundary=self._cc.boundary
-            if self._boundary_mode() == "segments" else None,
-            continuous=self.config.planning.continuous_collision_check)
-        packed = torch.cat([result.scalars,
-                            result.optimal.reshape(-1)]).cpu()
-        scalars = packed[:6].numpy()
-        optimal_packed = packed[6:].reshape(14, -1).numpy()
+        args, static = self.fast_arguments(batches)
+        program = self._level_program(level_program.FAST, args, static)
+        out = program(args)
+        if out.overflow:
+            self.refine_continuations += 1
+            logger.info("exact refinement: more than %d re-selections, "
+                        "continued eagerly", cycle_ops.REFINE_WIDTH)
+            out = program.continue_lazy()
+        scalars = out.scalars
         found = bool(np.isfinite(scalars[1]))
         self.stage_timers.record("device_cycle", time.time() - t0)
 
@@ -678,49 +719,32 @@ class ReactivePlanner:
             logger.warning("fused scorer: the selected winner fails the "
                            "exact feasibility re-check (a boundary-tight "
                            "verdict flipped)")
-        level_mask = level_ids == int(scalars[5])
-        self._pending_reason_stats = ("fast", result.reasons,
-                                      result.kin_costs,
-                                      goal_valid & level_mask)
-        logger.info("Selected sampling level %d (%d candidates)",
-                    int(scalars[5]), int(level_mask.sum()))
+        level = int(scalars[5])
+        self._add_reason_counts(out.reason_counts)
+        logger.info("Selected sampling level %d (%d candidates)", level,
+                    batches[level].size)
         logger.info("Rejected %d kinematically infeasible, %d colliding",
                     self._infeasible_count_kinematics,
                     self._infeasible_count_collision)
         if self._draw_traj_set:
             # the selected level's slice: the level the escalation loop of
             # the conformance path stops at
-            batch = batches[int(scalars[5])]
+            batch = batches[level]
             self._capture_bundle_fast(batch, self._goal_valid_mask(batch))
-        return self._finalize_level(found, scalars, optimal_packed)
+        return self._finalize_level(found, scalars, out.optimal)
 
     def _capture_bundle_fast(self, batch: CandidateBatch,
                              goal_valid: np.ndarray):
         """Trajectory-set capture on the fused path (draw_traj_set): one
-        conformance ``evaluate_level`` of ``batch`` after the selection, in
+        conformance level program call on ``batch`` after the selection, in
         float32 on the planner's device, for its dense [K, T] states and
         feasibility/collision labels (reactive_planner.py:1122-1123).  The
         fused scorer stays the selection path: nothing of the selection,
-        the counters or the reason statistics is touched, and only x, y,
-        the costs and the two label rows are read back (one transfer)."""
-        self.stored_trajectories = self._bundle_summary(
-            self._conformance_level(batch, goal_valid))
-
-    @staticmethod
-    def _bundle_summary(result: cycle_ops.LevelResult) -> BundleSummary:
-        """A level result's x, y, costs and labels on the host, read back
-        in one transfer."""
-        K, T = result.rollout.x.shape
-        dtype = result.costs.dtype
-        packed = torch.cat([result.rollout.x.reshape(-1),
-                            result.rollout.y.reshape(-1), result.costs,
-                            result.masks[:2].to(dtype).reshape(-1)]).cpu()
-        packed = packed.numpy()
-        labels = packed[2 * K * T + K:].reshape(2, K).astype(bool)
-        return BundleSummary(x=packed[:K * T].reshape(K, T),
-                             y=packed[K * T:2 * K * T].reshape(K, T),
-                             costs=packed[2 * K * T:2 * K * T + K],
-                             feasible=labels[0], collides=labels[1])
+        the counters or the reason statistics is touched, and x, y, the
+        costs and the two label rows come back in the call's one
+        readback."""
+        self.stored_trajectories = BundleSummary(*self._conformance_level(
+            batch, goal_valid, bundle=True).bundle)
 
     def _finalize_level(self, found: bool, scalars: np.ndarray,
                         optimal_packed: np.ndarray):
@@ -757,12 +781,11 @@ class ReactivePlanner:
         self._reset_statistics()
         goal_valid = self._goal_valid_mask(batch)
         t0 = time.time()
-        result = self._conformance_level(batch, goal_valid)
-        # one device->host transfer: the [4] scalar pack + [14, T] winner;
-        # the [3, K] masks are read only when the reason dict is
-        packed = torch.cat([result.scalars,
-                            result.optimal.reshape(-1)]).cpu().numpy()
-        scalars = packed[:4]
+        # one device->host transfer: the [4] scalar pack, the [14, T]
+        # winner, the reason counts (and the bundle when captured)
+        out = self._conformance_level(batch, goal_valid,
+                                      bundle=self._draw_traj_set)
+        scalars = out.scalars
         found = bool(np.isfinite(scalars[1]))
         self.stage_timers.record("device_cycle", time.time() - t0)
 
@@ -770,33 +793,43 @@ class ReactivePlanner:
         # candidates never enter the kinematic check (:1076-1077)
         self._infeasible_count_kinematics = int(scalars[2])
         self._infeasible_count_collision = int(scalars[3])
-        self._pending_reason_stats = ("xla", result.masks, goal_valid)
+        self._add_reason_counts(out.reason_counts)
         if self._draw_traj_set:
-            self.stored_trajectories = self._bundle_summary(result)
-        return self._finalize_level(found, scalars,
-                                    packed[4:].reshape(14, -1))
+            self.stored_trajectories = BundleSummary(*out.bundle)
+        return self._finalize_level(found, scalars, out.optimal)
+
+    def level_arguments(self, batch: CandidateBatch, goal_valid: np.ndarray,
+                        bundle: bool = False):
+        """(LevelArgs, static arguments) of the conformance level program
+        for ``batch`` in the planner's dtype; ``bundle`` asks for the dense
+        bundle in the readback."""
+        ctx = self._scene_context()
+        boundary_mode = ctx["boundary_mode"]
+        args = level_program.LevelArgs(
+            coeffs_lon=batch.coeffs_lon, coeffs_lat=batch.coeffs_lat,
+            traj_len=batch.traj_len, goal_valid=goal_valid, level_ids=None,
+            x0_orientation=self._scalar(self.x_0.orientation),
+            cost_params=ctx["cost_params"], veh=ctx["veh"],
+            ref=self._co.tables, corridor=ctx["corridor"],
+            obstacles=ctx["obstacles"],
+            boundary=ctx["boundary"] if boundary_mode == "segments" else None)
+        static = dict(dt=self.dt, n_steps=self.N,
+                      low_vel_mode=self._low_vel_mode,
+                      cost_structure=self.cost_function.structure,
+                      constraint_flags=ctx["flags"],
+                      boundary_mode=boundary_mode,
+                      continuous_check=self.config.planning
+                      .continuous_collision_check, bundle=bool(bundle))
+        return args, static
 
     def _conformance_level(self, batch: CandidateBatch,
-                           goal_valid: np.ndarray) -> cycle_ops.LevelResult:
+                           goal_valid: np.ndarray, bundle: bool = False
+                           ) -> level_program.LevelOutput:
         """``batch`` through the conformance level program
         (``ops.cycle.evaluate_level``) in the planner's dtype, on its
         device."""
-        ctx = self._scene_context()
-        boundary_mode = ctx["boundary_mode"]
-        dev = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt,
-                                            device=self.device)
-        return cycle_ops.evaluate_level(
-            dev(batch.coeffs_lon, self._dtype),
-            dev(batch.coeffs_lat, self._dtype),
-            dev(batch.traj_len, torch.int64), dev(goal_valid, torch.bool),
-            self._co.tables, ctx["veh"], ctx["obstacles"],
-            ctx["boundary"] if boundary_mode == "segments" else None,
-            ctx["corridor"], self._scalar(self.x_0.orientation),
-            ctx["cost_params"], dt=self.dt, n_steps=self.N,
-            low_vel_mode=self._low_vel_mode,
-            cost_structure=self.cost_function.structure,
-            constraint_flags=ctx["flags"], boundary_mode=boundary_mode,
-            continuous_check=self.config.planning.continuous_collision_check)
+        args, static = self.level_arguments(batch, goal_valid, bundle)
+        return self._level_program(level_program.LEVEL, args, static)(args)
 
     # ------------------------------------------------------------------
     # device replanning loop (commonroad_rp_tpu models/planner.py:586-825)
@@ -1028,7 +1061,7 @@ class ReactivePlanner:
             raise RuntimeError(
                 "plan_scan: the exact refinement of cycle "
                 f"{int(np.argmax(overflow))} needed more than "
-                f"{replanning_scan.REFINE_WIDTH} re-selections; plan() has "
+                f"{cycle_ops.REFINE_WIDTH} re-selections; plan() has "
                 "no such bound")
         if record and last_state is not None:
             # advance the planner like the host loop's reset()

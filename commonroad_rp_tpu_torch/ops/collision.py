@@ -424,7 +424,9 @@ def pad_obstacles(obstacles: ObstacleArrays, m_max: int) -> ObstacleArrays:
 def _fill(value, like: torch.Tensor) -> torch.Tensor:
     """A scalar (float or 0-d tensor) broadcast to ``like``'s shape, dtype
     and device; a 0-d tensor already there is not copied (no device read
-    inside a scan)."""
+    inside a scan), and a float is a fill (no host->device copy)."""
+    if not isinstance(value, torch.Tensor):
+        return torch.full_like(like, float(value))
     return torch.as_tensor(value, dtype=like.dtype,
                            device=like.device).expand(like.shape)
 

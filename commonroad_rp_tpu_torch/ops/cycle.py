@@ -15,7 +15,14 @@ Counterpart of ``commonroad_rp_tpu/ops/cycle.py``.
   level with a feasible collision-free candidate (the reference's escalation
   loop, reactive_planner.py:616-636) and is re-rolled as a K=1 batch for its
   [14, T] state arrays.  The exact ``segments`` boundary and the continuous
-  swept pass run as lazy per-winner refinement (a host loop).
+  swept pass refine the selection: as the JAX ``while_loop`` does, one
+  winner at a time (``lazy_refinement``, a host loop that reads the device
+  per re-selection), or ``REFINE_WIDTH`` candidates at once without a
+  device read (``refine_cheapest``, what the captured programs run).
+
+``ops.level_program.LevelProgram`` runs both programs as one captured CUDA
+graph per jit signature; the functions here are its bodies and the eager
+forms.
 
 The rejection counters follow the reference's lazy sorted iteration
 (:1031-1046): ``n_coll`` counts kinematically feasible candidates that
@@ -167,6 +174,15 @@ class FastLevelResult(NamedTuple):
     kin_costs: torch.Tensor       # [K] kinematic-feasible raw costs
     reasons: torch.Tensor         # [K] int32 first-failure codes (REASON_*)
     optimal: torch.Tensor         # [14, T] best candidate (CANDIDATE_FIELDS)
+    overflow: torch.Tensor        # 0-d bool: the bounded refinement stopped
+                                  #     short (``refine_cheapest``)
+
+
+# candidates the bounded refinement re-rolls and checks at once: the bundled
+# scenarios need at most 4 re-selections in a cycle (the T-junction with the
+# segments boundary, pinned by tests/test_torch_refinement.py); past it
+# plan_scan raises after the scan and plan() goes on eagerly
+REFINE_WIDTH = 32
 
 
 def unpack_candidate(packed) -> dict:
@@ -249,12 +265,70 @@ def select_across_levels(masked: torch.Tensor, kin: torch.Tensor,
     return any_found, best_idx, best_cost, stat_level, n_inf_kin, n_coll
 
 
+def refine_cheapest(masked: torch.Tensor, kin: torch.Tensor,
+                    goal_valid: torch.Tensor, level_ids: torch.Tensor,
+                    n_levels: int, width: int, reroll, colliding):
+    """The lazy winner refinement without device reads (mirror of the JAX
+    package's ``while_loop``, cycle.py:316-318 and pallas_fleet.py:647-677).
+
+    The lazy loop (:func:`lazy_refinement`) selects a winner
+    (:func:`select_across_levels`), re-rolls it, and masks it to +inf if the
+    exact checks find a collision, until a winner passes: it visits the
+    selectable candidates in selection order (first level with a finite
+    cost, then cost, then index) and masks the colliding run at the head of
+    that order.  Here the first ``width`` of that order are re-rolled
+    (``reroll(idx) -> RolloutResult``) and checked (``colliding(rollout) ->
+    [width]``) at once, and the colliding run at their head is masked: the
+    lazy loop's masked row, whenever that run ends inside the width.
+    Returns (masked, reselections, overflow) as device tensors:
+    ``reselections`` is the lazy loop's count of masked winners, and
+    ``overflow`` is true when all ``width`` candidates collided and more
+    selectable ones remain, where the lazy loop would go on (from the
+    returned row: :func:`lazy_refinement` continues it).
+    """
+    width = min(width, masked.shape[0])
+    inf = torch.full((), np.inf, dtype=masked.dtype, device=masked.device)
+    sel = torch.where(torch.isnan(masked), inf, masked)
+    finite = torch.isfinite(sel)
+    level_key = torch.where(finite, level_ids.to(torch.int64), n_levels)
+    order = torch.argsort(sel, stable=True)
+    order = order[torch.argsort(level_key[order], stable=True)]
+    idx = order[:width]
+    bad = colliding(reroll(idx)) & finite[idx]
+    head = torch.cumprod(bad.to(torch.int32), 0)
+    masked = masked.index_put((idx,), torch.where(head > 0, inf, masked[idx]))
+    reselections = torch.sum(head)
+    overflow = (torch.sum(finite) > width) & torch.all(bad)
+    return masked, reselections, overflow
+
+
+def lazy_refinement(masked: torch.Tensor, kin: torch.Tensor,
+                    goal_valid: torch.Tensor, level_ids: torch.Tensor,
+                    n_levels: int, reroll, colliding) -> torch.Tensor:
+    """The lazy winner refinement as the JAX ``while_loop`` runs it
+    (reference reactive_planner.py:1031-1062): re-roll the current winner
+    (``reroll(idx) -> RolloutResult`` for [1] indices), apply the exact
+    checks (``colliding(rollout) -> [1]``), mask a colliding winner to +inf
+    and re-select until one passes.  A host loop: it reads the device twice
+    per re-selection.  Returns the masked row."""
+    while True:
+        found_i, bi, *_ = select_across_levels(masked, kin, goal_valid,
+                                               level_ids, n_levels)
+        if not bool(found_i):
+            return masked
+        if not bool(colliding(reroll(bi.reshape(1)))[0]):
+            return masked
+        masked = masked.index_fill(0, bi.reshape(1), np.inf)
+
+
 def scorer_arguments(coeffs_lon, coeffs_lat, traj_len, goal_valid, ref,
                      veh, obstacles, corridor, x0_orientation, cost_params,
                      *, dt, n_steps, low_vel_mode, cost_structure,
-                     constraint_flags):
+                     constraint_flags, scalar_row=None):
     """(args, kwargs) of the ``scoring.score_candidates`` launch of one
-    cycle: float32 casts and table packing."""
+    cycle: float32 casts and table packing.  ``scalar_row``: the scorer's
+    [17] scalar row when the caller keeps it on the device (a captured
+    program); None builds it from the arguments."""
     f32 = torch.float32
     kind = cost_structure[0]
     if kind == "default":
@@ -277,7 +351,7 @@ def scorer_arguments(coeffs_lon, coeffs_lat, traj_len, goal_valid, ref,
             cost_params.w_a, scoring.true_path_length(ref),
             cost_params.desired_s if has_s else None)
     kwargs = dict(n_steps=n_steps, check_flags=tuple(constraint_flags),
-                  has_desired_v=has_speed)
+                  has_desired_v=has_speed, scalars=scalar_row)
     return args, kwargs
 
 
@@ -307,37 +381,56 @@ def evaluate_levels_fast(coeffs_lon: torch.Tensor,
                          cost_structure: tuple,
                          constraint_flags: tuple,
                          n_levels: int,
-                         continuous: bool = False) -> FastLevelResult:
+                         continuous: bool = False,
+                         refine_width: Optional[int] = None,
+                         scalar_row: Optional[torch.Tensor] = None
+                         ) -> FastLevelResult:
     """All sampling levels scored in ONE kernel launch (the main path).
 
     The candidate tensors concatenate every level's batch, with
     ``level_ids`` [K] naming each candidate's level; the scene tensors are
-    float32, the scorer's dtype.
+    float32, the scorer's dtype.  ``refine_width`` selects the exact
+    refinement's form: None, the lazy loop (:func:`lazy_refinement`); a
+    width, :func:`refine_cheapest`, which reads nothing from the device and
+    reports ``overflow``.  ``scalar_row``: see :func:`scorer_arguments`.
     """
     masked, kin, reasons = _score_union_fast(
         coeffs_lon, coeffs_lat, traj_len, goal_valid, ref, veh, obstacles,
         corridor, x0_orientation, cost_params, dt=dt, n_steps=n_steps,
         low_vel_mode=low_vel_mode, cost_structure=cost_structure,
-        constraint_flags=constraint_flags)
-    dtype = masked.dtype
+        constraint_flags=constraint_flags, scalar_row=scalar_row)
+    return select_levels_fast(
+        masked, kin, reasons, coeffs_lon, coeffs_lat, traj_len, goal_valid,
+        level_ids, ref, veh, obstacles, x0_orientation, boundary, dt=dt,
+        n_steps=n_steps, low_vel_mode=low_vel_mode,
+        constraint_flags=constraint_flags, n_levels=n_levels,
+        continuous=continuous, refine_width=refine_width)
 
+
+def select_levels_fast(masked, kin, reasons, coeffs_lon, coeffs_lat,
+                       traj_len, goal_valid, level_ids, ref, veh, obstacles,
+                       x0_orientation, boundary=None, *, dt, n_steps,
+                       low_vel_mode, constraint_flags, n_levels,
+                       continuous=False,
+                       refine_width=None) -> FastLevelResult:
+    """The fused cycle after the scorer: the exact refinement, the
+    escalation selection and the K=1 re-roll of the winner, from the
+    scorer's rows (masked, kin, reason) [K]."""
+    dtype = masked.dtype
+    overflow = torch.zeros((), dtype=torch.bool, device=masked.device)
     colliding = exact_refinement(boundary, continuous)
     if colliding is not None:
-        # lazy winner refinement (reference reactive_planner.py:1031-1062):
-        # re-roll the current winner, apply the exact checks, mask a
-        # colliding winner to +inf and re-select until one passes
-        while True:
-            found_i, bi, *_ = select_across_levels(masked, kin, goal_valid,
-                                                   level_ids, n_levels)
-            if not bool(found_i):
-                break
-            pick = lambda x: torch.index_select(x, 0, bi.reshape(1))
-            ro = kinematics.rollout(pick(coeffs_lon), pick(coeffs_lat),
-                                    pick(traj_len), ref, veh, x0_orientation,
-                                    dt, n_steps, low_vel_mode)
-            if not bool(colliding(ro, obstacles, veh)[0]):
-                break
-            masked = masked.index_fill(0, bi.reshape(1), np.inf)
+        reroll = lambda idx: kinematics.rollout(
+            coeffs_lon[idx], coeffs_lat[idx], traj_len[idx], ref, veh,
+            x0_orientation, dt, n_steps, low_vel_mode)
+        check = lambda ro: colliding(ro, obstacles, veh)
+        if refine_width is None:
+            masked = lazy_refinement(masked, kin, goal_valid, level_ids,
+                                     n_levels, reroll, check)
+        else:
+            masked, _, overflow = refine_cheapest(
+                masked, kin, goal_valid, level_ids, n_levels, refine_width,
+                reroll, check)
 
     (found, best_idx, best_cost, stat_level,
      n_inf_kin, n_coll) = select_across_levels(masked, kin, goal_valid,
@@ -358,7 +451,7 @@ def evaluate_levels_fast(coeffs_lon: torch.Tensor,
                            ro.feasible[0].to(dtype), stat_level.to(dtype)])
     return FastLevelResult(found=found, scalars=scalars, costs=masked,
                            kin_costs=kin, reasons=reasons.to(torch.int32),
-                           optimal=optimal)
+                           optimal=optimal, overflow=overflow)
 
 
 def evaluate_level_fast(coeffs_lon, coeffs_lat, traj_len, goal_valid, ref,

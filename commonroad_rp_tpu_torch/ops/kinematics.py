@@ -132,8 +132,12 @@ def rollout(coeffs_lon: torch.Tensor,
     T = n_steps + 1
 
     def as_t(x):
-        """A scalar, or per-problem [F] values shaped [F, 1]."""
-        t = torch.as_tensor(x, dtype=dtype, device=device)
+        """A scalar, or per-problem [F] values shaped [F, 1]; a Python
+        number becomes a fill, not a host->device copy (a captured program
+        cannot copy from the host)."""
+        t = torch.as_tensor(x, dtype=dtype, device=device) \
+            if isinstance(x, torch.Tensor) or np.ndim(x) \
+            else torch.full((), float(x), dtype=dtype, device=device)
         return t[:, None] if batched and t.dim() == 1 else t
 
     low_vel = low_vel_mode

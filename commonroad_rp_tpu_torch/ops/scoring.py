@@ -175,9 +175,13 @@ def prepare_inputs(coeffs_lon, coeffs_lat, traj_len, goal_valid,
                    desired_speed, desired_d, w_a, ref_s_last=None,
                    desired_s=None, *, n_steps: int,
                    check_flags: tuple = (True,) * 5,
-                   has_desired_v: bool = True) -> ScorerInputs:
+                   has_desired_v: bool = True,
+                   scalars=None) -> ScorerInputs:
     """Validate and lay out the scorer's operands (shared by the kernel and
-    the plain version, so both see identical inputs)."""
+    the plain version, so both see identical inputs).  ``scalars``: the
+    [17] float32 scalar row when the caller keeps one on the device (a
+    captured program, which cannot copy host numbers into a new row);
+    None builds it from the arguments."""
     device = coeffs_lon.device
     T = n_steps + 1
     cl = _float_operand("coeffs_lon", coeffs_lon, device, 2, 6)
@@ -219,34 +223,43 @@ def prepare_inputs(coeffs_lon, coeffs_lat, traj_len, goal_valid,
         V = 1
         poly = torch.zeros((0, T, 3), dtype=torch.float32, device=device)
 
-    if ref_s_last is None:
-        # largest non-sentinel arclength
-        s_col = table[:, 0]
-        ref_s_last = torch.max(torch.where(s_col < s_col[0] + 9e6, s_col,
-                                           torch.full_like(s_col, -np.inf)))
-    values = [0.0] * _NUM_SCALARS
-    for slot, value in (
-            (_S_WHEELBASE, veh.wheelbase), (_S_WB_REAR, veh.wb_rear_axle),
-            (_S_A_MAX, veh.a_max), (_S_V_SWITCH, veh.v_switch),
-            (_S_KAPPA_MAX, veh.kappa_max), (_S_V_DELTA_MAX, veh.v_delta_max),
-            (_S_HALF_LEN, veh.half_length), (_S_HALF_WID, veh.half_width),
-            (_S_X0_THETA, x0_orientation), (_S_DT, dt),
-            (_S_LOW_VEL, low_vel), (_S_DESIRED_V, desired_speed),
-            (_S_DESIRED_D, desired_d), (_S_W_A, w_a),
-            (_S_REF_S_LAST, ref_s_last),
-            (_S_DESIRED_S, 0.0 if desired_s is None else desired_s),
-            (_S_TABLE_S0, table[0, 0])):
-        if isinstance(value, torch.Tensor) and value.device.type == "cpu":
-            value = float(value)
-        elif isinstance(value, (bool, np.bool_)):
-            value = float(value)
-        values[slot] = value
-    scalars = _scalar_row(values, device)
-
+    if scalars is not None:
+        if scalars.dtype != torch.float32 or scalars.device != device \
+                or tuple(scalars.shape) != (_NUM_SCALARS,):
+            raise ValueError("score_candidates: scalars must be a "
+                             f"[{_NUM_SCALARS}] float32 tensor on {device}")
+    else:
+        if ref_s_last is None:
+            # largest non-sentinel arclength
+            s_col = table[:, 0]
+            ref_s_last = torch.max(torch.where(
+                s_col < s_col[0] + 9e6, s_col,
+                torch.full_like(s_col, -np.inf)))
+        values = [0.0] * _NUM_SCALARS
+        for slot, value in (
+                (_S_WHEELBASE, veh.wheelbase), (_S_WB_REAR, veh.wb_rear_axle),
+                (_S_A_MAX, veh.a_max), (_S_V_SWITCH, veh.v_switch),
+                (_S_KAPPA_MAX, veh.kappa_max),
+                (_S_V_DELTA_MAX, veh.v_delta_max),
+                (_S_HALF_LEN, veh.half_length),
+                (_S_HALF_WID, veh.half_width),
+                (_S_X0_THETA, x0_orientation), (_S_DT, dt),
+                (_S_LOW_VEL, low_vel), (_S_DESIRED_V, desired_speed),
+                (_S_DESIRED_D, desired_d), (_S_W_A, w_a),
+                (_S_REF_S_LAST, ref_s_last),
+                (_S_DESIRED_S, 0.0 if desired_s is None else desired_s),
+                (_S_TABLE_S0, table[0, 0])):
+            if isinstance(value, torch.Tensor) \
+                    and value.device.type == "cpu":
+                value = float(value)
+            elif isinstance(value, (bool, np.bool_)):
+                value = float(value)
+            values[slot] = value
+        scalars = _scalar_row(values, device)
     flags = _flags(check_flags, desired_s is not None, has_desired_v)
     return ScorerInputs(coeffs_lon=cl, coeffs_lat=ca, traj_len=tl,
                         goal_valid=gv, table=table, obs=obs.contiguous(),
-                        poly=poly.contiguous(), scalars=scalars,
+                        poly=poly.contiguous(), scalars=scalars.contiguous(),
                         n_steps=n_steps, n_poly_verts=V, flags=flags)
 
 
@@ -871,7 +884,7 @@ def score_candidates(coeffs_lon, coeffs_lat, traj_len, goal_valid,
                      desired_speed, desired_d, w_a, ref_s_last=None,
                      desired_s=None, *, n_steps: int,
                      check_flags: tuple = (True,) * 5,
-                     has_desired_v: bool = True):
+                     has_desired_v: bool = True, scalars=None):
     """(masked [K], kin [K], reason [K]) float32 rows for a candidate bundle.
 
     Arguments follow ``pallas_cycle._score_candidates_pallas``: coefficient
@@ -881,7 +894,8 @@ def score_candidates(coeffs_lon, coeffs_lat, traj_len, goal_valid,
     weight, the true path length and the optional stopping target.
     ``check_flags`` are the (velocity, acceleration, kappa, kappa_dot,
     yaw_rate) checks; ``has_desired_v`` switches the velocity cost terms off
-    for the fail-safe cost.
+    for the fail-safe cost.  ``scalars``: a prebuilt [17] scalar row (see
+    :func:`prepare_inputs`).
 
     CUDA inputs launch the kernel (``score_candidates.launches`` counts the
     wrapper's launches, eager or captured, not the replays of a captured
@@ -892,7 +906,8 @@ def score_candidates(coeffs_lon, coeffs_lat, traj_len, goal_valid,
         coeffs_lon, coeffs_lat, traj_len, goal_valid, packed_table,
         obstacles, veh, x0_orientation, dt, low_vel, desired_speed,
         desired_d, w_a, ref_s_last, desired_s, n_steps=n_steps,
-        check_flags=check_flags, has_desired_v=has_desired_v))
+        check_flags=check_flags, has_desired_v=has_desired_v,
+        scalars=scalars))
 
 
 def score_fleet(coeffs_lon, coeffs_lat, traj_len, goal_valid, packed_tables,

@@ -34,15 +34,17 @@ version on any device, to hold the kernel's scan against it.
 
 The facade scan's exact refinement (``segments`` boundary, continuous
 collision checks) is the JAX scan's lazy winner loop in a form that reads
-nothing from the device: the ``REFINE_WIDTH`` cheapest selectable
-candidates, in selection order, are re-rolled and checked at once, and the
-colliding ones are masked before the selection (``refine_cheapest``).
-``make_fleet_scan(mesh=group)`` runs one rank's slice of the fleet under a
-``torch.distributed`` process group (``parallel.mesh``), its three per-cycle
-aggregates summed by ``parallel.mesh.fleet_all_reduce``; it stays uncaptured
-(a captured collective needs a multi-card run to be held against).  The
-dense XLA fleet rollout (``parallel.fleet``) and ``plan()``, whose
-obstacle count and level shapes change per call, are not captured either.
+nothing from the device: the ``ops.cycle.REFINE_WIDTH`` cheapest
+selectable candidates, in selection order, are re-rolled and checked at
+once, and the colliding run at their head is masked before the selection
+(``ops.cycle.refine_cheapest``).  ``make_fleet_scan(mesh=group)`` runs one
+rank's slice of the fleet under a ``torch.distributed`` process group
+(``parallel.mesh``), its three per-cycle aggregates summed by
+``parallel.mesh.fleet_all_reduce``; it stays uncaptured (a captured
+collective needs a multi-card run to be held against).  The dense XLA fleet
+rollout (``parallel.fleet``) is not captured either.  ``plan()``'s level
+programs are captured too, one graph per jit signature
+(``ops.level_program``).
 """
 
 from __future__ import annotations
@@ -60,18 +62,14 @@ from commonroad_rp_tpu_torch.ops import scoring
 from commonroad_rp_tpu_torch.ops.collision import (BoundaryArrays,
                                                    CorridorArrays,
                                                    ObstacleArrays)
-from commonroad_rp_tpu_torch.ops.cycle import CANDIDATE_FIELDS
+from commonroad_rp_tpu_torch.ops.cycle import (CANDIDATE_FIELDS,
+                                               refine_cheapest)
+from commonroad_rp_tpu_torch.ops.program import CapturedStep
 from commonroad_rp_tpu_torch.parallel.fleet import FleetCarry, FleetScene
 from commonroad_rp_tpu_torch.parallel.mesh import fleet_all_reduce
 
 _F32 = torch.float32
 _DYNAMIC_SLOTS = (scoring._S_X0_THETA, scoring._S_LOW_VEL)
-# candidates checked per cycle by the facade scan's exact refinement: the
-# bundled scenarios' scans need at most 4 re-selections in a cycle (the
-# T-junction with the segments boundary, pinned by
-# tests/test_torch_refinement.py); a cycle needing more than the width
-# raises after the scan
-REFINE_WIDTH = 32
 
 
 class ReplanningCarry(NamedTuple):
@@ -199,12 +197,10 @@ class ScanProgram:
     step runs three ways:
 
     * on a CUDA device (``graph=True``, the default): the first call runs
-      one warm-up step on a side stream (it builds the kernels and raises
-      their shared-memory limits before the capture, as PyTorch requires),
-      then captures one step as a CUDA graph in the graph's own memory
-      pool; every call replays the graph ``n_cycles`` times (``replays``
-      counts them).  A capture or a replay that fails raises: nothing falls
-      back to the eager loop;
+      one warm-up step and captures one step (``ops.program.CapturedStep``);
+      every call replays the graph ``n_cycles`` times (``replays`` counts
+      them).  A capture or a replay that fails raises: nothing falls back
+      to the eager loop;
     * on a CUDA device with ``graph=False``: the same steps eagerly, one
       dispatch per op (the twin the captured scan is held against);
     * on the CPU, whatever ``graph`` says: eagerly (``self.graph`` is then
@@ -224,14 +220,18 @@ class ScanProgram:
         self.cycle = cycle
         self.n_cycles = n_cycles
         self.device = device
-        self.graph = bool(graph) and device.type == "cuda"
-        self.replays = 0
+        self._program = CapturedStep(self._step, device, graph)
+        self.graph = self._program.graph
         self._keep = tuple(keep)
         self._prepare = prepare
         self._carry = None
         self._outputs = None
         self._counter = torch.zeros((), dtype=torch.int64, device=device)
-        self._graph = None
+
+    @property
+    def replays(self) -> int:
+        """Replays of the captured cycle so far."""
+        return self._program.replays
 
     def _load(self, carry):
         """The caller's carry into the static buffers, the counter to 0."""
@@ -264,34 +264,17 @@ class ScanProgram:
             static.copy_(new)
         self._counter.add_(1)
 
-    def _capture(self):
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            self._step()
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._step()
-        self._graph = graph
-
     def __call__(self, carry, *args):
         self._load(carry)
         if self._prepare is not None:
             self._prepare(*args)
         if self.n_cycles == 0:
             return type(carry)(*(x.clone() for x in self._carry)), ()
-        if not self.graph:
-            for _ in range(self.n_cycles):
-                self._step()
-        else:
-            with torch.cuda.device(self.device):
-                if self._graph is None:
-                    self._capture()
-                    self._load(carry)
-                for _ in range(self.n_cycles):
-                    self._graph.replay()
-                    self.replays += 1
+        if self._program.capture():
+            # the warm-up cycle advanced the carry and the counter
+            self._load(carry)
+        for _ in range(self.n_cycles):
+            self._program()
         return (type(carry)(*(x.clone() for x in self._carry)),
                 tuple(out.clone() for out in self._outputs))
 
@@ -598,43 +581,6 @@ def make_fleet_scan(scene: FleetScene, static_grid: grid_ops.StaticGrid,
 # the facade scan behind ReactivePlanner.plan_scan
 # ---------------------------------------------------------------------------
 
-def refine_cheapest(masked: torch.Tensor, kin: torch.Tensor,
-                    goal_valid: torch.Tensor, level_ids: torch.Tensor,
-                    n_levels: int, width: int, reroll, colliding):
-    """The lazy winner refinement without device reads (mirror of the JAX
-    facade scan's ``while_loop``, pallas_fleet.py:647-677).
-
-    The lazy loop selects a winner (``cycle.select_across_levels``),
-    re-rolls it, and masks it to +inf if the exact checks find a collision,
-    until a winner passes: it visits the selectable candidates in selection
-    order (first level with a finite cost, then cost, then index) and stops
-    at the first that passes.  Here the first ``width`` of that order are
-    re-rolled (``reroll(idx) -> RolloutResult``) and checked
-    (``colliding(rollout) -> [width]``) at once, and the colliding ones are
-    masked.  The selection over the result is the lazy loop's winner, and
-    the colliding candidates before it are the ones the loop masked, so the
-    rejection counters agree too (a colliding candidate after the winner is
-    no cheaper than it, or lies in another level).  Returns (masked,
-    reselections, overflow) as device tensors: ``reselections`` is the lazy
-    loop's count of masked winners (the colliding run at the head of the
-    order), and ``overflow`` is true when all ``width`` candidates collided
-    and more selectable ones remain, where the lazy loop would go on.
-    """
-    width = min(width, masked.shape[0])
-    inf = torch.full((), np.inf, dtype=masked.dtype, device=masked.device)
-    sel = torch.where(torch.isnan(masked), inf, masked)
-    finite = torch.isfinite(sel)
-    level_key = torch.where(finite, level_ids.to(torch.int64), n_levels)
-    order = torch.argsort(sel, stable=True)
-    order = order[torch.argsort(level_key[order], stable=True)]
-    idx = order[:width]
-    bad = colliding(reroll(idx)) & finite[idx]
-    masked = masked.index_put((idx,), torch.where(bad, inf, masked[idx]))
-    reselections = torch.sum(torch.cumprod(bad.to(torch.int32), 0))
-    overflow = (torch.sum(finite) > width) & torch.all(bad)
-    return masked, reselections, overflow
-
-
 def make_facade_replanning_scan(ref: frenet_ops.RefPathTables,
                                 corridor: CorridorArrays,
                                 obstacles_full: ObstacleArrays,
@@ -685,7 +631,8 @@ def make_facade_replanning_scan(ref: frenet_ops.RefPathTables,
 
     ``boundary`` (exact 'segments' road-boundary SAT) and ``continuous``
     (swept-OBB pass, reference :1049-1058) refine the scorer's selection
-    (:func:`refine_cheapest` over the ``REFINE_WIDTH`` cheapest candidates);
+    (``ops.cycle.refine_cheapest`` over the ``REFINE_WIDTH`` cheapest
+    candidates; a cycle needing more re-selections raises after the scan);
     the scorer itself masks kinematics, obstacles and the corridor bands.
 
     Returns ``run(carry, desired_speed=None) -> (carry, metrics)`` with
@@ -693,7 +640,7 @@ def make_facade_replanning_scan(ref: frenet_ops.RefPathTables,
     states [C, 14, replan_offset + 1] -- CANDIDATE_FIELDS rows for offsets
     0..replan_offset of each cycle's winner, reselections [C] -- winners the
     refinement masked, refine_overflow [C] -- the refinement needed more
-    than ``REFINE_WIDTH`` re-selections).  ``run`` is a
+    than ``ops.cycle.REFINE_WIDTH`` re-selections).  ``run`` is a
     :class:`ScanProgram`: on a CUDA device it replays a captured cycle
     unless ``graph=False``; a run's ``desired_speed`` (None: the build's) is
     written into the scan's static scalar row before the first cycle.
@@ -815,7 +762,8 @@ def make_facade_replanning_scan(ref: frenet_ops.RefPathTables,
                 obs, None if poly_tab is None else poly, half_all,
                 radius_all, V)
             masked, reselections, overflow = refine_cheapest(
-                masked, kin, gv, level_ids, n_levels, REFINE_WIDTH,
+                masked, kin, gv, level_ids, n_levels,
+                cycle_ops.REFINE_WIDTH,
                 lambda idx: kin_ops.rollout(
                     cl[idx], ca[idx], tl[idx], ref32, veh32,
                     carry.orientation, dt, n_steps, low_vel),

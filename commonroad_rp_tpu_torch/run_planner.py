@@ -49,14 +49,15 @@ def load_config(scenario: str, root: pathlib.Path = REPO_ROOT):
     return config
 
 
-def make_planner(config, device="cuda"):
-    """Planner on the first route's reference path, desired speed unset."""
+def make_planner(config, device="cuda", graph: bool = True):
+    """Planner on the first route's reference path, desired speed unset;
+    ``graph=False`` runs its programs uncaptured (``ReactivePlanner``)."""
     from commonroad_rp_tpu_torch.models.planner import ReactivePlanner
     from commonroad_rp_tpu_torch.utils.route import RoutePlanner
 
     route = RoutePlanner(config.scenario, config.planning_problem) \
         .plan_routes().retrieve_first_route()
-    planner = ReactivePlanner(config, device=device)
+    planner = ReactivePlanner(config, device=device, graph=graph)
     planner.set_reference_path(route.reference_path)
     return planner
 

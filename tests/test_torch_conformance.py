@@ -346,12 +346,11 @@ def test_conformance_drive_reaches_goal(repo_root):
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_refine_cheapest_matches_lazy_loop(seed):
-    """The scan's bounded refinement gives the lazy winner loop's selection,
-    counters and number of re-selections (the loop of
+    """The bounded refinement gives the lazy winner loop's masked row,
+    selection, counters and number of re-selections (the loop of
     ``evaluate_levels_fast``: select, check, mask, repeat), and flags
     overflow when every checked candidate collides."""
-    from commonroad_rp_tpu_torch.parallel.replanning_scan import \
-        refine_cheapest
+    from commonroad_rp_tpu_torch.ops.cycle import refine_cheapest
 
     rng = np.random.default_rng(seed)
     K, n_levels = 90, 3
@@ -382,6 +381,10 @@ def test_refine_cheapest_matches_lazy_loop(seed):
         assert bool(flag) == overflow
         assert int(reselections) == min(n_masked, width)
         if not overflow:
+            # the colliding run at the head of the order is masked: the
+            # lazy loop's row itself
+            assert torch.equal(got.isnan(), want.isnan())
+            assert torch.equal(got.nan_to_num(), want.nan_to_num())
             for a, b in zip(port_cycle.select_across_levels(
                     got, kin, goal, levels, n_levels),
                     port_cycle.select_across_levels(

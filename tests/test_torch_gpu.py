@@ -1,7 +1,7 @@
 """The CUDA kernels (scorers, OBB collision in both forms, the probe kernel)
-against their plain PyTorch versions, the captured replanning scans against
-their uncaptured twins, the conformance level program and the XLA fleet
-path, on the card.
+against their plain PyTorch versions, the captured replanning scans and
+level programs against their uncaptured twins, the conformance level
+program and the XLA fleet path, on the card.
 
 Marked ``gpu``: without a card every test skips.  On a machine with one,
 run (from the repository root; no JAX needed):
@@ -124,11 +124,39 @@ def test_kernel_matches_plain_first_cycle(cuda):
 
 
 def test_kernel_drives_to_goal(cuda):
+    """ZAM_Over through the captured ``plan()``: one fused program, whose
+    warm-up and capture are the wrapper's two launches; a warm drive on it
+    executes ``score_kernel`` once per call (profiler)."""
     planner = make_planner(load_config("ZAM_Over-1_1"), "cuda")
     scoring.score_candidates.launches = 0
     result = drive_to_goal(planner, max_steps=100)
     assert result["goal_reached"] and result["steps"] == 27
-    assert scoring.score_candidates.launches == result["plan_calls"] == 9
+    assert len(planner.level_programs) == 1
+    assert scoring.score_candidates.launches == 2
+    executions, _ = chip_smoke.kernel_executions(
+        torch, lambda: chip_smoke.plan_drive(
+            torch, "ZAM_Over-1_1", programs=planner.level_programs),
+        chip_smoke.SCORE_KERNEL, 9)
+    assert executions == result["plan_calls"] == 9
+
+
+def test_captured_plan_drive_equals_uncaptured(cuda):
+    """ZAM_Over to its goal through the captured ``plan()`` and through the
+    ``graph=False`` twin: bit for bit the same states, costs, counters and
+    reason dicts; in a warm drive every call after the first (which also
+    compiles the corridor) reads the device once; a replay at
+    a desired speed 2 m/s higher equals the twin at that speed."""
+    got = chip_smoke.plan_drive(torch, "ZAM_Over-1_1")
+    want = chip_smoke.plan_drive(torch, "ZAM_Over-1_1", graph=False)
+    chip_smoke.assert_drives_identical("ZAM_Over", got, want)
+    (program,) = got[0].level_programs.values()
+    assert program.graph and program.replays == program.calls == 9
+    assert not any(p.graph for p in want[0].level_programs.values())
+    rows = chip_smoke.reads_per_plan(torch, "ZAM_Over-1_1",
+                                     programs=got[0].level_programs)
+    assert len(rows) == got[1]["plan_calls"]
+    chip_smoke.check_reads("ZAM_Over", rows, per_call=1)
+    chip_smoke.replay_at_new_speed(torch, "ZAM_Over", "ZAM_Over-1_1")
 
 
 def test_kernel_rejects_mixed_devices(cuda):
@@ -348,7 +376,16 @@ def test_conformance_golden_and_drive_on_card(cuda):
     collision_kernel.obb_collision.launches = 0
     result = drive_to_goal(planner, max_steps=100)
     assert result["goal_reached"] and result["steps"] == 27
-    assert collision_kernel.obb_collision.launches == result["plan_calls"]
+    # the warm-up's launch and the captured one per built level program;
+    # one execution per level evaluation (one per call here) when replayed
+    assert collision_kernel.obb_collision.launches \
+        == 2 * len(planner.level_programs)
+    executions, _ = chip_smoke.kernel_executions(
+        torch, lambda: chip_smoke.plan_drive(
+            torch, "ZAM_Over-1_1", dtype="float64",
+            programs=planner.level_programs),
+        chip_smoke.COLLISION_KERNEL, result["plan_calls"])
+    assert executions == result["plan_calls"]
 
 
 def test_fleet_collision_kernel_and_xla_fleet_on_card(cuda):

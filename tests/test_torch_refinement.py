@@ -2,11 +2,12 @@
 and the continuous swept-OBB pass -- through ``plan()`` and ``plan_scan``,
 held against the JAX package (its Pallas scorer in interpret mode).
 
-* ``plan()`` on the port's default path (the fused float32 scorer with the
-  lazy winner loop of ``ops.cycle.evaluate_levels_fast``) against the JAX
+* ``plan()`` on the port's default path (the fused level program: the
+  scorer with the bounded winner refinement ``ops.cycle.refine_cheapest``,
+  continued by the lazy loop past its width) against the JAX
   planner's fused ``plan()`` on ZAM_Over's first cycle: the winner's states
   to 1e-4, its cost to rtol 2e-4, identical counters and reason dicts.
-* ``plan_scan`` (the bounded refinement ``replanning_scan.refine_cheapest``)
+* ``plan_scan`` (the bounded refinement ``ops.cycle.refine_cheapest``)
   against the JAX package's ``plan_scan`` (its ``while_loop`` over winners)
   driving ZAM_Over to the goal from the same curvilinear state, at the bar
   of ``tests/test_torch_plan_scan.py``.
@@ -37,7 +38,7 @@ from commonroad_rp_tpu.ops import collision as jax_collision
 
 from commonroad_rp_tpu_torch import interop
 from commonroad_rp_tpu_torch.parallel import replanning_scan
-from commonroad_rp_tpu_torch.parallel.replanning_scan import REFINE_WIDTH
+from commonroad_rp_tpu_torch.ops.cycle import REFINE_WIDTH
 from commonroad_rp_tpu_torch.run_planner import load_config, make_planner
 
 from tests.test_torch_plan_scan import _assert_drives_match, _drive
