@@ -49,7 +49,13 @@ Phases (any failure raises and ends the run with a non-zero exit code):
    at a desired speed 2 m/s above the captured one bit for bit the twin at
    that speed (the states must move with the speed somewhere), then the
    scenario to its goal in 27/35/44/146 steps through ``plan_scan``, which
-   replays the captured cycle; the single-problem scan captured against
+   replays the captured cycle, its recorded states certified as in
+   tests/test_torch_certification.py (``utils.evaluation.certify_drive``:
+   start, goal, collisions, road boundary, the reconstruction's drift;
+   every transition KS-feasible but on the T-junction, whose failing
+   transitions must be exactly the JAX package's 27 of 146,
+   ``probes.divergence7.TJUNCTION_FAILING``, no allowance); the
+   single-problem scan captured against
    uncaptured; ZAM_Over at T=61 captured against uncaptured, and through
    the kernel against the plain version (same found flags, states within
    5e-3); ms/cycle and device busy share of both forms at T=21 and T=61;
@@ -86,22 +92,33 @@ Phases (any failure raises and ends the run with a non-zero exit code):
    their goals, each scan captured and bit for bit its uncaptured twin,
    with no device read between cycles and the largest per-cycle
    re-selection count of the scan's exact refinement;
-11. the XLA fleet path (``parallel.fleet.make_fleet_rollout``) on the card:
-   the bench shape (16 copies of ZAM_Over-1_1, K=2754, T=21, 10 cycles) with
-   one fleet collision-kernel launch per cycle and ms/cycle; the fleet form
-   of the collision kernel (``obb_collision_fleet``) against its plain
-   version in float32 and float64, 0 differing candidates; the 12-problem
-   heterogeneous fleet through the XLA path and the fused fleet scan at the
-   bars of tests/test_torch_xla_fleet.py; ``run_fleet --xla``'s 1024-problem
-   fleet for 150 cycles beside the fused scan's goal counts (phase 8), with
-   ms/cycle, candidate-evals/s, the kernel's time (one device kernel per
-   call), the share of pair tests its bounding-circle skip removes, the
-   busy share and the peak device memory; every rollout with no device read
-   between cycles;
-12. the NCCL dry run: ``dryrun_multichip(1)`` (a world-size-1 NCCL group
-   through two XLA fleet cycles and one fused fleet-scan cycle, global
-   success count = F, three ``fleet_all_reduce`` calls per cycle) and the
-   n=1 row of ``measure_scaling``;
+11. the XLA fleet path (``parallel.fleet.make_fleet_rollout``) on the card,
+   captured (one cycle as a CUDA graph, replayed per cycle): the bench shape
+   (16 copies of ZAM_Over-1_1, K=2754, T=21, 10 cycles), the 12-problem
+   heterogeneous fleet (10 cycles; and a second scene of the same shapes
+   through the same program) and ``run_fleet --xla``'s 1024-problem fleet
+   (150 cycles) each bit for bit its ``graph=False`` twin (every metric of
+   every cycle, fleet1024's member outcomes), with no device read between
+   cycles, the wrapper counting the warm-up's and the captured launch, one
+   ``obb_collision_fleet_kernel`` execution per cycle (profiler: F=16,
+   F=12, and a 3-cycle fleet1024 program), the graph's pool, the first
+   call's extra time, both forms' ms/cycle, candidate-evals/s and busy
+   share; the fleet form of the collision kernel (``obb_collision_fleet``)
+   against its plain version in float32 and float64, 0 differing
+   candidates; the 12-problem fleet through the XLA path and the fused
+   fleet scan at the bars of tests/test_torch_xla_fleet.py; fleet1024 beside
+   the fused scan's goal counts (phase 8), the kernel's time (one device
+   kernel per call), the share of pair tests its bounding-circle skip
+   removes and the peak device memory of both forms;
+12. the NCCL dry run in this process (a world-size-1 NCCL group,
+   ``dryrun.run_rank``: two XLA fleet cycles and one fused fleet-scan
+   cycle, global success count = F); its two programs
+   (``dryrun.fleet_programs``) captured with their all-reduces in the
+   graph and bit for bit their ``graph=False`` twins; three
+   one-element ``fleet_all_reduce`` calls recorded per captured step and per
+   eager cycle, a replay launching as many device operations as the eager
+   twin (profiler), what one all-reduce launches eager and replayed; and
+   the n=1 row of ``measure_scaling``;
 13. the T=61 launch-overhead probe (``probes.t61_overhead``): phases A, C and
    D, 150 launches each; the probe kernel against its plain version
    (exactly equal), and the time of one ``scoring.trivial_probe`` call
@@ -555,8 +572,9 @@ def captured_and_twin(torch, label, run, twin, carry, *args):
 def kernel_executions(torch, fn, pattern, expected, attempts=8, warm=True):
     """Executions of the device kernels whose name matches ``pattern`` (a
     regular expression) in one warm call of ``fn`` under ``torch.profiler``,
-    and the names of every kernel traced (``warm=False``: ``fn`` builds
-    nothing, so no untraced call comes first).  The profiler drops events
+    and ``{name: executions}`` of every device operation traced (kernels,
+    copies, sets; ``warm=False``: ``fn`` builds nothing, so no untraced
+    call comes first).  The profiler drops events
     now and then (a trace may hold none), so a trace that holds fewer than
     ``expected`` is taken again, up to ``attempts`` times (logged when more
     than one was needed); the largest count is returned."""
@@ -566,7 +584,7 @@ def kernel_executions(torch, fn, pattern, expected, attempts=8, warm=True):
     if warm:
         fn()
     torch.cuda.synchronize()
-    best, names = 0, []
+    best, counts = 0, {}
     for attempt in range(attempts):
         if attempt:
             log(f"  {attempt} trace(s) held at most {best} of {expected} "
@@ -580,10 +598,10 @@ def kernel_executions(torch, fn, pattern, expected, attempts=8, warm=True):
         count = sum(evt.count for evt in kernels
                     if re.search(pattern, evt.key))
         if count >= best:
-            best, names = count, sorted({evt.key for evt in kernels})
+            best, counts = count, {evt.key: evt.count for evt in kernels}
         if best >= expected:
             break
-    return best, names
+    return best, counts
 
 
 # the scorers' device kernels by name (fleet_score_kernel also ends in
@@ -591,6 +609,7 @@ def kernel_executions(torch, fn, pattern, expected, attempts=8, warm=True):
 SCORE_KERNEL, FLEET_SCORE_KERNEL = r"(?<!fleet_)score_kernel", \
     r"fleet_score_kernel"
 COLLISION_KERNEL = r"obb_collision_kernel"
+FLEET_COLLISION_KERNEL = r"obb_collision_fleet_kernel"
 
 
 def padded_fleet_scene(torch, scene, n_rows):
@@ -1163,8 +1182,10 @@ def main():
     k_ms, p_ms, dev_ms = timing["main"]
     # ``device_ms``: the kernel's device time per call (profiler), beside
     # the per-call time of the Python launch path; ``executions``: the
-    # kernel's executions in a traced call of a captured scan (the wrappers
-    # count the warm-up's launch and the captured one, not the replays)
+    # kernel's executions in a traced call of a captured program (the
+    # wrappers count the warm-up's launch and the captured one, not the
+    # replays; the fleet collision kernel's from a 3-cycle fleet1024
+    # rollout, ``executions_of_cycles``, its 150-cycle run untraced)
     entry = lambda name, source, replaces, launches, max_abs_err, ms, \
         plain_ms, bound, library_ms=None, **extra: {
             "name": name, "route": "cuda",
@@ -1199,7 +1220,8 @@ def main():
         entry("obb_collision_fleet", "collision.cu",
               "commonroad_rp_tpu/ops/pallas_kernels.py:33",
               xla["launches"], 0.0, xla["ms"], xla["plain_ms"],
-              (xla["bound_ms"], xla["bound_by"])),
+              (xla["bound_ms"], xla["bound_by"]), device_ms=xla["dev_ms"],
+              executions=xla["executions"], executions_of_cycles=3),
         entry("trivial_probe", "scoring.cu",
               "scripts/t61_overhead_probe.py:200", probe["launches"],
               probe["max_err"], probe["ms"], probe["plain_ms"],
@@ -1324,6 +1346,29 @@ def hostile_cases(torch, seeds=(0, 1, 2)):
     return max_err
 
 
+def certify_drive(label, planner, failing=()):
+    """The physics certificate (``utils.evaluation.certify_drive``) of a
+    drive's recorded states: raises unless start, goal, collision,
+    road-boundary compliance and the open-loop drift hold and the
+    transitions that fail the KS reconstruction are exactly ``failing``
+    (none but the T-junction's divergence 7).  Returns the certificate."""
+    from commonroad_rp_tpu_torch.utils import evaluation as ev
+
+    cert = ev.certify_drive(planner.config, planner.record_state_list)
+    n = len(cert["transitions"])
+    log(f"{label}: certificate start={cert['start']} goal={cert['goal']} "
+        f"collision_free={cert['collision_free']} boundary_ok="
+        f"{cert['boundary_ok']}, {n - len(cert['failing'])}/{n} transitions "
+        f"KS-feasible (failing {cert['failing']}, expected {list(failing)}), "
+        f"open-loop drift {cert['drift']:.4f} m (bound "
+        f"{cert['drift_bound']:.2f})")
+    check(cert["certified"], f"{label}: the certificate failed: {cert}")
+    check(cert["failing"] == list(failing), f"{label}: transitions "
+          f"{cert['failing']} fail the KS reconstruction, expected "
+          f"{list(failing)}")
+    return cert
+
+
 def phase_plan_scan(torch):
     """7. plan_scan on the card, captured: each scenario's scan bit for bit
     its uncaptured twin with one ``score_kernel`` execution per cycle, then
@@ -1333,6 +1378,7 @@ def phase_plan_scan(torch):
     version; ms/cycle and busy share of both forms at T=21 and T=61, the
     capture's time and its graph pool."""
     from commonroad_rp_tpu_torch.ops import scoring
+    from commonroad_rp_tpu_torch.probes import divergence7
     from commonroad_rp_tpu_torch.run_planner import load_config, make_planner
 
     moved = {}
@@ -1375,6 +1421,9 @@ def phase_plan_scan(torch):
               f"{EXPECTED_STEPS[name]}")
         check(run.replays - replays == info["cycles_run"] == cycles,
               f"plan_scan {name}: not the captured program's replays")
+        certify_drive(f"plan_scan {name}", planner,
+                      divergence7.TJUNCTION_FAILING
+                      if name == divergence7.TJUNCTION else ())
 
     check(any(moved.values()), "plan_scan: no scenario's states moved with "
           "the desired speed, so the replays at another speed show nothing")
@@ -2277,10 +2326,12 @@ def reset_launch_counts():
 
 
 def phase_xla_fleet(torch, fused):
-    """11. The XLA fleet path on the card: the bench shape, the fleet
-    collision kernel against its plain version, the 12-problem fleet
-    against the fused scan, and fleet1024 beside the fused scan's goal
-    counts (``fused``: phase 8's outcomes and trace)."""
+    """11. The XLA fleet path on the card, captured: the bench shape, the
+    12-problem fleet and fleet1024 bit for bit their ``graph=False`` twins,
+    one fleet collision-kernel execution per cycle (profiler); the fleet
+    collision kernel against its plain version; the 12-problem fleet
+    against the fused scan; fleet1024 beside the fused scan's goal counts
+    (``fused``: phase 8's outcomes and trace)."""
     from commonroad_rp_tpu_torch.ops import collision_kernel as ck
     from commonroad_rp_tpu_torch.ops import grid as grid_ops
     from commonroad_rp_tpu_torch.parallel import fleet
@@ -2291,6 +2342,25 @@ def phase_xla_fleet(torch, fused):
         heterogeneous_fleet, make_scan, make_xla_rollout, member_outcomes,
         winner_trace)
 
+    def captured_rollout(label, run, twin, carry, scene, cycles):
+        """``captured_and_twin`` on a rollout, its wrapper counts (the
+        warm-up's launch and the captured one) and the profiler's
+        executions of the fleet collision kernel in a traced warm call."""
+        got, _, _ = captured_and_twin(torch, label, run, twin, carry, scene)
+        launches = ck.obb_collision_fleet.launches
+        check(launches == 2 + cycles and ck.obb_collision.launches == 0,
+              f"{label}: {launches} fleet collision launches for the "
+              f"captured program and its {cycles}-cycle twin")
+        executions, names = kernel_executions(
+            torch, lambda: run(carry, scene), FLEET_COLLISION_KERNEL, cycles)
+        check(executions == cycles, f"{label}: {executions} fleet collision "
+              f"kernel executions for {cycles} cycles ({names})")
+        log(f"{label}: wrapper counts 2 (warm-up, capture) + {cycles} "
+            f"(twin); {executions} obb_collision_fleet_kernel executions in "
+            f"a traced call (profiler); graph pool {run.pool_bytes} B "
+            f"({run.pool_bytes / 2**20:.1f} MiB)")
+        return got, executions
+
     # ---- bench shape (bench.py:670-694): 16 x ZAM_Over, level 3, 10 cycles
     F, cycles = 16, 10
     scene, carry = fleet.build_fleet_scene(
@@ -2299,49 +2369,50 @@ def phase_xla_fleet(torch, fused):
     static_grid = grid_ops.make_static_grid(LEVEL, 0.4, N_STEPS * DT, DT,
                                             -3.0, 3.0, 4)
     K = static_grid.size
-    bench = lambda n: fleet.make_fleet_rollout(
+    bench = lambda n, graph=True: fleet.make_fleet_rollout(
         None, shared_vehicle(), static_grid, DT, N_STEPS, replan_offset=3,
         low_vel_threshold=4.0, horizon=N_STEPS * DT, n_cycles=n,
-        device="cuda")
-    run = bench(cycles)
-    reset_launch_counts()
-    _, metrics = no_sync(torch, lambda: run(carry, scene))
-    torch.cuda.synchronize()
-    check(ck.obb_collision_fleet.launches == cycles
-          and ck.obb_collision.launches == 0,
-          f"XLA fleet F=16: {ck.obb_collision_fleet.launches} fleet "
-          f"collision launches for {cycles} cycles")
-    walls = []
-    for _ in range(3):
-        t0 = time.time()
-        run(carry, scene)
-        torch.cuda.synchronize()
-        walls.append(time.time() - t0)
-    wall = min(walls)
-    log(f"XLA fleet F={F} (bench shape): K={K} T={N_STEPS + 1} {cycles} "
-        f"cycles, {cycles} fleet collision launches, successes per cycle "
-        f"{metrics.fleet_success.tolist()}; {wall / cycles * 1e3:.3f} "
-        f"ms/cycle, {F * K * cycles / wall:.6g} candidate-evals/s (warm, "
-        "best of 3)")
-    ops16 = captured_fleet_collision(lambda: bench(1)(carry, scene))
+        device="cuda", graph=graph)
+    run, twin = bench(cycles), bench(cycles, False)
+    (_, metrics), _ = captured_rollout(f"XLA fleet F={F} (bench shape)", run,
+                                       twin, carry, scene, cycles)
+    forms = scan_forms_timed(torch, f"XLA fleet F={F} (bench shape)",
+                             {"captured": run, "uncaptured": twin},
+                             lambda fn: fn(carry, scene), cycles, rounds=1)
+    log(f"XLA fleet F={F} (bench shape): K={K} T={N_STEPS + 1}, successes "
+        f"per cycle {metrics.fleet_success.tolist()}; "
+        + ", ".join(f"{form} {F * K / ms * 1e3:.6g} candidate-evals/s"
+                    for form, (ms, _) in forms.items()))
+    ops16 = captured_fleet_collision(lambda: bench(1, False)(carry, scene))
     compare_fleet_collision(torch, "bench F=16 first cycle", ops16)
     ms16 = cuda_time_ms(torch, lambda: ck.obb_collision_fleet(*ops16),
                         KERNEL_REPS)
     plain16 = cuda_time_ms(
         torch, lambda: ck.obb_collision_fleet_reference(*ops16), PLAIN_REPS)
-    ck.obb_collision_fleet.launches = 0
     log(f"time fleet collision F=16: kernel {ms16:.4f} ms, plain "
         f"{plain16:.4f} ms")
 
     # ---- the 12-problem heterogeneous fleet: XLA path against fused scan
     scene12, carry12, _, _ = heterogeneous_fleet(12, 10, device="cuda",
                                                  root=HERE)
-    run_x, _ = make_xla_rollout(10, 1, "cuda")
-    final_x, m_x = no_sync(torch, lambda: run_x(carry12, scene12))
+    run_x = make_xla_rollout(10, 1, "cuda")[0]
+    (final_x, m_x), _ = captured_rollout(
+        "XLA fleet F=12", run_x, make_xla_rollout(10, 1, "cuda", False)[0],
+        carry12, scene12, 10)
+    # a second scene of the same shapes through the same captured program
+    scene12b, carry12b, _, _ = heterogeneous_fleet(12, 10, seed=1,
+                                                   device="cuda", root=HERE)
+    assert_bit_identical(
+        torch, "XLA fleet F=12, another scene",
+        no_sync(torch, lambda: run_x(carry12b, scene12b)),
+        make_xla_rollout(10, 1, "cuda", False)[0](carry12b, scene12b))
+    log("XLA fleet F=12: the captured program on a second scene (seed 1) "
+        "== a fresh uncaptured rollout on it, bit for bit")
     run_f, _ = make_scan(scene12, 10)
     final_f, m_f = run_f(carry12)
     compare_fleet_collision(torch, "F=12 first cycle", captured_fleet_collision(
-        lambda: make_xla_rollout(1, 1, "cuda")[0](carry12, scene12)))
+        lambda: make_xla_rollout(1, 1, "cuda", False)[0](carry12,
+                                                         scene12)))
     h = lambda t: t.cpu().numpy()
     np.testing.assert_array_equal(h(m_x.found), h(m_f[0]))
     np.testing.assert_allclose(h(final_x.x0_lon), h(final_f.x0_lon),
@@ -2357,8 +2428,12 @@ def phase_xla_fleet(torch, fused):
         f"{float((final_x.x0_lon - final_f.x0_lon).abs().max()):.3e}, max "
         f"|best cost diff| "
         f"{float((m_x.best_cost - m_f[1]).nan_to_num(0, 0, 0).abs().max()):.3e})")
+    del run, twin, run_x, run_f
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
-    # ---- full width: run_fleet --xla's 1024-problem fleet, 150 cycles
+    # ---- full width: run_fleet --xla's 1024-problem fleet, 150 cycles,
+    # captured (the default) and its graph=False twin
     F, cycles = 1024, 150
     scene, carry, goals, base_idx = fused["fleet"]          # phase 8's fleet
     run, K = make_xla_rollout(cycles, 1, "cuda")
@@ -2367,26 +2442,50 @@ def phase_xla_fleet(torch, fused):
         f"T={N_STEPS + 1}, M={M}, Mp={scene.poly_verts.shape[1]}; reckoned "
         f"peak: about 16 [F, K, T] float32 arrays of {F * K * 21 / 1e6:.1f}M "
         f"elements, {16 * F * K * 21 * 4 / 1e9:.1f} GB")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    t0 = time.time()
-    _, metrics = no_sync(torch, lambda: run(carry, scene))
-    torch.cuda.synchronize()
-    first = time.time() - t0
-    launches = ck.obb_collision_fleet.launches
-    check(launches == cycles and ck.obb_collision.launches == 0,
-          f"XLA fleet1024: {launches} fleet collision launches for {cycles} "
-          "cycles")
-    peak = torch.cuda.max_memory_allocated()
-    # device-bound (busy share below): the first run is a warm one, eager
-    # PyTorch compiles nothing and the kernels were built in phase 2
-    log(f"XLA fleet1024: {cycles} cycles, {launches} fleet collision "
-        f"launches, no device read between cycles; {first:.3f} s: "
-        f"{first / cycles * 1e3:.3f} ms/cycle, "
-        f"{F * K * cycles / first:.6g} candidate-evals/s; peak device memory "
-        f"{peak / 1e9:.3f} GB (max_memory_allocated)")
+    walls, peaks = {}, {}
+    results = {}
+    for form, make in (("captured", lambda: run),
+                       ("uncaptured", lambda: make_xla_rollout(
+                           cycles, 1, "cuda", graph=False)[0])):
+        program = make()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.time()
+        results[form] = no_sync(torch, lambda: program(carry, scene))
+        torch.cuda.synchronize()
+        walls[form] = time.time() - t0
+        peaks[form] = torch.cuda.max_memory_allocated()
+        launches = ck.obb_collision_fleet.launches
+        want = 2 if form == "captured" else cycles
+        check(launches == want and ck.obb_collision.launches == 0,
+              f"XLA fleet1024 {form}: {launches} fleet collision launches, "
+              f"expected {want}")
+        if form == "captured":
+            check(program.replays == cycles, f"XLA fleet1024: "
+                  f"{program.replays} replays for {cycles} cycles")
+            pool, main_launches = program.pool_bytes, launches
+        log(f"XLA fleet1024 {form}: {cycles} cycles, {launches} fleet "
+            f"collision wrapper launches, no device read between cycles; "
+            f"{walls[form]:.3f} s"
+            f"{' (first call: warm-up cycle, capture, 150 replays)' if form == 'captured' else ''}: "
+            f"{walls[form] / cycles * 1e3:.3f} ms/cycle, "
+            f"{F * K * cycles / walls[form]:.6g} candidate-evals/s; peak "
+            f"device memory {peaks[form] / 1e9:.3f} GB "
+            f"(max_memory_allocated)")
+    assert_bit_identical(torch, "XLA fleet1024", results["captured"],
+                         results["uncaptured"])
+    metrics = results["captured"][1]
     outcomes = member_outcomes(metrics, goals, base_idx)
+    check(outcomes == member_outcomes(results["uncaptured"][1], goals,
+                                      base_idx),
+          "XLA fleet1024: member outcomes differ between the forms")
+    log(f"XLA fleet1024: captured == uncaptured bit for bit ({cycles} "
+        f"cycles, every metric, member outcomes); graph pool {pool} B "
+        f"({pool / 2**30:.3f} GiB)")
+    del run, results
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     counts = goal_counts(metrics, goals, base_idx, outcomes=outcomes)
     fused_counts = goal_counts(None, goals, base_idx,
                                outcomes=fused["outcomes"])
@@ -2418,8 +2517,22 @@ def phase_xla_fleet(torch, fused):
             f"vehicle {VEHICLE_TYPES[base_idx[f] % len(VEHICLE_TYPES)]}): "
             f"XLA {outcomes[f]}, fused {fused['outcomes'][f]}; {where}")
 
+    # a 3-cycle program at the same width: the first call's extra time and
+    # the profiler's executions (a traced 150-cycle replay would take 15 s),
+    # both forms' ms/cycle in turns and their busy shares
+    run3, twin3 = (make_xla_rollout(3, 1, "cuda", graph=graph)[0]
+                   for graph in (True, False))
+    _, executions = captured_rollout("XLA fleet1024, 3 cycles", run3, twin3,
+                                     carry, scene, 3)
+    forms = scan_forms_timed(torch, "XLA fleet1024 (3 cycles)",
+                             {"captured": run3, "uncaptured": twin3},
+                             lambda fn: fn(carry, scene), 3, rounds=1)
+    del run3, twin3
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
     ops = captured_fleet_collision(
-        lambda: make_xla_rollout(1, 1, "cuda")[0](carry, scene))
+        lambda: make_xla_rollout(1, 1, "cuda", False)[0](carry, scene))
     compare_fleet_collision(torch, "fleet1024 first cycle", ops)
     ms = cuda_time_ms(torch, lambda: ck.obb_collision_fleet(*ops), 50)
     plain_ms = cuda_time_ms(torch, lambda: [
@@ -2433,34 +2546,97 @@ def phase_xla_fleet(torch, fused):
                               "obb_collision_fleet_kernel")
     bound_ms, bound_by, (steps, headings, pairs, full) = collision_bound(
         torch, ops)
-    ck.obb_collision_fleet.launches = launches
     log(f"time fleet collision F={F}: kernel {ms:.4f} ms per "
         f"obb_collision_fleet call (device time {dev_text(dev_ms)}), plain "
         f"{plain_ms:.4f} ms (8 calls of 128 problems); bound {bound_ms:.6f} "
         f"ms by {bound_by} ({steps} evaluated steps, {headings} with their "
         f"heading computed, {pairs} live pairs, {full} full pair tests: the "
         f"skip removes {1 - full / max(pairs, 1):.4f} of the pair tests)")
-    run3, _ = make_xla_rollout(3, 1, "cuda")
-    log(f"XLA fleet1024 device busy share over a 3-cycle rollout: "
-        f"{device_busy_share(torch, lambda: run3(carry, scene))}")
-    return dict(launches=launches, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    return dict(launches=main_launches, executions=executions, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                dev_ms=dev_ms, walls=walls, pool=pool)
+
+
+def same_device_ops(torch, label, run, twin, args, attempts=8):
+    """Raises unless a replay of the captured ``run`` launches as many
+    device operations as its eager ``twin`` on the same arguments (the
+    profiler drops events now and then: each form's largest count over up
+    to ``attempts`` traces, taken in turns until they agree).  Returns the
+    count."""
+    best = {True: 0, False: 0}
+    for attempt in range(attempts):
+        for form, fn in ((True, run), (False, twin)):
+            best[form] = max(best[form], kernel_executions(
+                torch, lambda: fn(*args), "", 0, attempts=1)[0])
+        if best[True] == best[False]:
+            break
+    check(best[True] == best[False], f"{label}: a replay launches "
+          f"{best[True]} device operations, the eager twin {best[False]}")
+    return best[True]
 
 
 def phase_nccl_dryrun(torch):
-    """12. dryrun_multichip(1): a world-size-1 NCCL group through both fleet
-    paths, then the n=1 row of the scaling sweep."""
+    """12. The NCCL dry run in this process: a world-size-1 NCCL group
+    through both fleet programs (``dryrun.run_rank``: two XLA fleet cycles
+    and one fused fleet-scan cycle, global success count = F); the same
+    programs (``dryrun.fleet_programs``) captured with the all-reduces in
+    the graph, bit for bit their ``graph=False`` twins; three one-element all-reduces recorded per captured step (2 x 3
+    per program: the warm-up's and the capture's) and three per eager
+    cycle; a replay of each captured program launches as many device
+    operations as its twin (profiler), and what one all-reduce launches,
+    eager and replayed; then the n=1 row of ``measure_scaling`` (the
+    captured rollout under a group of one)."""
+    import torch.distributed as dist
+
+    from commonroad_rp_tpu_torch.ops.program import CapturedStep
     from commonroad_rp_tpu_torch.parallel import dryrun, mesh, scaling
 
-    calls = mesh.fleet_all_reduce.calls
-    elements = mesh.fleet_all_reduce.elements
-    dryrun.dryrun_multichip(1, device="cuda")
-    calls = mesh.fleet_all_reduce.calls - calls
-    elements = mesh.fleet_all_reduce.elements - elements
-    log(f"NCCL dry run: {calls} fleet_all_reduce calls of {elements} "
-        "elements in all over 3 cycles (2 XLA, 1 fused)")
-    check(calls == elements == 3 * 3,
-          "NCCL dry run: not three one-element all-reduces per cycle")
+    device = mesh.initialize_distributed(
+        f"tcp://localhost:{dryrun.free_port()}", 1, 0, "cuda")
+    try:
+        group = mesh.make_fleet_group()
+        dryrun.run_rank(group, 0, 1, device)
+        programs, counts = {}, {}
+        for graph in (True, False):
+            before = mesh.fleet_all_reduce.calls, mesh.fleet_all_reduce.elements
+            rollout, fused, carry, scene = dryrun.fleet_programs(
+                group, 0, 1, device, graph)
+            args = {"xla": (carry, scene), "fused": (carry,)}
+            programs[graph] = {key: (run, args[key], run(*args[key]))
+                               for key, run in (("xla", rollout),
+                                                ("fused", fused))}
+            counts[graph] = (mesh.fleet_all_reduce.calls - before[0],
+                             mesh.fleet_all_reduce.elements - before[1])
+        log(f"NCCL dry run: fleet_all_reduce (calls, elements) captured "
+            f"{counts[True]} (2 programs x warm-up and capture x 3), eager "
+            f"{counts[False]} (3 cycles x 3)")
+        check(counts[True] == (2 * 2 * 3,) * 2 and counts[False] == (3 * 3,) * 2,
+              "NCCL dry run: not three one-element all-reduces per captured "
+              "step and per eager cycle")
+        for key in ("xla", "fused"):
+            run, args, got = programs[True][key]
+            twin, _, want = programs[False][key]
+            check(run.graph and not twin.graph
+                  and run.replays == run.n_cycles, f"NCCL dry run {key}: "
+                  f"graph {run.graph}/{twin.graph}, {run.replays} replays")
+            assert_bit_identical(torch, f"NCCL dry run {key}", got, want)
+            n_ops = same_device_ops(torch, f"NCCL dry run {key}", run, twin,
+                                    args)
+            log(f"NCCL dry run {key}: captured == eager bit for bit "
+                f"({run.n_cycles} cycles, graph pool {run.pool_bytes} B); a "
+                f"replay launches {n_ops} device operations, the eager twin "
+                f"as many ({n_ops / run.n_cycles:.0f} per cycle)")
+        x = torch.ones((), device=device)
+        step = CapturedStep(lambda: mesh.fleet_all_reduce(x, group), device)
+        step()
+        for label, fn in (("eager", lambda: mesh.fleet_all_reduce(x, group)),
+                          ("replayed", step)):
+            log(f"NCCL one fleet_all_reduce, {label}: device operations "
+                f"{kernel_executions(torch, fn, '', 0, attempts=1)[1]}")
+        check(float(step()) == float(mesh.fleet_all_reduce(x, group)) == 1.0,
+              "NCCL all-reduce of a world of one is not the identity")
+    finally:
+        dist.destroy_process_group()
     report = scaling.measure_scaling("cuda")
     for row in report["sweep"]:
         log(f"measure_scaling on {report['device']}: n={row['devices']} "

@@ -75,7 +75,11 @@ def upload_constants(grid, device, dtype=torch.float32) -> tuple:
     """Upload a StaticGrid's or CorridorGrid's static values once, before a
     scan's loop, so that no cycle copies from the host.  Returns the
     tensors: a captured scan holds them for as long as its graph reads
-    them (the cache may drop them)."""
+    them (the cache may drop them).  A bare ``cuda`` names the current
+    card, as the cycles' tensors do, so that both look up one entry."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     held = (constant(grid.t_values, dtype, device),
             constant(grid.traj_len, torch.int32, device))
     if isinstance(grid, StaticGrid):

@@ -15,8 +15,11 @@ returns its outputs.  :class:`CapturedStep` runs it three ways:
   dispatch per op (the twin the captured step is held against);
 * on the CPU, whatever ``graph`` says: eagerly (``graph`` is then False).
 
-The callers are the replanning scans (``parallel.replanning_scan``) and the
-level programs (``ops.level_program``).
+:class:`ScanProgram` runs a scan's cycle ``n_cycles`` times as such a
+step, its carry (and a rollout's scene) in :class:`StaticBuffers`: the
+counterpart of a jitted ``lax.scan``.  The callers are the replanning scans
+(``parallel.replanning_scan``), the XLA fleet rollout (``parallel.fleet``)
+and the level programs (``ops.level_program``).
 """
 
 from __future__ import annotations
@@ -81,3 +84,146 @@ class CapturedStep:
             self._graph.replay()
         self.replays += 1
         return self.outputs
+
+
+def _leaves(value, prefix=""):
+    """(name, tensor) of every tensor of a NamedTuple, nested NamedTuples
+    flattened with dotted names (``ref.s``)."""
+    for name, x in zip(value._fields, value):
+        if hasattr(x, "_fields"):
+            yield from _leaves(x, f"{prefix}{name}.")
+        else:
+            yield f"{prefix}{name}", x
+
+
+def _empty_like(value, device):
+    """A NamedTuple (nested NamedTuples too) of uninitialised tensors shaped
+    like ``value``'s, on ``device``."""
+    return type(value)(*(_empty_like(x, device) if hasattr(x, "_fields")
+                         else torch.empty_like(x, device=device)
+                         for x in value))
+
+
+class StaticBuffers:
+    """A static copy of a NamedTuple of tensors (nested NamedTuples too):
+    the memory a captured step reads in place of its argument.
+
+    ``load(value)`` copies ``value`` in, allocating the buffers at its first
+    call; a later value whose field differs in shape or dtype raises
+    ``ValueError`` (a graph keeps the addresses and shapes it captured).
+    ``value`` is the static copy, None before the first load; ``what`` names
+    the argument in the error (``carry``, ``scene``)."""
+
+    def __init__(self, what: str, device):
+        self.what = what
+        self.device = torch.device(device)
+        self.value = None
+
+    def load(self, value):
+        if self.value is None:
+            self.value = _empty_like(value, self.device)
+        for (name, static), (_, x) in zip(_leaves(self.value), _leaves(value)):
+            if x.shape != static.shape or x.dtype != static.dtype:
+                raise ValueError(
+                    f"{self.what} field {name}: {tuple(x.shape)} {x.dtype}, "
+                    f"the program was built for {tuple(static.shape)} "
+                    f"{static.dtype}")
+            static.copy_(x)
+
+
+class ScanProgram:
+    """``run(carry, *args) -> (carry, metrics)``: ``n_cycles`` cycles of a
+    scan in buffered form, the counterpart of the JAX package's jitted
+    ``lax.scan`` (pallas_fleet.py:135-136, :354-382, :737-738; fleet.py:
+    268-274).
+
+    ``cycle(carry) -> (new carry, metrics)`` reads the static carry
+    buffers; each step writes every metric into its preallocated
+    [n_cycles, ...] buffer at a device-side cycle counter (``index_copy_``
+    at a 0-d index), copies the new carry into the static buffers and
+    advances the counter, so that steps chain without the host.  The same
+    step runs three ways:
+
+    * on a CUDA device (``graph=True``, the default): the first call runs
+      one warm-up step and captures one step (:class:`CapturedStep`); every
+      call replays the graph ``n_cycles`` times (``replays`` counts them).
+      A capture or a replay that fails raises: nothing falls back to the
+      eager loop;
+    * on a CUDA device with ``graph=False``: the same steps eagerly, one
+      dispatch per op (the twin the captured scan is held against);
+    * on the CPU, whatever ``graph`` says: eagerly (``self.graph`` is then
+      False).
+
+    Each call copies the caller's carry into the static buffers, runs
+    ``prepare(*args)`` (the facade scan writes its desired speed into its
+    scalar row there; the XLA fleet rollout loads its scene into static
+    buffers) and resets the counter; it returns clones, so the caller never
+    holds memory that the next call overwrites.  Metrics come back as the
+    cycle's type (a NamedTuple such as ``parallel.fleet.CycleMetrics``, or
+    a tuple).  ``keep`` holds tensors a cycle reads that nothing else keeps
+    alive for the graph's life (the grids' cached constants).
+    """
+
+    def __init__(self, cycle, n_cycles: int, device, graph: bool = True,
+                 keep=(), prepare=None):
+        device = torch.device(device)
+        self.cycle = cycle
+        self.n_cycles = n_cycles
+        self.device = device
+        self._program = CapturedStep(self._step, device, graph)
+        self.graph = self._program.graph
+        self._keep = tuple(keep)
+        self._prepare = prepare
+        self._carry = StaticBuffers("carry", device)
+        self._outputs = None
+        self._metrics_type = tuple
+        self._counter = torch.zeros((), dtype=torch.int64, device=device)
+
+    @property
+    def replays(self) -> int:
+        """Replays of the captured cycle so far."""
+        return self._program.replays
+
+    @property
+    def pool_bytes(self):
+        """The device memory of the captured graph's pool
+        (:attr:`CapturedStep.pool_bytes`); None before a capture."""
+        return self._program.pool_bytes
+
+    def _load(self, carry):
+        """The caller's carry into the static buffers, the counter to 0."""
+        self._carry.load(carry)
+        self._counter.zero_()
+
+    def _step(self):
+        carry = self._carry.value
+        new_carry, metrics = self.cycle(carry)
+        if self._outputs is None:
+            self._outputs = tuple(m.new_empty((self.n_cycles,) + m.shape)
+                                  for m in metrics)
+            self._metrics_type = getattr(type(metrics), "_make", tuple)
+        for out, m in zip(self._outputs, metrics):
+            out.index_copy_(0, self._counter, m.unsqueeze(0))
+        for name, static, new in zip(new_carry._fields, carry, new_carry):
+            if new.shape != static.shape or new.dtype != static.dtype:
+                raise ValueError(
+                    f"the cycle turns carry field {name} into "
+                    f"{tuple(new.shape)} {new.dtype}, from "
+                    f"{tuple(static.shape)} {static.dtype}")
+            static.copy_(new)
+        self._counter.add_(1)
+
+    def __call__(self, carry, *args):
+        self._load(carry)
+        if self._prepare is not None:
+            self._prepare(*args)
+        final = lambda: type(carry)(*(x.clone() for x in self._carry.value))
+        if self.n_cycles == 0:
+            return final(), ()
+        if self._program.capture():
+            # the warm-up cycle advanced the carry and the counter
+            self._load(carry)
+        for _ in range(self.n_cycles):
+            self._program()
+        return final(), self._metrics_type(out.clone()
+                                           for out in self._outputs)

@@ -6,7 +6,9 @@ ZAM_Over-1_1 problems, two per rank, runs two cycles of the XLA fleet path
 scan (``parallel.replanning_scan.make_fleet_scan``) with every rank holding
 its slice of the fleet (``parallel.mesh.shard_fleet``) and the aggregates
 summed over the group (``parallel.mesh.fleet_all_reduce``); every rank
-checks that the global success count equals the global fleet size.
+checks that the global success count equals the global fleet size.  On the
+card both programs replay a captured cycle with the all-reduces in the
+graph.
 
 On the CPU the ranks are gloo processes; on the card NCCL ranks, one per
 card (``torch.cuda.device_count()``, 1 on a one-card machine: a world-size-1
@@ -70,11 +72,13 @@ def shared_vehicle():
         vc.length / 2, vc.width / 2)))
 
 
-def run_rank(group, rank: int, world: int, device) -> dict:
-    """One rank's dry run (the default process group is up): two XLA fleet
-    cycles and one fused fleet-scan cycle over a fleet of ``2 * world``
-    problems; raises unless every cycle's global success count is the
-    fleet size.  Returns the success counts."""
+def fleet_programs(group, rank: int, world: int, device,
+                   graph: bool = True):
+    """The dry run's two programs over a fleet of ``2 * world`` problems,
+    this rank's slice: ``(rollout, fused scan, carry, scene)``, the XLA
+    rollout of two cycles (``rollout(carry, scene)``) and the fused fleet
+    scan of one (``fused(carry)``).  On the card both capture their cycle,
+    the all-reduces included, unless ``graph=False``."""
     from commonroad_rp_tpu_torch.ops import grid as grid_ops
     from commonroad_rp_tpu_torch.parallel import fleet, replanning_scan
     from commonroad_rp_tpu_torch.parallel.mesh import shard_fleet
@@ -85,11 +89,25 @@ def run_rank(group, rank: int, world: int, device) -> dict:
     scene, carry, _ = shard_fleet(scene, carry, rank, world)
     static_grid = grid_ops.make_static_grid(1, 0.4, N_STEPS * DT, DT,
                                             -3.0, 3.0, 4)
-    run = fleet.make_fleet_rollout(
+    rollout = fleet.make_fleet_rollout(
         group, shared_vehicle(), static_grid, DT, N_STEPS, replan_offset=3,
         low_vel_threshold=4.0, horizon=N_STEPS * DT, n_cycles=2,
-        device=device)
-    final, metrics = run(carry, scene)
+        device=device, graph=graph)
+    fused = replanning_scan.make_fleet_scan(
+        scene, static_grid, DT, N_STEPS, replan_offset=3,
+        low_vel_threshold=4.0, horizon=N_STEPS * DT, n_cycles=1, mesh=group,
+        graph=graph)
+    return rollout, fused, carry, scene
+
+
+def run_rank(group, rank: int, world: int, device) -> dict:
+    """One rank's dry run (the default process group is up): two XLA fleet
+    cycles and one fused fleet-scan cycle over a fleet of ``2 * world``
+    problems (``fleet_programs``); raises unless every cycle's global
+    success count is the fleet size.  Returns the success counts."""
+    F = 2 * world
+    rollout, fused, carry, scene = fleet_programs(group, rank, world, device)
+    final, metrics = rollout(carry, scene)
     successes = metrics.fleet_success.tolist()
     if tuple(final.x0_lon.shape) != (2, 3) or successes != [F, F]:
         raise AssertionError(f"rank {rank}: XLA fleet path successes "
@@ -98,11 +116,8 @@ def run_rank(group, rank: int, world: int, device) -> dict:
           f"fleet of {F} problems, successes per cycle: {successes}",
           flush=True)
 
-    run_fused = replanning_scan.make_fleet_scan(
-        scene, static_grid, DT, N_STEPS, replan_offset=3,
-        low_vel_threshold=4.0, horizon=N_STEPS * DT, n_cycles=1, mesh=group)
-    _, fused = run_fused(carry)
-    n_success = int(fused[4][0])
+    _, fused_metrics = fused(carry)
+    n_success = int(fused_metrics[4][0])
     if n_success != F:
         raise AssertionError(f"rank {rank}: fused fleet scan "
                              f"{n_success}/{F} successes")
@@ -119,7 +134,11 @@ def _rank_main(rank: int, world: int, init_method: str, device) -> dict:
 
     device = initialize_distributed(init_method, world, rank, device)
     try:
-        return run_rank(make_fleet_group(), rank, world, device)
+        result = run_rank(make_fleet_group(), rank, world, device)
+        # no rank tears the group down while a peer still uses it (rank 0
+        # hosts the store: a peer's late exit aborted it now and then)
+        dist.barrier()
+        return result
     finally:
         dist.destroy_process_group()
 

@@ -15,9 +15,11 @@ launch of the fleet form of the collision kernel per cycle) and
 problem's optimum.  ``jax.vmap`` over problems becomes one batched program
 over the leading axis; ``shard_map`` over the fleet mesh becomes one process
 per slice of the fleet (``parallel.mesh.shard_fleet``), whose three per-cycle
-aggregates are summed by ``parallel.mesh.fleet_all_reduce``; ``lax.scan``
-becomes a Python loop that reads nothing from the device between cycles.
-The fleet replanning loop on the fused fleet scorer is
+aggregates are summed by ``parallel.mesh.fleet_all_reduce``; the jitted
+``lax.scan`` becomes an ``ops.program.ScanProgram``: one cycle captured as a
+CUDA graph on the card and replayed once per cycle, with the carry and the
+scene in static buffers (eager on the CPU and with ``graph=False``).  The
+fleet replanning loop on the fused fleet scorer is
 ``parallel.replanning_scan.make_fleet_scan``.
 """
 
@@ -33,6 +35,7 @@ from commonroad_rp_tpu_torch.ops import cost as cost_ops
 from commonroad_rp_tpu_torch.ops import frenet as frenet_ops
 from commonroad_rp_tpu_torch.ops import grid as grid_ops
 from commonroad_rp_tpu_torch.ops import kinematics as kin_ops
+from commonroad_rp_tpu_torch.ops.program import ScanProgram, StaticBuffers
 from commonroad_rp_tpu_torch.parallel.mesh import fleet_all_reduce
 
 
@@ -281,24 +284,29 @@ def make_fleet_rollout(group, veh: Optional[kin_ops.VehicleArrays],
                        static_grid: grid_ops.StaticGrid, dt: float,
                        n_steps: int, replan_offset: int,
                        low_vel_threshold: float, horizon: float,
-                       n_cycles: int, device="cuda"):
+                       n_cycles: int, device="cuda", graph: bool = True):
     """The full replanning loop: ``run(carry, scene) -> (carry,
     CycleMetrics)`` runs ``n_cycles`` fleet steps (:func:`make_fleet_step`)
-    in a Python loop that reads nothing from the device, and stacks each
-    metric over cycles after the loop (leading cycle axis), as ``lax.scan``
-    does."""
+    and returns each metric with a leading cycle axis, as ``lax.scan``
+    does.
+
+    ``run`` is an ``ops.program.ScanProgram``: every call copies the
+    caller's carry and scene into static buffers (a scene or carry whose
+    field differs in shape or dtype from the first call's raises
+    ``ValueError``), and each cycle writes its metrics at a device-side
+    cycle counter.  On a CUDA device the first call captures one cycle as a
+    CUDA graph and every call replays it ``n_cycles`` times, under a
+    ``group`` too (NCCL: the three all-reduces are recorded in the graph;
+    verified only on a world of one, a multi-rank capture is unverified);
+    ``graph=False``, and the CPU whatever ``graph`` says, run the same
+    cycles eagerly.  A capture or a replay that fails raises."""
     step = make_fleet_step(group, veh, static_grid, dt, n_steps,
                            replan_offset, low_vel_threshold, horizon, device)
-
-    def run(carry: FleetCarry, scene: FleetScene):
-        metrics = []
-        for _ in range(n_cycles):
-            carry, m = step(carry, scene)
-            metrics.append(m)
-        return carry, CycleMetrics(*(torch.stack(column)
-                                     for column in zip(*metrics)))
-
-    return run
+    scene = StaticBuffers("scene", device)
+    return ScanProgram(lambda carry: step(carry, scene.value), n_cycles,
+                       device, graph,
+                       keep=grid_ops.upload_constants(static_grid, device),
+                       prepare=scene.load)
 
 
 def pad_fleet(scene: FleetScene, carry: FleetCarry,

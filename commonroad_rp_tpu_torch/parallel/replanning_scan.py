@@ -40,11 +40,13 @@ once, and the colliding run at their head is masked before the selection
 (``ops.cycle.refine_cheapest``).  ``make_fleet_scan(mesh=group)`` runs one
 rank's slice of the fleet under a ``torch.distributed`` process group
 (``parallel.mesh``), its three per-cycle aggregates summed by
-``parallel.mesh.fleet_all_reduce``; it stays uncaptured (a captured
-collective needs a multi-card run to be held against).  The dense XLA fleet
-rollout (``parallel.fleet``) is not captured either.  ``plan()``'s level
-programs are captured too, one graph per jit signature
-(``ops.level_program``).
+``parallel.mesh.fleet_all_reduce``; on the card (NCCL) its cycle is
+captured with the three all-reduces in the graph, under gloo on the CPU it
+runs eagerly as every CPU scan does.  The dense XLA fleet rollout
+(``parallel.fleet.make_fleet_rollout``) is a :class:`ScanProgram` too, and
+``plan()``'s level programs are captured as well, one graph per jit
+signature (``ops.level_program``).  :class:`ScanProgram` lives in
+``ops.program``.
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ from commonroad_rp_tpu_torch.ops.collision import (BoundaryArrays,
                                                    ObstacleArrays)
 from commonroad_rp_tpu_torch.ops.cycle import (CANDIDATE_FIELDS,
                                                refine_cheapest)
-from commonroad_rp_tpu_torch.ops.program import CapturedStep
+from commonroad_rp_tpu_torch.ops.program import ScanProgram
 from commonroad_rp_tpu_torch.parallel.fleet import FleetCarry, FleetScene
 from commonroad_rp_tpu_torch.parallel.mesh import fleet_all_reduce
 
@@ -182,101 +184,6 @@ def _obstacle_window_tables(obstacles_full: ObstacleArrays, T: int, device):
 def _window(table, rows):
     """[M, T, C] window of a [M, n_rows + 1, C] table at rows [T]."""
     return table[:, rows]
-
-
-class ScanProgram:
-    """``run(carry, *args) -> (carry, metrics)``: ``n_cycles`` cycles of a
-    scan in buffered form, the counterpart of the JAX package's jitted
-    ``lax.scan`` (pallas_fleet.py:135-136, :354-382, :737-738).
-
-    ``cycle(carry) -> (new carry, metrics)`` reads the static carry
-    buffers; each step writes every metric into its preallocated
-    [n_cycles, ...] buffer at a device-side cycle counter (``index_copy_``
-    at a 0-d index), copies the new carry into the static buffers and
-    advances the counter, so that steps chain without the host.  The same
-    step runs three ways:
-
-    * on a CUDA device (``graph=True``, the default): the first call runs
-      one warm-up step and captures one step (``ops.program.CapturedStep``);
-      every call replays the graph ``n_cycles`` times (``replays`` counts
-      them).  A capture or a replay that fails raises: nothing falls back
-      to the eager loop;
-    * on a CUDA device with ``graph=False``: the same steps eagerly, one
-      dispatch per op (the twin the captured scan is held against);
-    * on the CPU, whatever ``graph`` says: eagerly (``self.graph`` is then
-      False).
-
-    Each call copies the caller's carry into the static buffers, runs
-    ``prepare(*args)`` (the facade scan writes its desired speed into its
-    scalar row there) and resets the counter; it returns clones, so the
-    caller never holds memory that the next call overwrites.  ``keep``
-    holds tensors a cycle reads that nothing else keeps alive for the
-    graph's life (the grids' cached constants).
-    """
-
-    def __init__(self, cycle, n_cycles: int, device, graph: bool = True,
-                 keep=(), prepare=None):
-        device = torch.device(device)
-        self.cycle = cycle
-        self.n_cycles = n_cycles
-        self.device = device
-        self._program = CapturedStep(self._step, device, graph)
-        self.graph = self._program.graph
-        self._keep = tuple(keep)
-        self._prepare = prepare
-        self._carry = None
-        self._outputs = None
-        self._counter = torch.zeros((), dtype=torch.int64, device=device)
-
-    @property
-    def replays(self) -> int:
-        """Replays of the captured cycle so far."""
-        return self._program.replays
-
-    def _load(self, carry):
-        """The caller's carry into the static buffers, the counter to 0."""
-        if self._carry is None:
-            self._carry = type(carry)(*(torch.empty_like(x, device=self.device)
-                                        for x in carry))
-        for name, static, x in zip(carry._fields, self._carry, carry):
-            if x.shape != static.shape or x.dtype != static.dtype:
-                raise ValueError(
-                    f"carry field {name}: {tuple(x.shape)} {x.dtype}, the "
-                    f"program was built for {tuple(static.shape)} "
-                    f"{static.dtype}")
-            static.copy_(x)
-        self._counter.zero_()
-
-    def _step(self):
-        new_carry, metrics = self.cycle(self._carry)
-        if self._outputs is None:
-            self._outputs = tuple(m.new_empty((self.n_cycles,) + m.shape)
-                                  for m in metrics)
-        for out, m in zip(self._outputs, metrics):
-            out.index_copy_(0, self._counter, m.unsqueeze(0))
-        for name, static, new in zip(new_carry._fields, self._carry,
-                                     new_carry):
-            if new.shape != static.shape or new.dtype != static.dtype:
-                raise ValueError(
-                    f"the cycle turns carry field {name} into "
-                    f"{tuple(new.shape)} {new.dtype}, from "
-                    f"{tuple(static.shape)} {static.dtype}")
-            static.copy_(new)
-        self._counter.add_(1)
-
-    def __call__(self, carry, *args):
-        self._load(carry)
-        if self._prepare is not None:
-            self._prepare(*args)
-        if self.n_cycles == 0:
-            return type(carry)(*(x.clone() for x in self._carry)), ()
-        if self._program.capture():
-            # the warm-up cycle advanced the carry and the counter
-            self._load(carry)
-        for _ in range(self.n_cycles):
-            self._program()
-        return (type(carry)(*(x.clone() for x in self._carry)),
-                tuple(out.clone() for out in self._outputs))
 
 
 def window_obstacle_arrays(obs: torch.Tensor, poly, half_ext: torch.Tensor,
@@ -412,17 +319,17 @@ def make_fleet_scan(scene: FleetScene, static_grid: grid_ops.StaticGrid,
     global found count, at least 1.
 
     ``run`` is a :class:`ScanProgram`: on a CUDA device it replays a
-    captured cycle unless ``graph=False``.  Under a group the scan runs
-    uncaptured whatever ``graph`` says: a captured collective is not held
-    against a multi-card run.
+    captured cycle unless ``graph=False``, under a group too (NCCL: the
+    warm-up cycle creates the communicator before the capture records the
+    three all-reduces; verified only on a world of one, a multi-rank
+    capture is unverified); the gloo group of the CPU runs it eagerly, as
+    the CPU does every scan.
     """
     stopping = longitudinal_mode == "stopping"
     if longitudinal_mode not in ("velocity_keeping", "stopping"):
         raise ValueError(f"unknown longitudinal mode {longitudinal_mode!r}")
     if stopping and (desired_s is None or s_window is None):
         raise ValueError("stopping mode requires desired_s and s_window")
-    if mesh is not None:
-        graph = False
 
     device = scene.ref.s.device
     T = n_steps + 1

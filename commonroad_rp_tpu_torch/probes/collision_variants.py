@@ -185,7 +185,7 @@ def operands():
     collision_ops.obb_collision_fleet = capture(
         "fleet1024", ck.obb_collision_fleet_reference)
     try:
-        make_xla_rollout(1, 1, "cuda")[0](carry, scene)
+        make_xla_rollout(1, 1, "cuda", graph=False)[0](carry, scene)
     finally:
         collision_ops.obb_collision_fleet = ck.obb_collision_fleet
     config = load_config("ZAM_Over-1_1")

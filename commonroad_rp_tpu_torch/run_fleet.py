@@ -102,9 +102,11 @@ def make_scan(scene, cycles: int, freq: int = 1, **kwargs):
     return run, static_grid.size
 
 
-def make_xla_rollout(cycles: int, freq: int = 1, device="cuda"):
+def make_xla_rollout(cycles: int, freq: int = 1, device="cuda",
+                     graph: bool = True):
     """The XLA fleet path of the run: level 3, replan offset ``freq``, each
-    problem's own vehicle (``veh=None``); ``run(carry, scene)``."""
+    problem's own vehicle (``veh=None``); ``run(carry, scene)``, a captured
+    cycle on the card unless ``graph=False``."""
     from commonroad_rp_tpu_torch.ops import grid
     from commonroad_rp_tpu_torch.parallel import fleet
 
@@ -113,7 +115,7 @@ def make_xla_rollout(cycles: int, freq: int = 1, device="cuda"):
     run = fleet.make_fleet_rollout(
         None, None, static_grid, DT, N_STEPS, replan_offset=freq,
         low_vel_threshold=4.0, horizon=N_STEPS * DT, n_cycles=cycles,
-        device=device)
+        device=device, graph=graph)
     return run, static_grid.size
 
 

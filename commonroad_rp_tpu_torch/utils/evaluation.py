@@ -335,6 +335,45 @@ def valid_solution(scenario, planning_problem_set, solution: Solution
     return overall, results
 
 
+# the bound on the open-loop drift of the reconstructed inputs' forward
+# simulation, metres per recorded state (the certificate of the JAX
+# package's tests/test_production_certification.py)
+DRIFT_PER_STATE = 2e-2
+
+
+def certify_drive(config, state_list: List[ReactivePlannerState]) -> dict:
+    """The physics certificate of a drive's recorded states: their solution
+    through ``valid_solution`` (start, goal, collision and road-boundary
+    compliance) and the KS input reconstruction, whose forward simulation
+    stays within ``DRIFT_PER_STATE`` per state of the recorded positions.
+    Returns ``valid_solution``'s detail with ``valid`` (its verdict),
+    ``transitions`` (the per-transition reconstruction verdicts),
+    ``failing`` (the indices of those that fail), ``drift`` (m) and
+    ``drift_bound`` (m), and ``certified``: start, goal, collision,
+    boundary and drift hold (every transition's feasibility is left to
+    the caller: divergence 7 makes some fail on the T-junction)."""
+    trajectory = create_full_solution_trajectory(config, state_list)
+    solution = create_planning_problem_solution(
+        config, trajectory, config.scenario, config.planning_problem)
+    valid, detail = valid_solution(config.scenario,
+                                   config.planning_problem_set, solution)
+    cert = dict(detail[config.planning_problem.planning_problem_id],
+                valid=valid)
+    pps = solution.planning_problem_solutions[0]
+    transitions, inputs = reconstruct_inputs(config, pps)
+    simulated = reconstruct_states(config, pps.trajectory.state_list, inputs)
+    cert.update(
+        transitions=transitions,
+        failing=[i for i, ok in enumerate(transitions) if not ok],
+        drift=max(float(np.linalg.norm(a.position - b.position))
+                  for a, b in zip(pps.trajectory.state_list, simulated)),
+        drift_bound=DRIFT_PER_STATE * len(simulated))
+    cert["certified"] = bool(
+        cert["start"] and cert["goal"] and cert["collision_free"]
+        and cert["boundary_ok"] and cert["drift"] < cert["drift_bound"])
+    return cert
+
+
 def plot_states(config, state_list: List[TraceState],
                 reconstructed_states: Optional[List[TraceState]] = None,
                 plot_bounds: bool = False, save_path: Optional[str] = None):

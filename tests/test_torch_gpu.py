@@ -1,7 +1,8 @@
 """The CUDA kernels (scorers, OBB collision in both forms, the probe kernel)
 against their plain PyTorch versions, the captured replanning scans and
 level programs against their uncaptured twins, the conformance level
-program and the XLA fleet path, on the card.
+program, the captured XLA fleet path and the fleet programs captured under
+an NCCL group of one, on the card.
 
 Marked ``gpu``: without a card every test skips.  On a machine with one,
 run (from the repository root; no JAX needed):
@@ -391,23 +392,64 @@ def test_conformance_golden_and_drive_on_card(cuda):
 def test_fleet_collision_kernel_and_xla_fleet_on_card(cuda):
     """The fleet form of the collision kernel against its plain version on
     the 12-problem fleet's first XLA cycle (both dtypes, 0 differing
-    candidates), and the XLA fleet path against the fused fleet scan with
-    one fleet collision launch per cycle."""
+    candidates), and the XLA fleet path, captured, bit for bit its
+    ``graph=False`` twin and close to the fused fleet scan: the wrapper
+    counts the warm-up's launch and the captured one, the twin one launch
+    per cycle, and a replay executes the kernel once per cycle
+    (profiler)."""
     from commonroad_rp_tpu_torch.run_fleet import make_xla_rollout
 
     scene, carry, _, _ = heterogeneous_fleet(12, 4, device=cuda)
     chip_smoke.compare_fleet_collision(
         torch, "F=12", chip_smoke.captured_fleet_collision(
-            lambda: make_xla_rollout(1, 1, cuda)[0](carry, scene)))
+            lambda: make_xla_rollout(1, 1, cuda, graph=False)[0](carry,
+                                                               scene)))
     run_x, _ = make_xla_rollout(4, 1, cuda)
+    twin_x, _ = make_xla_rollout(4, 1, cuda, graph=False)
     collision_kernel.obb_collision_fleet.launches = 0
     final_x, metrics_x = chip_smoke.no_sync(torch,
                                             lambda: run_x(carry, scene))
-    assert collision_kernel.obb_collision_fleet.launches == 4
+    assert run_x.graph and run_x.replays == 4
+    assert collision_kernel.obb_collision_fleet.launches == 2
+    chip_smoke.assert_bit_identical(torch, "XLA F=12", (final_x, metrics_x),
+                                    twin_x(carry, scene))
+    assert collision_kernel.obb_collision_fleet.launches == 2 + 4
+    executions, _ = chip_smoke.kernel_executions(
+        torch, lambda: run_x(carry, scene), chip_smoke.FLEET_COLLISION_KERNEL,
+        4)
+    assert executions == 4
     final_f, metrics_f = make_scan(scene, 4)[0](carry)
     assert torch.equal(metrics_x.found, metrics_f[0])
     torch.testing.assert_close(final_x.x0_lon, final_f.x0_lon, rtol=2e-4,
                                atol=2e-3)
+
+
+def test_fleet_programs_capture_under_nccl(cuda):
+    """Under a world-size-1 NCCL group both fleet programs of the dry run
+    (the XLA rollout and the fused fleet scan) capture their cycle with the
+    three all-reduces in the graph, bit for bit their eager twins."""
+    import torch.distributed as dist
+
+    from commonroad_rp_tpu_torch.parallel import dryrun, mesh
+
+    device = mesh.initialize_distributed(
+        f"tcp://localhost:{dryrun.free_port()}", 1, 0, cuda)
+    try:
+        group = mesh.make_fleet_group()
+        programs = {graph: dryrun.fleet_programs(group, 0, 1, device, graph)
+                    for graph in (True, False)}
+        carry, scene = programs[True][2:]
+        args = {"xla": (carry, scene), "fused": (carry,)}
+        for i, key in enumerate(("xla", "fused")):
+            run, twin = programs[True][i], programs[False][i]
+            got = run(*args[key])
+            assert run.graph and run.replays == run.n_cycles
+            assert not twin.graph
+            chip_smoke.assert_bit_identical(torch, f"NCCL {key}", got,
+                                            twin(*args[key]))
+        dryrun.run_rank(group, 0, 1, device)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_probe_kernel_matches_plain_exactly(cuda):

@@ -11,6 +11,9 @@
   ``fleet_all_reduce`` calls per cycle and no other collective
   (``all_gather``, ``broadcast``, ``all_to_all``, ``reduce_scatter`` and
   ``scatter`` are patched to raise).
+* Under that gloo group both fleet programs run eagerly (``graph`` False):
+  the CPU decides, and on the card the same programs capture their cycle
+  with the all-reduces in the graph.
 """
 
 import logging
@@ -149,3 +152,25 @@ def test_fleet_scan_under_group_matches_alone(world_of_one):
         scene, static_grid, dt, n_steps, mesh=world_of_one, **kw)(carry)
     for a, b in zip(alone, grouped):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_programs_under_gloo_run_eagerly(world_of_one):
+    n_steps, dt = 15, 0.1
+    scene, carry = fleet.build_fleet_scene([over_problem(n_steps)] * 2,
+                                           n_steps, device="cpu")
+    static_grid = grid.make_static_grid(1, 0.4, n_steps * dt, dt, -3.0, 3.0,
+                                        4)
+    kw = dict(replan_offset=3, low_vel_threshold=4.0, horizon=n_steps * dt,
+              n_cycles=1)
+    scan = replanning_scan.make_fleet_scan(scene, static_grid, dt, n_steps,
+                                           mesh=world_of_one, graph=True,
+                                           **kw)
+    rollout = fleet.make_fleet_rollout(world_of_one, shared_vehicle(),
+                                       static_grid, dt, n_steps,
+                                       device="cpu", graph=True, **kw)
+    assert not scan.graph and not rollout.graph
+    _, metrics = rollout(carry, scene)
+    _, fused = scan(carry)
+    assert scan.replays == rollout.replays == 0
+    np.testing.assert_array_equal(metrics.fleet_success.numpy(), [2])
+    np.testing.assert_array_equal(fused[4].numpy(), [2])

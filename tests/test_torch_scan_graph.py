@@ -1,16 +1,21 @@
-"""The buffered form of the three replanning scans (``ScanProgram``) on the
-CPU: the form a CUDA graph captures, run eagerly.
+"""The buffered form of the three replanning scans and of the XLA fleet
+rollout (``ScanProgram``) on the CPU: the form a CUDA graph captures, run
+eagerly.
 
 * Bit for bit (``torch.equal``, same dtype) the loop it replaced: the
   cycle run in a Python loop with the metrics stacked after it, for the
   facade scan behind ``plan_scan`` (ZAM_Over-1_1, 3 cycles), the fleet scan
   (the 12-problem heterogeneous fleet, 2 cycles) and the single-problem
-  scan (ZAM_Over-1_1, 3 cycles).
+  scan (ZAM_Over-1_1, 3 cycles); for the XLA fleet rollout
+  (``parallel.fleet.make_fleet_rollout``, the same fleet at sampling level
+  1, 2 cycles) the fleet step on the caller's scene in a Python loop.
 * A built program run a second time, from another carry and (facade) at
-  another desired speed, equals a fresh build bit for bit: no static state
-  survives a call.
-* One cycle of each scan under a ``TorchDispatchMode`` records no op that a
-  capture forbids: no device read (``_local_scalar_dense``), no
+  another desired speed or (XLA rollout) on another scene of the same
+  shapes, equals a fresh build bit for bit: no static state survives a
+  call, and a rollout reads the scene of its call, not the first call's.
+  A scene or carry whose field differs in shape or dtype raises.
+* One cycle of each program under a ``TorchDispatchMode`` records no op
+  that a capture forbids: no device read (``_local_scalar_dense``), no
   data-dependent shape (``nonzero``, ``masked_select``, a boolean index),
   no host data turned into a tensor (``lift_fresh``) and no copy between
   devices.
@@ -27,8 +32,10 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 import chip_smoke
-from commonroad_rp_tpu_torch.parallel import replanning_scan
-from commonroad_rp_tpu_torch.run_fleet import heterogeneous_fleet, make_scan
+from commonroad_rp_tpu_torch.ops import grid
+from commonroad_rp_tpu_torch.parallel import fleet, replanning_scan
+from commonroad_rp_tpu_torch.run_fleet import (DT, N_STEPS,
+                                               heterogeneous_fleet, make_scan)
 from commonroad_rp_tpu_torch.run_planner import load_config, make_planner
 
 logging.getLogger("RP_LOGGER").setLevel(logging.CRITICAL)
@@ -50,10 +57,28 @@ def _facade(repo_root, n_cycles, graph=True):
 
 
 @functools.lru_cache(maxsize=None)
-def _fleet_scene():
+def _fleet_scene(seed=0):
     """The 12-problem fleet's scene and carry (read, never written, by the
-    programs)."""
-    return heterogeneous_fleet(12, 2, device="cpu")[:2]
+    programs); another seed jitters the same bases into a scene of the same
+    shapes."""
+    return heterogeneous_fleet(12, 2, seed=seed, device="cpu")[:2]
+
+
+XLA_KW = dict(replan_offset=1, low_vel_threshold=4.0, horizon=N_STEPS * DT)
+
+
+def _xla_grid():
+    return grid.make_static_grid(1, 0.4, N_STEPS * DT, DT, -3.0, 3.0, 4)
+
+
+def _xla(n_cycles, graph=True):
+    """The XLA fleet rollout of run_fleet --xla at sampling level 1 (each
+    problem's own vehicle) over the 12-problem fleet."""
+    scene, carry = _fleet_scene()
+    run = fleet.make_fleet_rollout(None, None, _xla_grid(), DT, N_STEPS,
+                                   n_cycles=n_cycles, device="cpu",
+                                   graph=graph, **XLA_KW)
+    return run, carry, (scene,)
 
 
 def _fleet(n_cycles):
@@ -95,10 +120,23 @@ def _program(repo_root, which, n_cycles=None):
         return run, carry, (ds,)
     if which == "fleet":
         return (*_fleet(n_cycles or 2), ())
+    if which == "xla":
+        return _xla(n_cycles or 2)
     return (*_single(n_cycles or 3), ())
 
 
+def _other_args(which, args):
+    """Another call's arguments: a desired speed 2 m/s higher (facade),
+    another scene of the same shapes (XLA rollout)."""
+    if which == "facade":
+        return (args[0] + 2.0,)
+    if which == "xla":
+        return (_fleet_scene(seed=1)[0],)
+    return ()
+
+
 SCANS = ["facade", "fleet", "single"]
+PROGRAMS = SCANS + ["xla"]
 
 
 @pytest.mark.parametrize("which", SCANS)
@@ -112,21 +150,59 @@ def test_buffered_form_equals_stacked_loop(repo_root, which):
     assert run.replays == 0
 
 
-@pytest.mark.parametrize("which", SCANS)
+def test_xla_rollout_equals_stacked_steps():
+    """The XLA rollout against the form it replaced: the fleet step on the
+    caller's scene in a Python loop, each metric stacked after it."""
+    run, carry, (scene,) = _xla(2)
+    assert not run.graph and run.replays == 0
+    got = run(carry, scene)
+    step = fleet.make_fleet_step(None, None, _xla_grid(), DT, N_STEPS,
+                                 device="cpu", **XLA_KW)
+    want = _stacked_loop(lambda c: step(c, scene), carry, 2)
+    _assert_identical(got, want)
+    assert isinstance(got[1], fleet.CycleMetrics)
+    assert got[1].found.shape == (2, 12) and bool(got[1].found[0].all())
+
+
+@pytest.mark.parametrize("which", PROGRAMS)
 def test_second_call_equals_fresh_build(repo_root, which):
     run, carry, args = _program(repo_root, which)
     first_carry, first_metrics = run(carry, *args)
     kept = (first_carry._replace(**{f: getattr(first_carry, f).clone()
                                     for f in first_carry._fields}),
             tuple(m.clone() for m in first_metrics))
-    # another carry (where the first call ended) and another speed
-    args2 = (args[0] + 2.0,) if args else ()
+    # another carry (where the first call ended) and another speed or scene
+    args2 = _other_args(which, args)
     second = run(first_carry, *args2)
     fresh = _program(repo_root, which)[0]
     _assert_identical(second, fresh(first_carry, *args2))
     # what the first call returned is the caller's: the second call did
     # not write into it
     _assert_identical((first_carry, first_metrics), kept)
+
+
+def test_xla_rollout_reads_each_calls_scene():
+    """One built rollout called on two scenes of the same shapes gives each
+    scene's own result, and the first scene's again after the second."""
+    run, carry, (scene,) = _xla(1)
+    other = _other_args("xla", (scene,))[0]
+    first = run(carry, scene)
+    second = run(carry, other)
+    assert not torch.equal(first[1].best_cost, second[1].best_cost)
+    _assert_identical(second, _xla(1)[0](carry, other))
+    _assert_identical(run(carry, scene), first)
+
+
+def test_xla_rollout_scene_layout_is_fixed_at_the_first_call():
+    run, carry, (scene,) = _xla(1)
+    run(carry, scene)
+    with pytest.raises(ValueError, match="scene field desired_speed"):
+        run(carry, scene._replace(desired_speed=scene.desired_speed.double()))
+    with pytest.raises(ValueError, match="scene field obs_pose"):
+        run(carry, scene._replace(obs_pose=scene.obs_pose[:, :, 1:]))
+    with pytest.raises(ValueError, match="scene field ref.s"):
+        run(carry, scene._replace(ref=scene.ref._replace(
+            s=scene.ref.s[:, 1:])))
 
 
 class CaptureForbidden(TorchDispatchMode):
@@ -178,7 +254,7 @@ def test_forbidden_op_recorder_is_sensitive():
     assert rec.seen == []
 
 
-@pytest.mark.parametrize("which", SCANS)
+@pytest.mark.parametrize("which", PROGRAMS)
 def test_one_cycle_has_no_capture_forbidden_op(repo_root, which):
     run, carry, args = _program(repo_root, which, n_cycles=1)
     run(carry, *args)    # allocates the static buffers
@@ -188,14 +264,17 @@ def test_one_cycle_has_no_capture_forbidden_op(repo_root, which):
 
 
 def test_graph_is_taken_only_where_the_device_allows(repo_root):
-    """``graph=True`` asks for a capture where the device allows one: the
-    CPU and the scan under a process group run eagerly, and the facade's
-    cache keys the flag, so the default and an explicit ``True`` share one
-    built program."""
+    """``graph=True`` asks for a capture where the device allows one: on
+    the CPU every program runs eagerly, a scan under a process group too
+    (the device decides, not the group: on the card the fleet scan under an
+    NCCL group captures its all-reduces), and the facade's cache keys the
+    flag, so the default and an explicit ``True`` share one built
+    program."""
     run, _, _ = _facade(repo_root, 1, graph=True)
     assert not run.graph
     assert not make_scan(_fleet_scene()[0], 1, mesh=object(),
                          graph=True)[0].graph
+    assert not _xla(1, graph=True)[0].graph
     planner = make_planner(load_config("ZAM_Over-1_1", repo_root), "cpu")
     planner.set_desired_velocity(current_speed=planner.x_0.velocity)
     assert planner.scan_program(1)[0] is planner.scan_program(
