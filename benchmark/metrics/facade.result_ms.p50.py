@@ -1,0 +1,14 @@
+"""Median time per ``plan()`` call to build the answer: the span
+``planner.result`` (the winner's Cartesian and curvilinear trajectory
+pair) summed per request, one request per ``plan()`` call of the traced
+stretch, in ms.  None when no such span was recorded."""
+
+import statistics
+
+from commonroad_rp_tpu_torch.utils import profiling
+
+
+def read(record):
+    per_request = getattr(profiling, "per_request", None)
+    values = per_request("planner.result") if per_request else None
+    return 1e3 * statistics.median(values) if values else None

@@ -65,7 +65,7 @@ from commonroad_rp_tpu_torch.utils.coordinate_system import CoordinateSystem
 from commonroad_rp_tpu_torch.utils.general import (
     retrieve_desired_velocity_from_pp, shift_orientation_states)
 from commonroad_rp_tpu_torch.utils.geometry import interpolate_angle
-from commonroad_rp_tpu_torch.utils.profiling import StageTimers
+from commonroad_rp_tpu_torch.utils import profiling
 from commonroad_rp_tpu_torch.utils.scenario import (DynamicObstacle,
                                                     Rectangle, Scenario)
 
@@ -186,7 +186,7 @@ class ReactivePlanner:
         self._infeasible_reason_dict: Dict[str, int] = {}
         self._optimal_cost: float = 0.0
         self._planning_times_list: List[float] = []
-        self.stage_timers = StageTimers()
+        self.stage_timers = profiling.StageTimers()
         self._record_state_list: List[ReactivePlannerState] = []
         self._record_input_list: List[InputState] = []
         self.stored_trajectories: Optional[BundleSummary] = None
@@ -520,49 +520,52 @@ class ReactivePlanner:
     def plan(self, current_sampling_level: int = None) -> Optional[tuple]:
         """Plan an optimal trajectory; returns (cartesian Trajectory,
         curvilinear Trajectory, lon list, lat list), or None."""
-        planning_start_time = time.time()
-        x_0_lon, x_0_lat = self.begin_cycle()
-        logger.info("=== Starting Planning Cycle (time_step=%s, v=%.3f) ===",
-                    self.x_0.time_step, self.x_0.velocity)
+        with profiling.span("planner.plan"):
+            planning_start_time = time.perf_counter()
+            x_0_lon, x_0_lat = self.begin_cycle()
+            logger.info("=== Starting Planning Cycle (time_step=%s, "
+                        "v=%.3f) ===", self.x_0.time_step, self.x_0.velocity)
 
-        optimal_trajectory: Optional[OptimalTrajectory] = None
-        if current_sampling_level is None and self._kernel_ok():
-            # every level scored in one kernel launch
-            if self.sampling_level > 1:
-                optimal_trajectory = self._plan_all_levels_fast(
-                    x_0_lon, x_0_lat, 1)
-        else:
-            # sequential escalation (reactive_planner.py:616-636)
-            i = 1 if current_sampling_level is None \
-                else current_sampling_level
-            while optimal_trajectory is None and i < self.sampling_level:
-                with self.stage_timers.stage("grid_generation"):
-                    batch = self._create_trajectory_bundle(x_0_lon, x_0_lat,
-                                                           i)
-                logger.info("Sampling level %d/%d: %d candidates", i + 1,
-                            self.sampling_level, batch.size)
-                optimal_trajectory = self._get_optimal_trajectory(batch)
-                logger.info("Rejected %d kinematically infeasible, %d "
-                            "colliding", self._infeasible_count_kinematics,
-                            self._infeasible_count_collision)
-                if current_sampling_level is not None:
-                    break
-                i += 1
+            optimal_trajectory: Optional[OptimalTrajectory] = None
+            if current_sampling_level is None and self._kernel_ok():
+                # every level scored in one kernel launch
+                if self.sampling_level > 1:
+                    optimal_trajectory = self._plan_all_levels_fast(
+                        x_0_lon, x_0_lat, 1)
+            else:
+                # sequential escalation (reactive_planner.py:616-636)
+                i = 1 if current_sampling_level is None \
+                    else current_sampling_level
+                while optimal_trajectory is None and i < self.sampling_level:
+                    with self.stage_timers.stage("grid_generation"):
+                        batch = self._create_trajectory_bundle(
+                            x_0_lon, x_0_lat, i)
+                    logger.info("Sampling level %d/%d: %d candidates", i + 1,
+                                self.sampling_level, batch.size)
+                    optimal_trajectory = self._get_optimal_trajectory(batch)
+                    logger.info("Rejected %d kinematically infeasible, %d "
+                                "colliding", self._infeasible_count_kinematics,
+                                self._infeasible_count_collision)
+                    if current_sampling_level is not None:
+                        break
+                    i += 1
 
-        # standstill fallback (reactive_planner.py:638-653)
-        if ((optimal_trajectory is None or
-             optimal_trajectory.cartesian.v[self._standstill_lookahead]
-             <= 0.05) and self.x_0.velocity <= 0.05):
-            logger.info("Planning standstill for the current scenario")
-            optimal_trajectory = self._compute_standstill_trajectory()
+            # standstill fallback (reactive_planner.py:638-653)
+            if ((optimal_trajectory is None or
+                 optimal_trajectory.cartesian.v[self._standstill_lookahead]
+                 <= 0.05) and self.x_0.velocity <= 0.05):
+                logger.info("Planning standstill for the current scenario")
+                optimal_trajectory = self._compute_standstill_trajectory()
 
-        if optimal_trajectory is not None:
-            self._optimal_cost = optimal_trajectory.cost
+            planning_result = None
+            if optimal_trajectory is not None:
+                self._optimal_cost = optimal_trajectory.cost
+                with profiling.span("planner.result"):
+                    planning_result = self._compute_trajectory_pair(
+                        optimal_trajectory)
 
-        planning_result = self._compute_trajectory_pair(optimal_trajectory) \
-            if optimal_trajectory is not None else None
-
-        self._planning_times_list.append(time.time() - planning_start_time)
+            self._planning_times_list.append(
+                time.perf_counter() - planning_start_time)
         logger.info("Total planning time: %.7f", self._planning_times_list[-1])
         if planning_result is None:
             logger.warning("Planner failed to find an optimal trajectory "
@@ -700,18 +703,19 @@ class ReactivePlanner:
         one more when the bounded refinement overflows and the lazy loop
         goes on eagerly)."""
         self._reset_statistics()
-        t0 = time.time()
-        args, static = self.fast_arguments(batches)
-        program = self._level_program(level_program.FAST, args, static)
-        out = program(args)
-        if out.overflow:
-            self.refine_continuations += 1
-            logger.info("exact refinement: more than %d re-selections, "
-                        "continued eagerly", cycle_ops.REFINE_WIDTH)
-            out = program.continue_lazy()
-        scalars = out.scalars
-        found = bool(np.isfinite(scalars[1]))
-        self.stage_timers.record("device_cycle", time.time() - t0)
+        with self.stage_timers.stage("device_cycle"):
+            with profiling.span("planner.arguments"):
+                args, static = self.fast_arguments(batches)
+                program = self._level_program(level_program.FAST, args,
+                                              static)
+            out = program(args)
+            if out.overflow:
+                self.refine_continuations += 1
+                logger.info("exact refinement: more than %d re-selections, "
+                            "continued eagerly", cycle_ops.REFINE_WIDTH)
+                out = program.continue_lazy()
+            scalars = out.scalars
+            found = bool(np.isfinite(scalars[1]))
 
         self._infeasible_count_kinematics = int(scalars[2])
         self._infeasible_count_collision = int(scalars[3])
@@ -780,14 +784,13 @@ class ReactivePlanner:
             return self._evaluate([batch])
         self._reset_statistics()
         goal_valid = self._goal_valid_mask(batch)
-        t0 = time.time()
         # one device->host transfer: the [4] scalar pack, the [14, T]
         # winner, the reason counts (and the bundle when captured)
-        out = self._conformance_level(batch, goal_valid,
-                                      bundle=self._draw_traj_set)
-        scalars = out.scalars
-        found = bool(np.isfinite(scalars[1]))
-        self.stage_timers.record("device_cycle", time.time() - t0)
+        with self.stage_timers.stage("device_cycle"):
+            out = self._conformance_level(batch, goal_valid,
+                                          bundle=self._draw_traj_set)
+            scalars = out.scalars
+            found = bool(np.isfinite(scalars[1]))
 
         # statistics with reference lazy-iteration semantics; goal-filtered
         # candidates never enter the kinematic check (:1076-1077)
@@ -1003,12 +1006,11 @@ class ReactivePlanner:
         freq = self.config.planning.replanning_frequency
         factor = self.config.planning.factor
 
-        t0 = time.time()
-        _, metrics = run(carry, float(self._desired_speed))
-        found, best_cost, n_inf_kin, n_coll, states, reselections, \
-            overflow = (m.cpu().numpy() for m in metrics)
-        wall = time.time() - t0
-        self.stage_timers.record("device_scan", wall)
+        with self.stage_timers.stage("device_scan"):
+            _, metrics = run(carry, float(self._desired_speed))
+            found, best_cost, n_inf_kin, n_coll, states, reselections, \
+                overflow = (m.cpu().numpy() for m in metrics)
+        wall = self.stage_timers.history["device_scan"][-1]
         logger.info("plan_scan: %d cycles in %.4fs (%.2f ms/cycle)",
                     n_cycles, wall, wall / max(n_cycles, 1) * 1e3)
 

@@ -13,7 +13,9 @@ closest-point test, as ``ops.collision.check_collisions`` does
 float64 instance, built with nvcc on first use, bound through ctypes) for
 tensors on the card and raises if it cannot; for tensors on the CPU it runs
 the plain PyTorch version ``obb_collision_reference``.
-``obb_collision.launches`` counts kernel launches only.  A block stages its
+``obb_collision.launches`` counts the launches made through this Python
+wrapper (eager, a warm-up or a capture); the replays of a captured graph
+run the kernel without it and count nothing.  A block stages its
 problem's rows in shared memory (``shared_bytes``); rows and steps past
 ``SHARED_BLOCK_LIMIT`` raise ``ValueError``.  Each call is one launch on the
 current stream, writing the bool mask in place.
@@ -308,7 +310,8 @@ def obb_collision(cx: torch.Tensor, cy: torch.Tensor, theta: torch.Tensor,
     ego half extents (host scalars).  With M = 0 nothing is launched.
 
     CUDA inputs launch the kernel (``obb_collision.launches`` counts the
-    launches) and raise if it cannot be built or launched; CPU inputs run
+    wrapper's launches, not the replays of a captured graph) and raise if
+    it cannot be built or launched; CPU inputs run
     :func:`obb_collision_reference`.
     """
     if cx.device.type == "cpu":
@@ -335,8 +338,9 @@ def obb_collision_fleet(cx: torch.Tensor, cy: torch.Tensor,
     [F] tensors on the same device.  With M = 0 nothing is launched.
 
     CUDA inputs launch the kernel (``obb_collision_fleet.launches`` counts
-    the launches) and raise if it cannot be built or launched; CPU inputs
-    run :func:`obb_collision_fleet_reference`.
+    the wrapper's launches, not the replays of a captured graph) and raise
+    if it cannot be built or launched; CPU inputs run
+    :func:`obb_collision_fleet_reference`.
     """
     if cx.device.type == "cpu":
         return obb_collision_fleet_reference(cx, cy, theta, obstacles,

@@ -52,6 +52,7 @@ from commonroad_rp_tpu_torch.ops.collision import (BoundaryArrays,
                                                    ObstacleArrays)
 from commonroad_rp_tpu_torch.ops.frenet import RefPathTables
 from commonroad_rp_tpu_torch.ops.program import CapturedStep
+from commonroad_rp_tpu_torch.utils import profiling
 
 FAST, LEVEL = "fast", "level"
 # static arguments of each program (the JAX jits' static_argnames, and the
@@ -392,39 +393,41 @@ class LevelProgram:
 
     def _read(self, packed: torch.Tensor) -> LevelOutput:
         """One device read of the packed row; the host copy is unpacked."""
-        if self.device.type == "cuda":
-            if self._out_host is None:
-                self._out_host = torch.empty(packed.shape, dtype=packed.dtype,
-                                             pin_memory=True)
-            self._out_host.copy_(packed, non_blocking=True)
-            torch.cuda.current_stream(self.device).synchronize()
-            row = self._out_host.numpy().copy()
-        else:
-            row = packed.numpy().copy()
-        self.readbacks += 1
-        T, K = self.T, self.K
-        n = 6 if self.kind == FAST else 4
-        o = n + 14 * T
-        scalars, optimal = row[:n], row[n:o].reshape(14, T)
-        overflow = False
-        if self.kind == FAST:
-            overflow = bool(row[o] > 0.5)
-            o += 1
-        counts = row[o:o + N_REASONS].astype(np.int64)
-        o += N_REASONS
-        bundle = None
-        if self.kind == LEVEL and self.static["bundle"]:
-            x = row[o:o + K * T].reshape(K, T)
-            y = row[o + K * T:o + 2 * K * T].reshape(K, T)
-            o += 2 * K * T
-            labels = row[o + K:o + 3 * K].reshape(2, K).astype(bool)
-            bundle = (x, y, row[o:o + K], labels[0], labels[1])
-        return LevelOutput(scalars=scalars, optimal=optimal,
-                           overflow=overflow, reason_counts=counts,
-                           bundle=bundle)
+        with profiling.span("level_program.readback"):
+            if self.device.type == "cuda":
+                if self._out_host is None:
+                    self._out_host = torch.empty(
+                        packed.shape, dtype=packed.dtype, pin_memory=True)
+                self._out_host.copy_(packed, non_blocking=True)
+                torch.cuda.current_stream(self.device).synchronize()
+                row = self._out_host.numpy().copy()
+            else:
+                row = packed.numpy().copy()
+            self.readbacks += 1
+            T, K = self.T, self.K
+            n = 6 if self.kind == FAST else 4
+            o = n + 14 * T
+            scalars, optimal = row[:n], row[n:o].reshape(14, T)
+            overflow = False
+            if self.kind == FAST:
+                overflow = bool(row[o] > 0.5)
+                o += 1
+            counts = row[o:o + N_REASONS].astype(np.int64)
+            o += N_REASONS
+            bundle = None
+            if self.kind == LEVEL and self.static["bundle"]:
+                x = row[o:o + K * T].reshape(K, T)
+                y = row[o + K * T:o + 2 * K * T].reshape(K, T)
+                o += 2 * K * T
+                labels = row[o + K:o + 3 * K].reshape(2, K).astype(bool)
+                bundle = (x, y, row[o:o + K], labels[0], labels[1])
+            return LevelOutput(scalars=scalars, optimal=optimal,
+                               overflow=overflow, reason_counts=counts,
+                               bundle=bundle)
 
     def __call__(self, args: LevelArgs) -> LevelOutput:
-        self._stage(args)
+        with profiling.span("level_program.stage"):
+            self._stage(args)
         _, packed = self._program()
         out = self._read(packed)
         self.calls += 1

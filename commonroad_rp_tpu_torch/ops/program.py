@@ -24,7 +24,11 @@ and the level programs (``ops.level_program``).
 
 from __future__ import annotations
 
+import time
+
 import torch
+
+from commonroad_rp_tpu_torch.utils import profiling
 
 
 class CapturedStep:
@@ -46,9 +50,12 @@ class CapturedStep:
         """On a graph's first call: one warm-up step on a side stream, then
         the capture of one step (recorded, not run).  True when this call
         captured, so that a caller whose step advances state (a scan's
-        carry) can load it again; False otherwise."""
+        carry) can load it again; False otherwise.  A capture adds 1 to the
+        counter ``captured_step.captures`` and its host wall (warm-up and
+        capture) to ``captured_step.capture_ns`` (``utils.profiling``)."""
         if not self.graph or self._graph is not None:
             return False
+        t0 = time.perf_counter_ns()
         with torch.cuda.device(self.device):
             current = torch.cuda.current_stream(self.device)
             side = torch.cuda.Stream(self.device)
@@ -60,6 +67,9 @@ class CapturedStep:
             with torch.cuda.graph(graph):
                 self.outputs = self.step()
         self._graph = graph
+        profiling.count("captured_step.captures")
+        profiling.count("captured_step.capture_ns",
+                        time.perf_counter_ns() - t0)
         return True
 
     @property

@@ -961,8 +961,8 @@ def trivial_probe(inp: ScorerInputs, v: torch.Tensor) -> torch.Tensor:
 
     CUDA operands launch ``trivial_kernel`` of ``csrc/scoring.cu`` through
     the scorer's library and launch path (``trivial_probe.launches`` counts
-    the launches) and raise if it cannot be built or launched; CPU operands
-    run :func:`trivial_probe_reference`."""
+    the wrapper's launches) and raise if it cannot be built or launched;
+    CPU operands run :func:`trivial_probe_reference`."""
     if inp.coeffs_lon.device.type == "cpu":
         return trivial_probe_reference(inp, v)
     if v.dtype != torch.float32 or v.device != inp.coeffs_lon.device \

@@ -17,9 +17,11 @@ import chip_smoke
 from commonroad_rp_tpu_torch.ops import collision_kernel
 from commonroad_rp_tpu_torch.ops import cycle as cycle_ops
 from commonroad_rp_tpu_torch.ops import scoring
+from commonroad_rp_tpu_torch.ops.program import CapturedStep
 from commonroad_rp_tpu_torch.run_fleet import heterogeneous_fleet, make_scan
 from commonroad_rp_tpu_torch.run_planner import (drive_to_goal, load_config,
                                                  make_planner)
+from commonroad_rp_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.gpu
 
@@ -93,6 +95,25 @@ def test_captured_scan_equals_uncaptured(cuda, which):
     assert run.replays == 3 * run.n_cycles
     chip_smoke.assert_bit_identical(torch, which, again,
                                     twin(got[0], *faster))
+
+
+def test_capture_counters_count_captures_not_replays(cuda):
+    """A step's capture adds 1 to ``captured_step.captures`` and a positive
+    host wall to ``captured_step.capture_ns``; a warm replay adds
+    nothing."""
+    x = torch.arange(4.0, device=cuda)
+    step = CapturedStep(lambda: x * 2, cuda)
+    before = profiling.counters()
+    out = step()
+    first = profiling.counters()
+    step()
+    torch.cuda.synchronize()
+    assert first["captured_step.captures"] == \
+        before.get("captured_step.captures", 0) + 1
+    assert first["captured_step.capture_ns"] > \
+        before.get("captured_step.capture_ns", 0)
+    assert profiling.counters() == first
+    assert step.replays == 2 and torch.equal(out, x * 2)
 
 
 def _kernel_vs_plain(label, args, kwargs):
