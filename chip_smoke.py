@@ -211,6 +211,13 @@ PEAK_BYTES = 3.35e12
 # binary table search adds 3.  The corridor and obstacle tests, which stop at
 # a candidate's first collision, are not counted: the bound is a lower bound
 SCORER_STEP_OPS, SCORER_ACTIVE_OPS = 60, 190
+# float operations of one lattice candidate's coefficient rows that run
+# whatever the mode (csrc/scoring.cu lattice_candidate: the linspace target
+# 7, the quartic row 16 (the stop quintic's 34 counted as the quartic's),
+# the lateral quintic 34, the goal test 1): the fleet kernel's lattice form
+# builds each candidate at least once, lattice_candidates_kernel each chosen
+# one
+LATTICE_OPS = 58
 # collision kernels (csrc/collision.cu): an ego step whose heading is
 # computed (cos/sin, once a row of the step survives the skip), a valid
 # (step, row) pair's skip test (two differences, two squares, their sum) and
@@ -384,11 +391,22 @@ def compare(torch, label, kernel_out, plain_out, domain):
     return max_err
 
 
+def loaded_operands(inp):
+    """Prepared operands with the candidates as tensors: a lattice's
+    expanded by ``ops.grid``, others as they are."""
+    from commonroad_rp_tpu_torch.ops import scoring
+
+    if isinstance(inp, scoring.FleetLatticeInputs):
+        return scoring.lattice_scorer_inputs(inp)
+    return inp
+
+
 def prepared_in_domain(torch, inp):
     """Candidates of prepared operands (one problem or a fleet) whose
     active steps all lie in [0, s_last]."""
     from commonroad_rp_tpu_torch.ops import scoring
 
+    inp = loaded_operands(inp)
     if not isinstance(inp, scoring.FleetScorerInputs):
         inp = scoring._as_fleet(inp)
     cl, tl, sc = inp.coeffs_lon, inp.traj_len, inp.scalars
@@ -404,9 +422,28 @@ def prepared_in_domain(torch, inp):
     return torch.all(((s >= 0) & (s <= last)) | ~active, dim=0)
 
 
+def lattice_equals_loaded(torch, label, inp, out_k):
+    """The fleet kernel's rows ``out_k`` on lattice operands ``inp`` against
+    its rows on the same candidates loaded (``ops.grid`` on the card): bit
+    for bit.  Returns the loaded operands; launches not counted."""
+    from commonroad_rp_tpu_torch.ops import scoring
+
+    loaded = loaded_operands(inp)
+    with uncounted():
+        out_l = scoring.score_prepared(loaded)
+    torch.cuda.synchronize()
+    same = all(bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+               for a, b in zip(out_k, out_l))
+    log(f"{label}: the lattice's rows equal the loaded candidates' bit for "
+        f"bit: {same}")
+    check(same, f"{label}: the lattice and the loaded candidates differ")
+    return loaded
+
+
 def captured_operands(run_scan):
-    """The scorer operands of a scan's first cycle: ``run_scan(scorer)``
-    runs a one-cycle uncaptured scan with the given scoring function."""
+    """The scorer operands of a scan's first cycle (the fleet scan's are
+    ``FleetLatticeInputs``): ``run_scan(scorer)`` runs a one-cycle
+    uncaptured scan with the given scoring function."""
     from commonroad_rp_tpu_torch.ops import scoring
 
     captured = []
@@ -426,7 +463,7 @@ def uncounted():
     from commonroad_rp_tpu_torch.ops import scoring
 
     wrappers = (scoring.score_candidates, scoring.score_fleet,
-                scoring.trivial_probe)
+                scoring.lattice_candidates, scoring.trivial_probe)
     saved = [w.launches for w in wrappers]
     try:
         yield
@@ -550,7 +587,8 @@ def captured_and_twin(torch, label, run, twin, carry, *args):
     first_s = time.perf_counter() - t0
     pool = torch.cuda.memory_reserved() - reserved
     counts = {"score_candidates": scoring.score_candidates.launches,
-              "score_fleet": scoring.score_fleet.launches}
+              "score_fleet": scoring.score_fleet.launches,
+              "lattice_candidates": scoring.lattice_candidates.launches}
     want = no_sync(torch, lambda: twin(carry, *args))
     assert_bit_identical(torch, label, got, want)
     check(run.replays == run.n_cycles, f"{label}: {run.replays} replays "
@@ -1212,6 +1250,12 @@ def main():
               fleet1024["ms"], fleet1024["plain_ms"], fleet1024["bound"],
               device_ms=fleet1024["dev_ms"],
               executions=fleet1024["executions"]),
+        entry("lattice_candidates", "scoring.cu",
+              "commonroad_rp_tpu/parallel/pallas_fleet.py:289",
+              fleet1024["win"]["launches"], 0.0, fleet1024["win"]["ms"],
+              fleet1024["win"]["plain_ms"], fleet1024["win"]["bound"],
+              device_ms=fleet1024["win"]["dev_ms"],
+              executions=fleet1024["win"]["executions"]),
         entry("obb_collision", "collision.cu",
               "commonroad_rp_tpu/ops/pallas_kernels.py:33",
               conformance["launches"], collision["max_err"],
@@ -1250,14 +1294,14 @@ def phase_fleet_kernel(torch):
     torch.cuda.synchronize()
     max_err = compare(torch, "fleet F=12 first cycle", out_k, out_p,
                       prepared_in_domain(torch, inp))
+    lattice_equals_loaded(torch, "fleet F=12 first cycle", inp, out_k)
     largest_table_scan(torch, scene, carry)
     max_err = max(max_err, compare_largest_table(
         torch, "fleet F=12 first cycle", inp, out_p))
     max_err = max(max_err, hostile_cases(torch))
     k_ms, p_ms = time_prepared(torch, inp, KERNEL_REPS, PLAIN_REPS)
-    log(f"time fleet F=12: F x K={inp.coeffs_lon.shape[0]}x"
-        f"{inp.coeffs_lon.shape[1]} T={inp.n_steps + 1} kernel {k_ms:.4f} "
-        f"ms, plain {p_ms:.4f} ms")
+    log(f"time fleet F=12: F x K={inp.tables.shape[0]}x{inp.grid.size} "
+        f"T={inp.n_steps + 1} kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
 
     run_k, _ = make_scan(scene, 10)
     run_p, _ = make_scan(scene, 10,
@@ -1307,7 +1351,8 @@ def largest_table_scan(torch, scene, carry, n_cycles=3):
     got, _, counts = captured_and_twin(
         torch, label, make_scan(padded, n_cycles)[0],
         make_scan(padded, n_cycles, graph=False)[0], carry)
-    check(counts == {"score_candidates": 0, "score_fleet": 2},
+    check(counts == {"score_candidates": 0, "score_fleet": 2,
+                     "lattice_candidates": 2},
           f"{label}: wrapper counts {counts}")
     _, metrics = make_scan(scene, n_cycles, graph=False)[0](carry)
     check(bool(torch.equal(got[1][0], metrics[0])),
@@ -1390,7 +1435,8 @@ def phase_plan_scan(torch):
         twin, _ = planner.scan_program(cycles, graph=False)
         got, _, counts = captured_and_twin(torch, f"plan_scan {name}", run,
                                            twin, carry, ds)
-        check(counts == {"score_candidates": 2, "score_fleet": 0},
+        check(counts == {"score_candidates": 2, "score_fleet": 0,
+                         "lattice_candidates": 0},
               f"plan_scan {name}: wrapper counts {counts}")
         # the desired speed is read from device memory, not frozen in the
         # graph: a replay at another speed equals the twin at that speed
@@ -1621,12 +1667,18 @@ def phase_fleet1024(torch):
     got, want, launches = captured_and_twin(torch, f"fleet{F}", run, twin,
                                             carry)
     metrics = got[1]
-    check(launches == {"score_candidates": 0, "score_fleet": 2},
+    check(launches == {"score_candidates": 0, "score_fleet": 2,
+                       "lattice_candidates": 2},
           f"fleet1024: wrapper counts {launches}")
     executions, names = kernel_executions(torch, lambda: run(carry),
                                           FLEET_SCORE_KERNEL, cycles)
     check(executions == cycles, f"fleet1024: {executions} fleet-kernel "
           f"executions for {cycles} cycles ({names})")
+    win_executions, names = kernel_executions(
+        torch, lambda: run(carry), "lattice_candidates_kernel", cycles)
+    check(win_executions == cycles, f"fleet1024: {win_executions} "
+          f"lattice_candidates_kernel executions for {cycles} cycles "
+          f"({names})")
     forms = scan_forms_timed(torch, f"fleet{F} ({cycles} cycles)",
                              {"captured": run, "uncaptured": twin},
                              lambda fn: fn(carry), cycles, rounds=2)
@@ -1655,7 +1707,8 @@ def phase_fleet1024(torch):
     torch.cuda.synchronize()
     max_err = compare(torch, "fleet1024 first cycle", out_k, out_p,
                       prepared_in_domain(torch, inp))
-    fates, one_fate, dead = candidate_fates(torch, inp, out_p)
+    loaded = lattice_equals_loaded(torch, "fleet1024 first cycle", inp, out_k)
+    fates, one_fate, dead = candidate_fates(torch, loaded, out_p)
     log("fleet1024 first cycle, how candidates end: "
         + ", ".join(f"{name} {n} ({n / (F * K):.3f})"
                     for name, n in fates.items())
@@ -1663,14 +1716,47 @@ def phase_fleet1024(torch):
         f"prefiltered or violating throughout {dead:.3f}")
     del out_p
     ms, plain_ms = time_prepared(torch, inp, 20, 3)
+    best = torch.argmin(out_k[0], dim=1)[:, None]
+    every = torch.arange(K, device=best.device).repeat(F, 1)
+    win = lambda: scoring.lattice_candidates(inp, best)
+    win_plain = lambda: scoring.lattice_candidates_reference(inp, best)
     with uncounted():
+        for name, index in (("the winners", best), ("every candidate", every)):
+            got = scoring.lattice_candidates(inp, index)
+            want = scoring.lattice_candidates_reference(inp, index)
+            same = all(bool(torch.equal(a.view(torch.int32),
+                                        b.view(torch.int32)))
+                       for a, b in zip(got, want))
+            log(f"fleet1024 first cycle, lattice_candidates at {name} "
+                f"({tuple(index.shape)}) against its plain version: bit for "
+                f"bit {same}")
+            check(same, f"fleet1024: lattice_candidates at {name} differs "
+                  "from its plain version")
+        del got, want, every
         dev_ms = device_kernel_ms(torch, lambda: scoring.score_prepared(inp),
                                   "fleet_score_kernel")
+        loaded_ms = cuda_time_ms(
+            torch, lambda: scoring.score_prepared(loaded), 20)
+        loaded_dev_ms = device_kernel_ms(
+            torch, lambda: scoring.score_prepared(loaded),
+            "fleet_score_kernel")
+        win_ms = cuda_time_ms(torch, win, 200)
+        win_dev_ms = device_kernel_ms(torch, win, "lattice_candidates_kernel")
+    win_plain_ms = cuda_time_ms(torch, win_plain, 20)
     bound = scorer_bound(torch, inp)
+    win_bound = lattice_candidates_bound(torch, inp, best)
     log(f"time fleet F=1024: kernel {ms:.4f} ms per call (device time "
         f"{dev_text(dev_ms)}; {F * K / ms * 1e3:.6g} candidate-evals/s), "
-        f"plain {plain_ms:.4f} ms")
+        f"plain {plain_ms:.4f} ms; the candidates loaded {loaded_ms:.4f} ms "
+        f"(device {dev_text(loaded_dev_ms)}); the winners' coefficients "
+        f"(lattice_candidates, F x 1) {win_ms:.4f} ms (device "
+        f"{dev_text(win_dev_ms)}), plain {win_plain_ms:.4f} ms, bound "
+        f"{win_bound[0]:.3g} ms ({win_bound[1]})")
     return dict(launches=launches["score_fleet"], executions=executions,
+                win=dict(launches=launches["lattice_candidates"],
+                         executions=win_executions, ms=win_ms,
+                         dev_ms=win_dev_ms, plain_ms=win_plain_ms,
+                         bound=win_bound),
                 max_err=max_err, ms=ms,
                 dev_ms=dev_ms, plain_ms=plain_ms, bound=bound,
                 outcomes=outcomes, trace=winner_trace(metrics),
@@ -2168,21 +2254,42 @@ def bound_of(ops, nbytes, dtype_name="float32"):
 
 def scorer_bound(torch, inp):
     """Bound of one scorer launch on prepared operands (one problem or a
-    fleet): this run's active steps (``traj_len``); every operand read
-    once, the three [.., K] rows written once."""
+    fleet, its candidates loaded or a lattice): this run's active steps
+    (``traj_len``); every operand read once (a lattice's: the carried
+    state, the bounds and the level table, and each candidate built once),
+    the three [.., K] rows written once."""
     from commonroad_rp_tpu_torch.ops import scoring
 
-    if not isinstance(inp, scoring.FleetScorerInputs):
-        inp = scoring._as_fleet(inp)
-    T = inp.n_steps + 1
-    F, K = inp.traj_len.shape
-    halvings = int(np.ceil(np.log2(inp.tables.shape[1])))
-    active = float(torch.clamp(inp.traj_len, max=T).sum())
+    lattice = isinstance(inp, scoring.FleetLatticeInputs)
+    loaded = scoring.lattice_scorer_inputs(inp) if lattice else inp
+    if not isinstance(loaded, scoring.FleetScorerInputs):
+        loaded = scoring._as_fleet(loaded)
+    T = loaded.n_steps + 1
+    F, K = loaded.traj_len.shape
+    halvings = int(np.ceil(np.log2(loaded.tables.shape[1])))
+    active = float(torch.clamp(loaded.traj_len, max=T).sum())
     ops = F * K * T * SCORER_STEP_OPS + active * (SCORER_ACTIVE_OPS
                                                   + 3 * halvings)
-    nbytes = 4 * (sum(getattr(inp, name).numel() for name in
-                      inp._fields[:8]) + 3 * F * K)       # the operands
+    operands = [t for t in inp if isinstance(t, torch.Tensor)]
+    if lattice:
+        ops += F * K * LATTICE_OPS
+        operands.append(scoring.lattice_table(inp.grid, inp.x0_lon.device))
+    nbytes = 4 * (sum(t.numel() for t in operands) + 3 * F * K)
     return bound_of(ops, nbytes)
+
+
+def lattice_candidates_bound(torch, inp, index):
+    """Bound of one ``lattice_candidates`` launch: each chosen candidate
+    built once (its index read, its 13 floats written), each problem's
+    carried state, bounds and low-velocity flag and the level table read
+    once."""
+    from commonroad_rp_tpu_torch.ops import scoring
+
+    F, J = index.shape
+    table = scoring.lattice_table(inp.grid, inp.x0_lon.device)
+    nbytes = F * J * (8 + 13 * 4) + F * 4 * (3 + 3 + 2 + 1) \
+        + 4 * table.numel()
+    return bound_of(F * J * LATTICE_OPS, nbytes)
 
 
 
@@ -2320,8 +2427,8 @@ def reset_launch_counts():
     from commonroad_rp_tpu_torch.ops import scoring
 
     for wrapper in (scoring.score_candidates, scoring.score_fleet,
-                    scoring.trivial_probe, ck.obb_collision,
-                    ck.obb_collision_fleet):
+                    scoring.lattice_candidates, scoring.trivial_probe,
+                    ck.obb_collision, ck.obb_collision_fleet):
         wrapper.launches = 0
 
 

@@ -55,6 +55,14 @@
 //    screens its candidates (the prefilter and the checks of the first
 //    kScreenSteps steps), queues the survivors in shared memory and runs the
 //    whole scan on the queue, in full warps (score_block).
+//  * Where the candidates are the regular sampling lattice around each
+//    problem's carried state (the fleet scan), fleet_score_kernel<true>
+//    builds a candidate's coefficients itself from that state and the
+//    level's static grid (the lattice form of the four candidate operands)
+//    instead of loading them: the [F, K, 6] coefficient tensors and the tens
+//    of elementwise launches that filled them are never made.
+//    lattice_candidates_kernel gives the chosen candidates' coefficients
+//    from the same function.
 //
 // Numerics: built without fast math, with IEEE division and square root and
 // without FMA contraction (-fmad=false), so each float32 operation rounds as
@@ -195,6 +203,134 @@ __device__ __forceinline__ Problem stage_problem(
   return pb;
 }
 
+// ---- the lattice candidate (compiled on the CPU by the tests with
+// __device__ and __forceinline__ defined away and __ldg a plain load)
+
+// grid.linspace(lo, hi, n)[i]: the ramp i / (n - 1) is a multiply by the
+// reciprocal, as PyTorch divides by a host scalar on the card; the last
+// sample is hi
+__device__ __forceinline__ float lattice_target(int i, int n, float lo,
+                                                float hi) {
+  if (i == n - 1) return hi;
+  const float step = (float)i * (1.0f / (float)(n - 1));
+  return lo * (1.0f - step) + hi * step;
+}
+
+// polynomial.quintic_coeffs toward (p1, 0, 0) over T, term for term
+__device__ __forceinline__ void quintic_to_rest(float p0, float v0, float a0,
+                                                float p1, float T, float* c) {
+  const float T2 = T * T, T3 = T2 * T, T4 = T2 * T2, T5 = T4 * T;
+  const float dp = p1 - (p0 + v0 * T + 0.5f * a0 * T2);
+  const float dv = (0.0f - (v0 + a0 * T)) * T;
+  const float da = (0.0f - a0) * T2;
+  c[0] = p0;
+  c[1] = v0;
+  c[2] = 0.5f * a0;
+  c[3] = (10.0f * dp - 4.0f * dv + 0.5f * da) / T3;
+  c[4] = (-15.0f * dp + 7.0f * dv - da) / T4;
+  c[5] = (6.0f * dp - 3.0f * dv + 0.5f * da) / T5;
+}
+
+// Candidate k of one problem's lattice of a sampling level (ops/grid.py):
+// the point (it, iv, id) of the (time, longitudinal target, lateral target)
+// lattice in _lattice's meshgrid 'ij' order, k = (it * n_lon + iv) *
+// (n_d + 1) + id, where id = n_d is the problem's current lateral offset
+// x0_lat[0].  The longitudinal target is linspace(lo, hi, n_lon)[iv] (a
+// velocity, or a stop position when stopping); the coefficients are
+// velocity_keeping_candidates' (quartic lon) or stopping_candidates'
+// (quintic lon and the goal-behind flag), each float operation the one the
+// PyTorch ops perform on the card, in their order, so that with -fmad=false
+// every value is bit for bit theirs.
+__device__ __forceinline__ void lattice_candidate(
+    int k, const float* x0_lon, const float* x0_lat, float lo, float hi,
+    const float* t_values, const float* traj_len, const float* d_values,
+    int n_lon, int n_d, bool stopping, bool low_vel, float* cl, float* ca,
+    float& n_valid, bool& goal_ok) {
+  const int id = k % (n_d + 1);
+  const int iv = k / (n_d + 1) % n_lon;
+  const int it = k / (n_d + 1) / n_lon;
+  const float T = __ldg(t_values + it);
+  const float p0 = __ldg(x0_lon), v0 = __ldg(x0_lon + 1),
+              a0 = __ldg(x0_lon + 2);
+  const float target = lattice_target(iv, n_lon, lo, hi);
+  if (stopping) {
+    quintic_to_rest(p0, v0, a0, target, T, cl);
+  } else {
+    // polynomial.quartic_coeffs toward (target, 0)
+    const float T2 = T * T, T3 = T2 * T;
+    const float dv = target - v0 - a0 * T;
+    const float da = 0.0f - a0;
+    cl[0] = p0;
+    cl[1] = v0;
+    cl[2] = 0.5f * a0;
+    cl[3] = dv / T2 - da / (3.0f * T);
+    cl[4] = da / (4.0f * T2) - dv / (2.0f * T3);
+    cl[5] = 0.0f;
+  }
+  // grid._lateral: over the travelled arclength in low-velocity mode, over
+  // T where that is not positive
+  float tau = T;
+  if (low_vel) {
+    const float t2 = T * T, t3 = t2 * T, t4 = t2 * t2, t5 = t4 * T;
+    const float s_goal = cl[0] + cl[1] * T + cl[2] * t2 + cl[3] * t3 +
+                         cl[4] * t4 + cl[5] * t5 - p0;
+    tau = s_goal <= 0.0f ? T : s_goal;
+  }
+  const float d = id < n_d ? __ldg(d_values + id) : __ldg(x0_lat);
+  quintic_to_rest(__ldg(x0_lat), __ldg(x0_lat + 1), __ldg(x0_lat + 2), d, tau,
+                  ca);
+  n_valid = __ldg(traj_len + it);
+  goal_ok = !stopping || p0 < target;
+}
+
+// The lattice form of a scorer's four candidate operands (the fleet scan's
+// FleetLatticeInputs): in place of coeffs_lon, coeffs_lat, traj_len and
+// goal_valid, each problem's carried x0_lon, x0_lat [3] and target bounds
+// [2], and the level table that all problems share (ops/scoring.py
+// lattice_table: t_values [n_t], the valid steps [n_t], d_values [n_d]).
+// The level's sizes ride in the kernel's flags above the check bits
+// (ops/scoring.py lattice_flags): bit 7 stopping, bits 8-15 n_t, 16-23 n_lon,
+// 24-30 n_d, so that they are kernel parameters and not loads.
+struct LevelSizes {
+  int n_t, n_lon, n_d;
+  bool stopping;
+};
+
+__device__ __forceinline__ LevelSizes level_sizes(int flags) {
+  return {(flags >> 8) & 255, (flags >> 16) & 255, (flags >> 24) & 127,
+          (flags & 128) != 0};
+}
+
+// candidate k of one problem's lattice
+__device__ __forceinline__ void lattice_operands(
+    int k, const float* x0_lon, const float* x0_lat, const float* bounds,
+    const float* level, int flags, bool low_vel, float* cl, float* ca,
+    float& n_valid, bool& goal_ok) {
+  const LevelSizes n = level_sizes(flags);
+  lattice_candidate(k, x0_lon, x0_lat, __ldg(bounds), __ldg(bounds + 1),
+                    level, level + n.n_t, level + 2 * n.n_t, n.n_lon, n.n_d,
+                    n.stopping, low_vel, cl, ca, n_valid, goal_ok);
+}
+
+// candidate k's valid steps alone
+__device__ __forceinline__ float lattice_steps(int k, const float* level,
+                                               int flags) {
+  const LevelSizes n = level_sizes(flags);
+  return __ldg(level + n.n_t + k / (n.n_d + 1) / n.n_lon);
+}
+
+// candidate k's goal flag alone: a stop target behind the carried position
+// is filtered
+__device__ __forceinline__ bool lattice_goal(int k, const float* x0_lon,
+                                             const float* bounds, int flags) {
+  const LevelSizes n = level_sizes(flags);
+  if (!n.stopping) return true;
+  return __ldg(x0_lon) < lattice_target(k / (n.n_d + 1) % n.n_lon, n.n_lon,
+                                        __ldg(bounds), __ldg(bounds + 1));
+}
+
+// ---- end of the lattice candidate
+
 // count(s_row <= q) over the arclength column, by bisection of [lo, hi]
 __device__ __forceinline__ int bisect_le(const float* col, int lo, int hi,
                                          float q) {
@@ -253,13 +389,14 @@ __device__ __forceinline__ int count_le_hint(const float* col, int P, float q,
   return bisect_le(col, lo, hi, q);
 }
 
-// Scores candidate k of one problem; the candidate operands and the outputs
-// are that problem's bases.  kPass 0 is the whole scan.  kPass 1 is the screen: the prefilter and the
-// kinematic checks of the first kScreenSteps valid steps, nothing else; it
-// writes the outputs of a candidate that ends there and returns whether the
-// candidate goes on.  kPass 2 is the whole scan of a candidate that passed
-// the screen (it is not prefiltered).
-template <int kPass>
+// Scores candidate k of one problem; the candidate operands (kLattice: their
+// lattice form) and the outputs are that problem's.  kPass 0 is the whole
+// scan.  kPass 1 is the screen: the prefilter and the kinematic checks of
+// the first kScreenSteps valid steps, nothing else; it writes the outputs of
+// a candidate that ends there and returns whether the candidate goes on.
+// kPass 2 is the whole scan of a candidate that passed the screen (it is not
+// prefiltered).
+template <int kPass, bool kLattice>
 __device__ __forceinline__ bool score_one(
     int k, const float* __restrict__ coeffs_lon,
     const float* __restrict__ coeffs_lat,
@@ -285,15 +422,28 @@ __device__ __forceinline__ bool score_one(
   const bool has_v = flags & F_HAS_DESIRED_V;
   const bool has_s = flags & F_HAS_DESIRED_S;
 
+  // written so that the loaded form compiles to score_kernel's code without
+  // a lattice form (compared in its SASS): the lattice form has a branch of
+  // its own and the two conditionals; a helper call here moves that code
   float cl[6], ca[6];
+  if constexpr (kLattice) {
+    float steps;  // both are read alone below
+    bool goal;
+    lattice_operands(k, coeffs_lon, coeffs_lat, traj_len_in, goal_valid_in,
+                     flags, low_vel, cl, ca, steps, goal);
+  } else {
 #pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    cl[i] = __ldg(coeffs_lon + k * 6 + i);
-    ca[i] = __ldg(coeffs_lat + k * 6 + i);
+    for (int i = 0; i < 6; ++i) {
+      cl[i] = __ldg(coeffs_lon + k * 6 + i);
+      ca[i] = __ldg(coeffs_lat + k * 6 + i);
+    }
   }
-  const float traj_len = __ldg(traj_len_in + k);
+  const float traj_len = kLattice ? lattice_steps(k, goal_valid_in, flags)
+                                  : __ldg(traj_len_in + k);
   const float last = traj_len - 1.0f;
-  const bool goal_ok = __ldg(goal_valid_in + k) > 0.5f;
+  const bool goal_ok =
+      kLattice ? lattice_goal(k, coeffs_lon, traj_len_in, flags)
+               : __ldg(goal_valid_in + k) > 0.5f;
   // the valid steps are the t < n_act: (float)t < traj_len
   const int n_act =
       traj_len > 0.f ? (int)fminf(ceilf(traj_len), (float)T) : 0;
@@ -659,7 +809,7 @@ extern __shared__ float4 crp_smem[];
 // need it.  A launch whose blocks all fit the card at once (one problem)
 // would only lengthen its one round by the screen, so score_kernel does
 // without.
-template <bool kScreen>
+template <bool kScreen, bool kLattice>
 __device__ __forceinline__ void score_block(
     const float* __restrict__ coeffs_lon, const float* __restrict__ coeffs_lat,
     const float* __restrict__ traj_len, const float* __restrict__ goal_valid,
@@ -676,10 +826,16 @@ __device__ __forceinline__ void score_block(
       reinterpret_cast<float*>(crp_smem), tables + f * (size_t)P * kCols, P,
       obs + f * (size_t)M * T * kObsCols, M,
       poly + f * (size_t)Mp * T * (2 * V + 1), scal + f * S_NUM, T);
-  coeffs_lon += fk * 6;
-  coeffs_lat += fk * 6;
-  traj_len += fk;
-  goal_valid += fk;
+  if constexpr (kLattice) {
+    coeffs_lon += f * 3;  // x0_lon
+    coeffs_lat += f * 3;  // x0_lat
+    traj_len += f * 2;    // bounds; the level table is every problem's
+  } else {
+    coeffs_lon += fk * 6;
+    coeffs_lat += fk * 6;
+    traj_len += fk;
+    goal_valid += fk;
+  }
   float* out_masked = out + fk;
   float* out_kin = out + row + fk;
   float* out_reason = out + 2 * row + fk;
@@ -691,8 +847,9 @@ __device__ __forceinline__ void score_block(
   const int k_end = min(K, k_begin + per_block);
   if (!kScreen) {
     for (int k = k_begin + tid; k < k_end; k += nthr)
-      score_one<0>(k, coeffs_lon, coeffs_lat, traj_len, goal_valid, pb, P, M,
-                   Mp, V, T, flags, out_masked, out_kin, out_reason);
+      score_one<0, kLattice>(k, coeffs_lon, coeffs_lat, traj_len, goal_valid,
+                             pb, P, M, Mp, V, T, flags, out_masked, out_kin,
+                             out_reason);
     return;
   }
   // k_end - k_begin <= kQueue: launch_scorer gives a block at most
@@ -700,14 +857,17 @@ __device__ __forceinline__ void score_block(
   if (tid == 0) n_queued = 0;
   __syncthreads();
   for (int k = k_begin + tid; k < k_end; k += nthr)
-    if (score_one<1>(k, coeffs_lon, coeffs_lat, traj_len, goal_valid, pb, P, M,
-                     Mp, V, T, flags, out_masked, out_kin, out_reason))
+    if (score_one<1, kLattice>(k, coeffs_lon, coeffs_lat, traj_len,
+                               goal_valid, pb, P, M, Mp, V, T, flags,
+                               out_masked, out_kin, out_reason))
       queue[atomicAdd(&n_queued, 1)] = k;
   __syncthreads();
   const int n = n_queued;
+  // a queued candidate's operands are loaded (or built) again
   for (int i = tid; i < n; i += nthr)
-    score_one<2>(queue[i], coeffs_lon, coeffs_lat, traj_len, goal_valid, pb, P,
-                 M, Mp, V, T, flags, out_masked, out_kin, out_reason);
+    score_one<2, kLattice>(queue[i], coeffs_lon, coeffs_lat, traj_len,
+                           goal_valid, pb, P, M, Mp, V, T, flags, out_masked,
+                           out_kin, out_reason);
 }
 
 #define CRP_SCORER_PARAMS                                                     \
@@ -725,13 +885,49 @@ __device__ __forceinline__ void score_block(
 // one planning problem (F = 1), a block per K-tile
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     score_kernel(CRP_SCORER_PARAMS) {
-  score_block<false>(CRP_SCORER_ARGS);
+  score_block<false, false>(CRP_SCORER_ARGS);
 }
 
-// a fleet of F problems, screened
+// a fleet of F problems, screened; kLattice: the candidates are built from
+// the lattice form of the four candidate operands (the fleet scan), else
+// loaded (score_fleet)
+template <bool kLattice>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     fleet_score_kernel(CRP_SCORER_PARAMS) {
-  score_block<true>(CRP_SCORER_ARGS);
+  score_block<true, kLattice>(CRP_SCORER_ARGS);
+}
+
+// The coefficient rows and valid steps of J chosen candidates of each of F
+// problems' lattices (x0_lon, x0_lat [F, 3], bounds [F, 2], the level
+// table and sizes, each problem's scalar row for its low-velocity mode), one
+// thread each: index [F, J] (int64), out [F, J, 13] (coeffs_lon | coeffs_lat
+// | valid steps).  An index outside [0, K) gives NaN rows and 0 steps.
+__global__ void __launch_bounds__(128) lattice_candidates_kernel(
+    const float* __restrict__ x0_lon, const float* __restrict__ x0_lat,
+    const float* __restrict__ bounds, const float* __restrict__ level,
+    const float* __restrict__ scal, const long long* __restrict__ index,
+    int F, int J, int K, int flags, float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= F * J) return;
+  const int f = i / J;
+  const long long k = __ldg(index + i);
+  float* o = out + (size_t)i * 13;
+  if (k < 0 || k >= K) {
+    for (int c = 0; c < 12; ++c) o[c] = __int_as_float(0x7fc00000);
+    o[12] = 0.0f;
+    return;
+  }
+  float cl[6], ca[6], n_valid;
+  bool goal_ok;
+  lattice_operands((int)k, x0_lon + f * 3, x0_lat + f * 3, bounds + f * 2,
+                   level, flags, __ldg(scal + f * S_NUM + S_LOW_VEL) > 0.5f,
+                   cl, ca, n_valid, goal_ok);
+#pragma unroll
+  for (int c = 0; c < 6; ++c) {
+    o[c] = cl[c];
+    o[6 + c] = ca[c];
+  }
+  o[12] = n_valid;
 }
 
 __global__ void __launch_bounds__(256) trivial_kernel(
@@ -747,13 +943,13 @@ __global__ void __launch_bounds__(256) trivial_kernel(
 // The most shared memory one block may have on sm_90, static and dynamic
 constexpr long kSharedPerBlock = 227 * 1024;
 
-// Launches one of the two scorer kernels with the dynamic shared memory its
-// sizes need; above 48 KB the kernel's limit is raised first, once per size
-// reached.
-template <bool kFleet>
-int launch_scorer(CRP_SCORER_PARAMS, void* stream) {
-  static int raised_to = 0;
-  const auto kernel = kFleet ? fleet_score_kernel : score_kernel;
+// Launches a scorer kernel (score_kernel, or a fleet_score_kernel when
+// fleet) with the dynamic shared memory its sizes need; above 48 KB the
+// kernel's limit is raised first, once per size reached (raised_to, one per
+// kernel).  args are the kernel's arguments.
+template <class Kernel, class... Args>
+int launch_scorer(Kernel kernel, int& raised_to, bool fleet, int P, int M,
+                  int F, int K, int T, void* stream, Args... args) {
   if (K <= 0 || F <= 0) return 0;
   if (F > 65535 || P < 2) return (int)cudaErrorInvalidConfiguration;
   const long smem_bytes = 4 * staged_floats(P, M, T);
@@ -769,12 +965,11 @@ int launch_scorer(CRP_SCORER_PARAMS, void* stream) {
   // candidates, and the problem is staged once for all of them
   const int tiles = (K + kThreads - 1) / kThreads;
   long per_block = 1;
-  if (kFleet) per_block = (long)F * tiles / kBlocksWanted;
+  if (fleet) per_block = (long)F * tiles / kBlocksWanted;
   if (per_block > kMaxTilesPerBlock) per_block = kMaxTilesPerBlock;
   if (per_block < 1) per_block = 1;
   const dim3 blocks((tiles + per_block - 1) / per_block, F);
-  kernel<<<blocks, kThreads, smem_bytes, (cudaStream_t)stream>>>(
-      CRP_SCORER_ARGS);
+  kernel<<<blocks, kThreads, smem_bytes, (cudaStream_t)stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
@@ -785,17 +980,20 @@ extern "C" long crp_score_shared_bytes(int P, int M, int T) {
   return 4 * staged_floats(P, M, T);
 }
 
-// The most dynamic shared memory (bytes) a block of either scorer kernel may
+// The most dynamic shared memory (bytes) a block of any scorer kernel may
 // ask for beside its static shared memory (the fleet kernel's queue), which
 // is counted in whole KB, or -1.
 extern "C" long crp_score_shared_limit() {
-  cudaFuncAttributes one, fleet;
+  cudaFuncAttributes one, loaded, lattice;
   if (cudaFuncGetAttributes(&one, score_kernel) != cudaSuccess ||
-      cudaFuncGetAttributes(&fleet, fleet_score_kernel) != cudaSuccess)
+      cudaFuncGetAttributes(&loaded, fleet_score_kernel<false>) !=
+          cudaSuccess ||
+      cudaFuncGetAttributes(&lattice, fleet_score_kernel<true>) !=
+          cudaSuccess)
     return -1;
-  const size_t fixed = one.sharedSizeBytes > fleet.sharedSizeBytes
-                           ? one.sharedSizeBytes
-                           : fleet.sharedSizeBytes;
+  size_t fixed = one.sharedSizeBytes;
+  if (loaded.sharedSizeBytes > fixed) fixed = loaded.sharedSizeBytes;
+  if (lattice.sharedSizeBytes > fixed) fixed = lattice.sharedSizeBytes;
   return kSharedPerBlock - ((long)fixed + 1023) / 1024 * 1024;
 }
 
@@ -825,8 +1023,10 @@ extern "C" int crp_score_candidates(
     const float* goal_valid, const float* tables, int P, const float* obs,
     int M, const float* poly, int Mp, int V, const float* scal, int K, int T,
     int flags, float* out, void* stream) {
+  static int raised_to = 0;
   const int F = 1;
-  return launch_scorer<false>(CRP_SCORER_ARGS, stream);
+  return launch_scorer(score_kernel, raised_to, false, P, M, F, K, T, stream,
+                       CRP_SCORER_ARGS);
 }
 
 // F problems: the operands of FleetScorerInputs, out [3, F, K].
@@ -835,5 +1035,37 @@ extern "C" int crp_score_fleet(
     const float* goal_valid, const float* tables, int P, const float* obs,
     int M, const float* poly, int Mp, int V, const float* scal, int F, int K,
     int T, int flags, float* out, void* stream) {
-  return launch_scorer<true>(CRP_SCORER_ARGS, stream);
+  static int raised_to = 0;
+  return launch_scorer(fleet_score_kernel<false>, raised_to, true, P, M, F,
+                       K, T, stream, CRP_SCORER_ARGS);
+}
+
+// F problems whose candidates are the lattice of FleetLatticeInputs: the
+// per-problem x0_lon, x0_lat [F, 3] and bounds [F, 2] and the level table in
+// place of the four candidate operands of crp_score_fleet, the level's sizes
+// in flags; out [3, F, K].
+extern "C" int crp_score_fleet_lattice(
+    const float* x0_lon, const float* x0_lat, const float* bounds,
+    const float* level, const float* tables, int P, const float* obs, int M,
+    const float* poly, int Mp, int V, const float* scal, int F, int K, int T,
+    int flags, float* out, void* stream) {
+  static int raised_to = 0;
+  return launch_scorer(fleet_score_kernel<true>, raised_to, true, P, M, F, K,
+                       T, stream, x0_lon, x0_lat, bounds, level, tables, P,
+                       obs, M, poly, Mp, V, scal, F, K, T, flags, out);
+}
+
+// The chosen candidates index [F, J] (int64) of the same lattice of K
+// candidates (its sizes in flags), with each problem's scalar row scal
+// [F, 17]: out [F, J, 13].
+extern "C" int crp_lattice_candidates(
+    const float* x0_lon, const float* x0_lat, const float* bounds,
+    const float* level, const float* scal, const long long* index, int F,
+    int J, int K, int flags, float* out, void* stream) {
+  if (F <= 0 || J <= 0) return 0;
+  const int threads = 128;
+  const int blocks = (F * J + threads - 1) / threads;
+  lattice_candidates_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      x0_lon, x0_lat, bounds, level, scal, index, F, J, K, flags, out);
+  return (int)cudaGetLastError();
 }

@@ -23,10 +23,13 @@ version of the kernel (``score_candidates_reference``,
 ``score_fleet_reference``: one function, batched over problems).
 ``prepare_inputs``/``prepare_fleet_inputs`` lay the operands out once and
 ``score_prepared`` scores them, so a scan builds its constant operands
-before its loop.  Every launch of the library's kernels, the probe kernel's
-included, goes through one helper (``_launch``): it checks the operands,
-allocates the output, calls the C function on the current stream and counts
-the launch.
+before its loop.  The fleet scan passes ``FleetLatticeInputs`` instead:
+each problem's carried state and the level's static grid, from which the
+fleet kernel builds the candidates itself (``lattice_candidates`` gives the
+chosen ones); the plain version expands them with ``ops.grid``.  Every
+launch of the library's kernels, the probe kernel's included, goes through
+one helper (``_launch``): it checks the operands, allocates the output,
+calls the C function on the current stream and counts the launch.
 
 Packed reference-table columns (``pack_ref_tables``):
     0: s      1: theta   2: curv   3: curv_d   4: d_lo   5: d_hi
@@ -44,6 +47,7 @@ import torch
 
 from commonroad_rp_tpu_torch.ops import cuda_build
 from commonroad_rp_tpu_torch.ops import frenet as frenet_ops
+from commonroad_rp_tpu_torch.ops import grid as grid_ops
 from commonroad_rp_tpu_torch.ops.collision import (CorridorArrays,
                                                    ObstacleArrays)
 from commonroad_rp_tpu_torch.ops.kinematics import VehicleArrays, _EPS
@@ -407,6 +411,51 @@ def prepare_fleet_inputs(coeffs_lon, coeffs_lat, traj_len, goal_valid,
         flags=_flags(check_flags, has_desired_s, True))
 
 
+class FleetLatticeInputs(NamedTuple):
+    """Fleet kernel operands whose candidates are each problem's regular
+    sampling lattice of one level around its carried state, the fleet
+    scan's candidates: the kernel builds candidate k's coefficients from
+    these as ``ops.grid`` builds them (``velocity_keeping_candidates``, or
+    ``stopping_candidates`` when ``stopping``), bit for bit, and no
+    [F, K, 6] tensor is made.  Candidate k is lattice point (it, iv, id),
+    k = (it * grid.n_lon + iv) * (Nd + 1) + id (``grid._lattice``'s order;
+    id = Nd is the problem's current lateral offset); K = ``grid.size``.
+    The low-velocity mode is the scalar row's (``_S_LOW_VEL``)."""
+
+    x0_lon: torch.Tensor       # [F, 3] carried (s, s_dot, s_ddot)
+    x0_lat: torch.Tensor       # [F, 3] carried (d, d_dot, d_ddot)
+    bounds: torch.Tensor       # [F, 2] velocity window, or stop positions
+    grid: grid_ops.StaticGrid  # the level's static grid
+    stopping: bool             # quintic stop lattice, goal-behind mask
+    tables: torch.Tensor       # [F, P, 12] (pack_ref_tables per problem)
+    obs: torch.Tensor          # [F, M, T, 7]
+    poly: torch.Tensor         # [F, Mp, T, 2V + 1]
+    scalars: torch.Tensor      # [F, 17]
+    n_steps: int
+    n_poly_verts: int
+    flags: int
+
+
+def lattice_scorer_inputs(inp: FleetLatticeInputs) -> FleetScorerInputs:
+    """The lattice's candidates expanded by ``ops.grid`` into the operands
+    of ``score_fleet``: what the plain version scores."""
+    low_vel = inp.scalars[:, _S_LOW_VEL] > 0.5
+    lo, hi = inp.bounds[:, 0], inp.bounds[:, 1]
+    if inp.stopping:
+        cl, ca, tl, gv = grid_ops.stopping_candidates(
+            inp.x0_lon, inp.x0_lat, lo, hi, low_vel, inp.grid)
+        gv = gv.to(torch.float32)
+    else:
+        cl, ca, tl = grid_ops.velocity_keeping_candidates(
+            inp.x0_lon, inp.x0_lat, lo, hi, low_vel, inp.grid)
+        gv = torch.ones(tl.shape, dtype=torch.float32, device=tl.device)
+    return FleetScorerInputs(
+        coeffs_lon=cl, coeffs_lat=ca, traj_len=tl.to(torch.float32),
+        goal_valid=gv, tables=inp.tables, obs=inp.obs, poly=inp.poly,
+        scalars=inp.scalars, n_steps=inp.n_steps,
+        n_poly_verts=inp.n_poly_verts, flags=inp.flags)
+
+
 def _as_fleet(inp: ScorerInputs) -> FleetScorerInputs:
     """One problem as a fleet of one."""
     return FleetScorerInputs(
@@ -741,8 +790,10 @@ def _score_plain(inp: ScorerInputs):
 
 def score_prepared_reference(inp):
     """Plain PyTorch version of the kernel on prepared operands
-    (``ScorerInputs`` or ``FleetScorerInputs``), on whatever device they
-    are."""
+    (``ScorerInputs``, ``FleetScorerInputs`` or ``FleetLatticeInputs``), on
+    whatever device they are."""
+    if isinstance(inp, FleetLatticeInputs):
+        inp = lattice_scorer_inputs(inp)
     if isinstance(inp, FleetScorerInputs):
         return _score_plain_fleet(inp)
     return _score_plain(inp)
@@ -797,12 +848,16 @@ def _bind(lib: ctypes.CDLL):
         p, p, p, p, p, i, p, i, p, i, i, p, i, i, i, p, p]
     lib.crp_score_fleet.argtypes = [
         p, p, p, p, p, i, p, i, p, i, i, p, i, i, i, i, p, p]
+    lib.crp_score_fleet_lattice.argtypes = lib.crp_score_fleet.argtypes
+    lib.crp_lattice_candidates.argtypes = [p, p, p, p, p, p, i, i, i, i, p,
+                                           p]
     lib.crp_trivial.argtypes = [p, p, p, i, p, i, p, p]
     lib.crp_empty.argtypes = lib.crp_trivial.argtypes
     lib.crp_score_shared_bytes.argtypes = [i, i, i]
     lib.crp_score_shared_limit.argtypes = []
-    for fn in (lib.crp_score_candidates, lib.crp_score_fleet, lib.crp_trivial,
-               lib.crp_empty):
+    for fn in (lib.crp_score_candidates, lib.crp_score_fleet,
+               lib.crp_score_fleet_lattice, lib.crp_lattice_candidates,
+               lib.crp_trivial, lib.crp_empty):
         fn.restype = ctypes.c_int
     for fn in (lib.crp_score_shared_bytes, lib.crp_score_shared_limit):
         fn.restype = ctypes.c_long
@@ -813,8 +868,10 @@ def _library() -> ctypes.CDLL:
 
 
 def _check_kernel_operands(inp, who):
-    device = inp.coeffs_lon.device
-    for name, t in zip(inp._fields, inp[:8]):   # the tensors, table(s) included
+    device = inp[0].device
+    for name, t in zip(inp._fields, inp):
+        if not isinstance(t, torch.Tensor):
+            continue
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{who}: kernel operand {name} must be "
                              "contiguous float32")
@@ -845,17 +902,60 @@ def _launch(wrapper, entry, what, inp, args, out_shape):
     return out
 
 
+def lattice_table(grid: grid_ops.StaticGrid, device) -> torch.Tensor:
+    """A level's lattice as the kernels read it, float32 on ``device``:
+    [t_values [n_t], valid steps [n_t], d_values [n_d]] (``ops.grid``'s
+    cache of constants: uploaded once; a captured scan holds it for as long
+    as its graph reads it)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return grid_ops.constant(
+        (*grid.t_values, *grid.traj_len, *grid.d_values), torch.float32,
+        device)
+
+
+def lattice_flags(grid: grid_ops.StaticGrid, stopping: bool) -> int:
+    """A level's sizes in the bits of the kernels' flags above the checks'
+    (``_flags``): bit 7 stopping, bits 8-15 n_t, 16-23 n_lon, 24-30 n_d."""
+    n_t, n_d = len(grid.t_values), len(grid.d_values)
+    if n_t > 255 or grid.n_lon > 255 or n_d > 127:
+        raise ValueError(f"a lattice of {n_t} x {grid.n_lon} x {n_d} samples "
+                         "is larger than the kernels' flags hold")
+    return int(stopping) << 7 | n_t << 8 | grid.n_lon << 16 | n_d << 24
+
+
+def _lattice_args(inp: FleetLatticeInputs, who):
+    """The lattice's operands of ``crp_score_fleet_lattice`` and
+    ``crp_lattice_candidates``: the pointers of x0_lon, x0_lat, bounds and
+    the level's ``lattice_table``, their shapes checked (``_launch`` checks
+    the rest)."""
+    F = inp.tables.shape[0]
+    for name, shape in (("x0_lon", (F, 3)), ("x0_lat", (F, 3)),
+                        ("bounds", (F, 2)), ("scalars", (F, _NUM_SCALARS))):
+        if tuple(getattr(inp, name).shape) != shape:
+            raise ValueError(f"{who}: {name} has shape "
+                             f"{tuple(getattr(inp, name).shape)}, expected "
+                             f"{shape}")
+    level = lattice_table(inp.grid, inp.x0_lon.device)
+    return (inp.x0_lon.data_ptr(), inp.x0_lat.data_ptr(),
+            inp.bounds.data_ptr(), level.data_ptr())
+
+
 def score_prepared(inp):
     """Score prepared operands: ``ScorerInputs`` (rows [K], ``score_kernel``)
-    or ``FleetScorerInputs`` (rows [F, K], ``fleet_score_kernel``).  CUDA
-    operands launch the kernel and raise if it cannot be built or launched;
-    CPU operands run the plain version."""
-    if inp.coeffs_lon.device.type == "cpu":
+    or ``FleetScorerInputs`` / ``FleetLatticeInputs`` (rows [F, K],
+    ``fleet_score_kernel`` with the candidates loaded or built from the
+    lattice).  CUDA operands launch the kernel and raise if it cannot be
+    built or launched; CPU operands run the plain version."""
+    if inp[0].device.type == "cpu":
         return score_prepared_reference(inp)
-    fleet = isinstance(inp, FleetScorerInputs)
+    lattice = isinstance(inp, FleetLatticeInputs)
+    fleet = lattice or isinstance(inp, FleetScorerInputs)
     wrapper = score_fleet if fleet else score_candidates
     table = inp.tables if fleet else inp.table
-    lead = inp.coeffs_lon.shape[:-1]            # (F, K) or (K,)
+    lead = (inp.tables.shape[0], inp.grid.size) if lattice \
+        else inp.coeffs_lon.shape[:-1]          # (F, K) or (K,)
     P, V = table.shape[-2], inp.n_poly_verts
     M, T = inp.obs.shape[-3:-1]
     Mp = inp.poly.shape[-3]
@@ -868,12 +968,19 @@ def score_prepared(inp):
                          f"obstacle rows over {T} steps needs {nbytes} bytes "
                          f"of shared memory per block, above "
                          f"{SHARED_BLOCK_LIMIT}")
-    args = (inp.coeffs_lon.data_ptr(), inp.coeffs_lat.data_ptr(),
-            inp.traj_len.data_ptr(), inp.goal_valid.data_ptr(),
-            table.data_ptr(), P, inp.obs.data_ptr(), M, inp.poly.data_ptr(),
-            Mp, V, inp.scalars.data_ptr(), *lead, T, inp.flags)
-    return _launch(wrapper, "crp_score_fleet" if fleet
-                   else "crp_score_candidates",
+    problem = (table.data_ptr(), P, inp.obs.data_ptr(), M,
+               inp.poly.data_ptr(), Mp, V, inp.scalars.data_ptr())
+    if lattice:
+        candidates = _lattice_args(inp, wrapper.__name__)
+        flags = inp.flags | lattice_flags(inp.grid, inp.stopping)
+        entry = "crp_score_fleet_lattice"
+    else:
+        candidates = (inp.coeffs_lon.data_ptr(), inp.coeffs_lat.data_ptr(),
+                      inp.traj_len.data_ptr(), inp.goal_valid.data_ptr())
+        flags = inp.flags
+        entry = "crp_score_fleet" if fleet else "crp_score_candidates"
+    args = (*candidates, *problem, *lead, T, flags)
+    return _launch(wrapper, entry,
                    "fleet scoring kernel" if fleet else "scoring kernel",
                    inp, args, (3, *lead)).unbind(0)
 
@@ -939,6 +1046,46 @@ def score_fleet(coeffs_lon, coeffs_lat, traj_len, goal_valid, packed_tables,
         has_desired_s=has_desired_s))
 
 
+def lattice_candidates_reference(inp: FleetLatticeInputs,
+                                 index: torch.Tensor):
+    """Plain version of :func:`lattice_candidates`: the lattice expanded by
+    ``ops.grid`` and the chosen candidates gathered."""
+    full = lattice_scorer_inputs(inp)
+    take = lambda a: torch.gather(a, 1, index[..., None].expand(
+        *index.shape, a.shape[-1]))
+    return (take(full.coeffs_lon), take(full.coeffs_lat),
+            torch.gather(full.traj_len, 1, index))
+
+
+def lattice_candidates(inp: FleetLatticeInputs, index: torch.Tensor):
+    """(coeffs_lon [F, J, 6], coeffs_lat [F, J, 6], traj_len [F, J])
+    float32 of the lattice candidates ``index`` [F, J] (int64, each in
+    [0, K)): what ``lattice_scorer_inputs`` holds at those candidates, bit
+    for bit.  The fleet scan takes its winners' coefficients from here.
+
+    CUDA operands launch ``lattice_candidates_kernel`` of
+    ``csrc/scoring.cu``, which builds them with the fleet kernel's lattice
+    function (``lattice_candidates.launches`` counts the wrapper's launches;
+    an index outside [0, K) gives NaN rows and 0 steps); CPU operands run
+    :func:`lattice_candidates_reference`."""
+    if inp.x0_lon.device.type == "cpu":
+        return lattice_candidates_reference(inp, index)
+    who = "lattice_candidates"
+    F = inp.tables.shape[0]
+    if index.dtype != torch.int64 or index.device != inp.x0_lon.device \
+            or index.dim() != 2 or index.shape[0] != F:
+        raise ValueError(f"{who}: index must be [F={F}, J] int64 on "
+                         f"{inp.x0_lon.device}")
+    index = index.contiguous()
+    args = (*_lattice_args(inp, who), inp.scalars.data_ptr(),
+            index.data_ptr(), F, index.shape[1], inp.grid.size,
+            lattice_flags(inp.grid, inp.stopping))
+    out = _launch(lattice_candidates, "crp_lattice_candidates",
+                  "lattice candidates kernel", inp, args,
+                  (F, index.shape[1], 13))
+    return out[..., :6], out[..., 6:12], out[..., 12]
+
+
 # ---------------------------------------------------------------------------
 # the launch-overhead probe: a kernel with the scorer's operands, no compute
 # ---------------------------------------------------------------------------
@@ -978,4 +1125,5 @@ def trivial_probe(inp: ScorerInputs, v: torch.Tensor) -> torch.Tensor:
 
 score_candidates.launches = 0
 score_fleet.launches = 0
+lattice_candidates.launches = 0
 trivial_probe.launches = 0

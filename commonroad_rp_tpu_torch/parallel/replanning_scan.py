@@ -13,10 +13,14 @@ Counterpart of ``commonroad_rp_tpu/parallel/pallas_fleet.py``:
 Each cycle generates its candidate grids on the device around the carried
 state, scores them in one kernel launch, selects the winner by argmin, and
 re-rolls only the winner (K = 1 per problem) through ``kinematics.rollout``
-to advance the carry.  The jitted ``lax.scan`` becomes a
-:class:`ScanProgram`: the carry lives in static buffers, each cycle writes
-its metrics into preallocated [n_cycles, ...] buffers at a device-side
-cycle counter, and no cycle reads the device.  On a CUDA device the program
+to advance the carry.  The fleet scan makes no grid tensors: it passes the
+carried state and the level's static grid (``scoring.FleetLatticeInputs``),
+the fleet kernel builds each candidate from them, and one small kernel
+gives the winners' coefficients (``scoring.lattice_candidates``).  The
+jitted ``lax.scan`` becomes a :class:`ScanProgram`: the carry lives in
+static buffers, each cycle writes its metrics into preallocated
+[n_cycles, ...] buffers at a device-side cycle counter, and no cycle reads
+the device.  On a CUDA device the program
 captures one cycle as a CUDA graph at its first call and replays it
 ``n_cycles`` times per call, so the host does no per-cycle work, as the JAX
 scan's one dispatch does; ``graph=False`` runs the same cycles eagerly (the
@@ -27,10 +31,15 @@ obstacle window reproduces ``dynamic_slice``'s clamp: the window starts at
 the carried time step clamped to [0, T_table - T], and a step is valid only
 while the unclamped step is inside the prediction span.
 
-``scorer`` is the scoring function on prepared operands: by default
+``scorer`` is the scoring function on prepared operands (the fleet
+scan's are ``FleetLatticeInputs``): by default
 ``ops.scoring.score_prepared`` (the CUDA kernels on the card, the plain
 version on the CPU); ``ops.scoring.score_prepared_reference`` runs the plain
-version on any device, to hold the kernel's scan against it.
+version on any device, to hold the kernel's scan against it.  The fleet
+scan takes its winners' coefficients from ``candidates``, by default the
+scorer's own: ``scoring.lattice_candidates_reference`` for the plain
+scorer, so that its scan is plain throughout, else
+``scoring.lattice_candidates``.
 
 The facade scan's exact refinement (``segments`` boundary, continuous
 collision checks) is the JAX scan's lazy winner loop in a form that reads
@@ -69,6 +78,7 @@ from commonroad_rp_tpu_torch.ops.cycle import (CANDIDATE_FIELDS,
 from commonroad_rp_tpu_torch.ops.program import ScanProgram
 from commonroad_rp_tpu_torch.parallel.fleet import FleetCarry, FleetScene
 from commonroad_rp_tpu_torch.parallel.mesh import fleet_all_reduce
+from commonroad_rp_tpu_torch.utils import profiling
 
 _F32 = torch.float32
 _DYNAMIC_SLOTS = (scoring._S_X0_THETA, scoring._S_LOW_VEL)
@@ -291,16 +301,19 @@ def make_fleet_scan(scene: FleetScene, static_grid: grid_ops.StaticGrid,
                     longitudinal_mode: str = "velocity_keeping",
                     desired_s=None, s_window=None, w_a: float = 5.0,
                     standstill_lookahead: int = 10,
-                    scorer=scoring.score_prepared, graph: bool = True):
+                    scorer=scoring.score_prepared, candidates=None,
+                    graph: bool = True):
     """Fleet replanning scan on the fused fleet scorer.
 
     Takes a :class:`parallel.fleet.FleetScene` and returns
     ``run(carry: FleetCarry) -> (carry, metrics)``; every cycle launches one
-    fleet kernel over all F problems' K candidates, and re-rolls only the F
-    winners.  Metrics, each with a leading cycle axis, in the JAX order:
-    (alive [F], best cost [F] (+inf when dead), x [F], y [F], fleet success
-    count, fleet mean cost, kinematically infeasible [F], colliding [F],
-    orientation [F], velocity [F]).
+    fleet kernel over all F problems' K candidates, which it builds from the
+    carry and ``static_grid`` (``scoring.FleetLatticeInputs``; the counter
+    ``fleet_scan.lattice_scorer`` counts the scans built so), and re-rolls
+    only the F winners.  Metrics, each with a leading cycle axis, in the JAX
+    order: (alive [F], best cost [F] (+inf when dead), x [F], y [F], fleet
+    success count, fleet mean cost, kinematically infeasible [F], colliding
+    [F], orientation [F], velocity [F]).
 
     ``longitudinal_mode='stopping'`` samples quintic stop trajectories
     toward per-problem ``s_window`` [F, 2] absolute windows with the
@@ -334,7 +347,6 @@ def make_fleet_scan(scene: FleetScene, static_grid: grid_ops.StaticGrid,
     device = scene.ref.s.device
     T = n_steps + 1
     F = scene.obs_pose.shape[0]
-    K = static_grid.size
     ref32 = _f32_tensors(scene.ref)
     packed = scoring.pack_ref_tables(
         ref32, CorridorArrays(scene.corridor_lo.to(_F32),
@@ -373,27 +385,31 @@ def make_fleet_scan(scene: FleetScene, static_grid: grid_ops.StaticGrid,
         desired_s_t if stopping else None, packed[:, 0, 0])
     slots = torch.tensor(_DYNAMIC_SLOTS, device=device)
     flags = scoring._flags((True,) * 5, stopping, True)
-    ones = torch.ones((F, K), dtype=_F32, device=device)
     inf = torch.full((), np.inf, dtype=_F32, device=device)
-    held = grid_ops.upload_constants(static_grid, device)
+    # the kernels read the level's lattice table, the plain version the
+    # grid's constants, from ops.grid's cache: the program holds them for as
+    # long as its graph reads them
+    held = (*grid_ops.upload_constants(static_grid, device),
+            scoring.lattice_table(static_grid, device))
+    if candidates is None:
+        candidates = scoring.lattice_candidates_reference \
+            if scorer is scoring.score_prepared_reference \
+            else scoring.lattice_candidates
     lookahead = min(standstill_lookahead, n_steps)
     r = replan_offset
+    # every cycle scores the lattice form: the fleet kernel builds the
+    # candidates from the carry (counted per built scan; replays bypass it)
+    profiling.count("fleet_scan.lattice_scorer")
 
     def cycle(carry: FleetCarry):
-        v_min = torch.clamp(carry.velocity - 0.125 * horizon * veh32.a_max,
-                            min=0.0)
-        v_max = torch.maximum(v_min + 5.0, carry.velocity + 2.0)
         low_vel = carry.velocity < low_vel_threshold
         if stopping:
-            cl, ca, tl, gv = grid_ops.stopping_candidates(
-                carry.x0_lon, carry.x0_lat, s_win[:, 0], s_win[:, 1],
-                low_vel, static_grid)
-            gv = gv.to(_F32)
+            bounds = s_win
         else:
-            cl, ca, tl = grid_ops.velocity_keeping_candidates(
-                carry.x0_lon, carry.x0_lat, v_min, v_max, low_vel,
-                static_grid)
-            gv = ones
+            v_min = torch.clamp(
+                carry.velocity - 0.125 * horizon * veh32.a_max, min=0.0)
+            v_max = torch.maximum(v_min + 5.0, carry.velocity + 2.0)
+            bounds = torch.stack([v_min, v_max], dim=1)
 
         rows = window_rows(carry.time_step, T, t_obs, t_obs)       # [F, T]
         obs = torch.gather(obs_tab, 2, rows[:, None, :, None].expand(
@@ -406,10 +422,12 @@ def make_fleet_scan(scene: FleetScene, static_grid: grid_ops.StaticGrid,
                 F, Mp, T, 2 * V + 1))
         scalars = template.index_copy(1, slots, torch.stack(
             [carry.orientation.to(_F32), low_vel.to(_F32)], dim=1))
-        costs, kin_costs, _ = scorer(scoring.FleetScorerInputs(
-            coeffs_lon=cl, coeffs_lat=ca, traj_len=tl.to(_F32),
-            goal_valid=gv, tables=packed, obs=obs, poly=poly,
-            scalars=scalars, n_steps=n_steps, n_poly_verts=V, flags=flags))
+        lattice = scoring.FleetLatticeInputs(
+            x0_lon=carry.x0_lon, x0_lat=carry.x0_lat, bounds=bounds,
+            grid=static_grid, stopping=stopping, tables=packed, obs=obs,
+            poly=poly, scalars=scalars, n_steps=n_steps, n_poly_verts=V,
+            flags=flags)
+        costs, kin_costs, _ = scorer(lattice)
 
         best = torch.argmin(costs, dim=1)                          # [F]
         best_cost = torch.gather(costs, 1, best[:, None])[:, 0]
@@ -423,11 +441,9 @@ def make_fleet_scan(scene: FleetScene, static_grid: grid_ops.StaticGrid,
                                 dim=1).to(torch.int32)
 
         # re-roll ONLY the winners (K = 1 per problem) for the carry update
-        take = lambda a: torch.gather(a, 1, best[:, None, None].expand(
-            F, 1, 6))
-        ro = kin_ops.rollout(take(cl), take(ca),
-                             torch.gather(tl, 1, best[:, None]), ref32,
-                             veh32, carry.orientation, dt, n_steps, low_vel)
+        cl, ca, tl = candidates(lattice, best[:, None])
+        ro = kin_ops.rollout(cl, ca, tl, ref32, veh32, carry.orientation, dt,
+                             n_steps, low_vel)
         pick = lambda a: a[:, 0, r]
         new_lon = torch.stack([pick(ro.s), pick(ro.s_dot), pick(ro.s_ddot)],
                               dim=1)

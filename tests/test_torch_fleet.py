@@ -19,6 +19,11 @@
   ``make_pallas_replanning_scan(interpret=True)`` at the same bar.
 * The dead-member, standstill and stopping cases of
   ``tests/test_pallas_fleet.py``, on the port alone.
+* The lattice form of the fleet scorer (``scoring.FleetLatticeInputs``),
+  in velocity keeping and stopping on a 12-problem fleet with members in
+  and out of the low-velocity mode: the plain version scores it as the
+  candidates ``ops.grid`` generates, and the fleet scan equals the cycle
+  that generates them and gathers the winners from them, bit for bit.
 """
 
 import functools
@@ -43,6 +48,8 @@ from commonroad_rp_tpu_torch import interop
 from commonroad_rp_tpu_torch.ops import grid, kinematics, scoring
 from commonroad_rp_tpu_torch.ops.collision import CorridorArrays
 from commonroad_rp_tpu_torch.parallel import fleet, replanning_scan
+from commonroad_rp_tpu_torch.run_fleet import heterogeneous_fleet
+from commonroad_rp_tpu_torch.utils import profiling
 from commonroad_rp_tpu_torch.utils.general import \
     load_scenario_and_planning_problem
 from commonroad_rp_tpu_torch.utils.route import RoutePlanner
@@ -469,3 +476,143 @@ def test_obstacle_window_reproduces_dynamic_slice(time_step):
     got = table[:, rows].numpy()
     np.testing.assert_array_equal(got[..., 3] > 0.5, wv)
     np.testing.assert_array_equal(got[..., :3][wv], wp[wv])
+
+
+@functools.lru_cache(maxsize=None)
+def _fleet12(repo_root):
+    """The 12 (scenario, vehicle) bases, jittered (``run_fleet``): three
+    members start below the 4 m/s low-velocity threshold."""
+    scene, carry, _, _ = heterogeneous_fleet(12, 15, device="cpu",
+                                             root=repo_root)
+    return scene, carry
+
+
+def _lattice_scan(repo_root, mode, n_cycles, **kwargs):
+    scene, carry = _fleet12(repo_root)
+    g = grid.make_static_grid(3, 0.4, N_STEPS * DT, DT, -3.0, 3.0, 4)
+    extra = {}
+    if mode == "stopping":
+        desired_s = (carry.x0_lon[:, 0].numpy() + 8.0).astype(np.float32)
+        extra = dict(longitudinal_mode="stopping", desired_s=desired_s,
+                     s_window=np.stack([desired_s - 1.0, desired_s + 1.0],
+                                       axis=1), w_a=1.0)
+    run = replanning_scan.make_fleet_scan(
+        scene, g, DT, N_STEPS, replan_offset=1, low_vel_threshold=4.0,
+        horizon=N_STEPS * DT, n_cycles=n_cycles, **extra, **kwargs)
+    return run, carry
+
+
+def _grid_candidates(inp):
+    """The lattice's candidates as ``ops.grid`` generates them at the
+    carried state: (coeffs_lon, coeffs_lat, traj_len, goal_valid)."""
+    low_vel = inp.scalars[:, scoring._S_LOW_VEL] > 0.5
+    args = (inp.x0_lon, inp.x0_lat, inp.bounds[:, 0], inp.bounds[:, 1],
+            low_vel, inp.grid)
+    if inp.stopping:
+        return grid.stopping_candidates(*args)
+    cl, ca, tl = grid.velocity_keeping_candidates(*args)
+    return cl, ca, tl, torch.ones(tl.shape, dtype=torch.bool)
+
+
+def _grid_scorer(inp):
+    """The plain scorer on ``FleetScorerInputs`` of the grid's
+    candidates."""
+    cl, ca, tl, gv = _grid_candidates(inp)
+    return scoring.score_prepared_reference(scoring.FleetScorerInputs(
+        coeffs_lon=cl, coeffs_lat=ca, traj_len=tl.to(torch.float32),
+        goal_valid=gv.to(torch.float32), tables=inp.tables, obs=inp.obs,
+        poly=inp.poly, scalars=inp.scalars, n_steps=inp.n_steps,
+        n_poly_verts=inp.n_poly_verts, flags=inp.flags))
+
+
+def _bitwise_equal(a, b):
+    if a.dtype.is_floating_point:
+        return a.shape == b.shape and torch.equal(
+            a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode", ["velocity_keeping", "stopping"])
+def test_plain_scorer_takes_lattice_inputs(repo_root, mode):
+    """The first cycle's ``FleetLatticeInputs``: the plain scorer returns
+    what it returns on the grid's candidates, and ``lattice_candidates``
+    (the CPU's plain version) what a gather from them gives."""
+    captured = []
+
+    def scorer(inp):
+        captured.append(inp)
+        return scoring.score_prepared(inp)
+
+    run, carry = _lattice_scan(repo_root, mode, 1, scorer=scorer)
+    run(carry)
+    inp = captured[0]
+    assert isinstance(inp, scoring.FleetLatticeInputs)
+    assert inp.stopping == (mode == "stopping")
+    low_vel = inp.scalars[:, scoring._S_LOW_VEL] > 0.5
+    assert low_vel.any() and not low_vel.all()
+    for got, want in zip(scoring.score_prepared(inp), _grid_scorer(inp)):
+        assert _bitwise_equal(got, want)
+    assert torch.isfinite(got).any()
+    cl, ca, tl, _ = _grid_candidates(inp)
+    index = torch.randint(0, inp.grid.size, (cl.shape[0], 7),
+                          generator=torch.Generator().manual_seed(0))
+    got = scoring.lattice_candidates(inp, index)
+    want = (torch.gather(cl, 1, index[..., None].expand(-1, -1, 6)),
+            torch.gather(ca, 1, index[..., None].expand(-1, -1, 6)),
+            torch.gather(tl, 1, index).to(torch.float32))
+    for g, w in zip(got, want):
+        assert _bitwise_equal(g, w)
+
+
+@pytest.mark.parametrize("mode", ["velocity_keeping", "stopping"])
+def test_fleet_scan_equals_the_grid_cycle(repo_root, mode):
+    """The fleet scan over 5 cycles gives the carry and metrics, bit for
+    bit, of the same scan with each cycle's candidates generated by
+    ``ops.grid``, scored as ``FleetScorerInputs`` and the winners gathered
+    from them; each built scan counts once on
+    ``fleet_scan.lattice_scorer``."""
+    before = profiling.counters().get("fleet_scan.lattice_scorer", 0)
+    run, carry = _lattice_scan(repo_root, mode, 5)
+    assert profiling.counters()["fleet_scan.lattice_scorer"] == before + 1
+    final, metrics = run(carry)
+
+    def gathered(inp, index):
+        cl, ca, tl, _ = _grid_candidates(inp)
+        F = index.shape[0]
+        take = lambda a: torch.gather(a, 1, index[..., None].expand(F, 1, 6))
+        return take(cl), take(ca), torch.gather(tl, 1, index)
+
+    run_g, _ = _lattice_scan(repo_root, mode, 5, scorer=_grid_scorer,
+                             candidates=gathered)
+    final_g, metrics_g = run_g(carry)
+    for a, b in zip(final, final_g):
+        assert _bitwise_equal(a, b)
+    for a, b in zip(metrics, metrics_g):
+        assert _bitwise_equal(a, b)
+    assert bool(metrics[0].any())
+
+
+@pytest.mark.parametrize("plain", [True, False], ids=["plain", "kernel"])
+def test_fleet_scan_winners_follow_the_scorer(repo_root, plain, monkeypatch):
+    """The fleet scan takes its winners' coefficients from the scorer's own
+    function: ``lattice_candidates_reference`` under the plain scorer (its
+    scan is plain throughout, on any device), ``lattice_candidates`` under
+    the default one; once per cycle, and the other never."""
+    calls = {"lattice_candidates": 0, "lattice_candidates_reference": 0}
+    plain_version = scoring.lattice_candidates_reference
+
+    def spy(name):
+        def counted(inp, index):      # on the CPU both give the plain rows
+            calls[name] += 1
+            return plain_version(inp, index)
+        monkeypatch.setattr(scoring, name, counted)
+
+    for name in calls:
+        spy(name)
+    scorer = scoring.score_prepared_reference if plain \
+        else scoring.score_prepared
+    run, carry = _lattice_scan(repo_root, "velocity_keeping", 2,
+                               scorer=scorer)
+    run(carry)
+    used = "lattice_candidates_reference" if plain else "lattice_candidates"
+    assert calls == {name: 2 if name == used else 0 for name in calls}

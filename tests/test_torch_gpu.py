@@ -2,7 +2,9 @@
 against their plain PyTorch versions, the captured replanning scans and
 level programs against their uncaptured twins, the conformance level
 program, the captured XLA fleet path and the fleet programs captured under
-an NCCL group of one, on the card.
+an NCCL group of one, on the card.  The fleet scorer's lattice form at
+fleet1024's shape against its loaded form and against ``ops.grid`` on the
+card, bit for bit, and the scorer kernels' build without register spills.
 
 Marked ``gpu``: without a card every test skips.  On a machine with one,
 run (from the repository root; no JAX needed):
@@ -10,13 +12,17 @@ run (from the repository root; no JAX needed):
     python -m pytest tests/test_torch_gpu.py --noconftest -q
 """
 
+import re
+import subprocess
+
+import numpy as np
 import pytest
 import torch
 
 import chip_smoke
-from commonroad_rp_tpu_torch.ops import collision_kernel
+from commonroad_rp_tpu_torch.ops import collision_kernel, cuda_build
 from commonroad_rp_tpu_torch.ops import cycle as cycle_ops
-from commonroad_rp_tpu_torch.ops import scoring
+from commonroad_rp_tpu_torch.ops import grid, scoring
 from commonroad_rp_tpu_torch.ops.program import CapturedStep
 from commonroad_rp_tpu_torch.run_fleet import heterogeneous_fleet, make_scan
 from commonroad_rp_tpu_torch.run_planner import (drive_to_goal, load_config,
@@ -47,7 +53,8 @@ def test_largest_table_through_captured_scan(cuda):
     run, twin = (make_scan(padded, 3, graph=g)[0] for g in (True, False))
     got, _, counts = chip_smoke.captured_and_twin(torch, "largest table",
                                                   run, twin, carry)
-    assert counts == {"score_candidates": 0, "score_fleet": 2}
+    assert counts == {"score_candidates": 0, "score_fleet": 2,
+                      "lattice_candidates": 2}
     _, metrics = make_scan(scene, 3)[0](carry)
     assert torch.equal(got[1][0], metrics[0])
 
@@ -229,9 +236,18 @@ def test_fleet_kernel_rejects_bad_operands(fleet12):
     inp = chip_smoke.captured_operands(
         lambda scorer: make_scan(scene, 1, scorer=scorer,
                                         graph=False)[0](carry))
+    loaded = scoring.lattice_scorer_inputs(inp)
     with pytest.raises(ValueError):
+        scoring.score_prepared(loaded._replace(
+            coeffs_lon=loaded.coeffs_lon.transpose(0, 1)))
+    with pytest.raises(ValueError, match="x0_lon must be contiguous float32"):
+        scoring.score_prepared(inp._replace(x0_lon=inp.x0_lon.double()))
+    with pytest.raises(ValueError, match="bounds has shape"):
         scoring.score_prepared(inp._replace(
-            coeffs_lon=inp.coeffs_lon.transpose(0, 1)))
+            bounds=inp.bounds[:, :1].contiguous()))
+    with pytest.raises(ValueError, match="index must be"):
+        scoring.lattice_candidates(inp, torch.zeros(
+            (12, 1), dtype=torch.int32, device=inp.x0_lon.device))
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -491,3 +507,129 @@ def test_probe_kernel_matches_plain_exactly(cuda):
     assert scoring.trivial_probe.launches == before + 3
     with pytest.raises(ValueError, match="one float32 value"):
         scoring.trivial_probe(inp, v.double())
+
+
+def test_scorer_kernels_build_without_spills(cuda, tmp_path):
+    """``nvcc -Xptxas -v`` with the library's flags: ``score_kernel`` and
+    both sources of ``fleet_score_kernel`` spill no register (0 bytes of
+    spill stores and loads each)."""
+    cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
+           str(tmp_path / "lib.so"), str(scoring.KERNEL_SOURCE)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
+    log = proc.stdout + proc.stderr
+    entries = re.split(r"Compiling entry function", log)[1:]
+    scorers = [e for e in entries
+               if re.match(r"\s*'[^']*score_kernel", e)]
+    assert len(scorers) == 3, log
+    for entry in scorers:
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", entry)
+        assert spills and spills.groups() == ("0", "0"), entry
+
+
+@pytest.fixture(scope="module")
+def fleet1024():
+    """fleet1024's scene and carry (the benchmark's fleet: 12 bases
+    jittered to 1024 problems, level 3, K = 2754), 150 cycles of span."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is false)")
+    scene, carry, _, _ = heterogeneous_fleet(1024, 150, device="cuda")
+    return scene, carry
+
+
+def _fleet1024_scan(fleet, mode, n_cycles, **kwargs):
+    """fleet1024's scan in velocity keeping (``run_fleet.make_scan``) or
+    stopping (stop targets 8 m ahead of each member, windows of +-1 m)."""
+    scene, carry = fleet
+    if mode == "velocity_keeping":
+        return make_scan(scene, n_cycles, **kwargs)[0]
+    from commonroad_rp_tpu_torch.parallel import replanning_scan
+    from commonroad_rp_tpu_torch.run_fleet import DT, LEVEL, N_STEPS
+
+    desired_s = (carry.x0_lon[:, 0].cpu().numpy() + 8.0).astype(np.float32)
+    g = grid.make_static_grid(LEVEL, 0.4, N_STEPS * DT, DT, -3.0, 3.0, 4)
+    return replanning_scan.make_fleet_scan(
+        scene, g, DT, N_STEPS, replan_offset=1, low_vel_threshold=4.0,
+        horizon=N_STEPS * DT, n_cycles=n_cycles,
+        longitudinal_mode="stopping", desired_s=desired_s,
+        s_window=np.stack([desired_s - 1.0, desired_s + 1.0], axis=1),
+        w_a=1.0, **kwargs)
+
+
+def _same_bits(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        a.contiguous().cpu().numpy().tobytes() == \
+        b.contiguous().cpu().numpy().tobytes()
+
+
+@pytest.mark.parametrize("mode", ["velocity_keeping", "stopping"])
+def test_lattice_source_equals_loaded_source_fleet1024(fleet1024, mode):
+    """The first cycle at fleet1024's shape: ``fleet_score_kernel`` on the
+    lattice and on the same candidates generated by ``ops.grid`` on the
+    card and loaded give equal [3, F, K] rows, bit for bit, with members
+    in and out of the low-velocity mode."""
+    inp = chip_smoke.captured_operands(
+        lambda scorer: _fleet1024_scan(fleet1024, mode, 1, scorer=scorer,
+                                       graph=False)(fleet1024[1]))
+    low_vel = inp.scalars[:, scoring._S_LOW_VEL] > 0.5
+    assert bool(low_vel.any()) and not bool(low_vel.all())
+    before = scoring.score_fleet.launches
+    got = torch.stack(scoring.score_prepared(inp))
+    want = torch.stack(scoring.score_prepared(
+        scoring.lattice_scorer_inputs(inp)))
+    torch.cuda.synchronize()
+    assert scoring.score_fleet.launches == before + 2
+    assert got.shape == (3, 1024, 2754)
+    assert _same_bits(got, want)
+    assert bool(torch.isfinite(got[0]).any())
+
+
+@pytest.mark.parametrize("mode", ["velocity_keeping", "stopping"])
+def test_lattice_candidates_kernel_equals_grid_gather(fleet1024, mode):
+    """``lattice_candidates`` on the card at every candidate of fleet1024's
+    first cycle (index [F, K]) and at each member's cheapest: what
+    ``torch.gather`` takes from ``ops.grid``'s tensors on the card, bit for
+    bit; one launch each."""
+    inp = chip_smoke.captured_operands(
+        lambda scorer: _fleet1024_scan(fleet1024, mode, 1, scorer=scorer,
+                                       graph=False)(fleet1024[1]))
+    full = scoring.lattice_scorer_inputs(inp)
+    F, K = full.traj_len.shape
+    every = torch.arange(K, device=inp.x0_lon.device).repeat(F, 1)
+    best = torch.argmin(scoring.score_prepared(inp)[0], dim=1)[:, None]
+    before = scoring.lattice_candidates.launches
+    for index in (every, best):
+        got = scoring.lattice_candidates(inp, index)
+        J = index.shape[1]
+        take = lambda a: torch.gather(a, 1, index[..., None].expand(F, J, 6))
+        want = (take(full.coeffs_lon), take(full.coeffs_lat),
+                torch.gather(full.traj_len, 1, index))
+        for g, w in zip(got, want):
+            assert _same_bits(g, w)
+    assert scoring.lattice_candidates.launches == before + 2
+
+
+@pytest.mark.parametrize("mode", ["velocity_keeping", "stopping"])
+def test_captured_fused_scan_equals_the_grid_cycle(fleet1024, mode):
+    """One 150-cycle episode of the captured fused fleet scan against the
+    same scan, captured, whose cycles generate the candidates with
+    ``ops.grid``, score them loaded and gather the winners from them: the
+    same carry and metrics, bit for bit."""
+    _, carry = fleet1024
+    got = _fleet1024_scan(fleet1024, mode, 150)(carry)
+
+    def gathered(inp, index):
+        full = scoring.lattice_scorer_inputs(inp)
+        take = lambda a: torch.gather(a, 1, index[..., None].expand(
+            *index.shape, 6))
+        return (take(full.coeffs_lon), take(full.coeffs_lat),
+                torch.gather(full.traj_len, 1, index))
+
+    run = _fleet1024_scan(
+        fleet1024, mode, 150,
+        scorer=lambda inp: scoring.score_prepared(
+            scoring.lattice_scorer_inputs(inp)), candidates=gathered)
+    want = run(carry)
+    assert run.graph and run.replays == 150
+    chip_smoke.assert_bit_identical(torch, f"fleet1024 {mode}", got, want)

@@ -480,6 +480,64 @@ def test_launch_rejects_operands(entry, fault):
             scoring.trivial_probe.launches) == before
 
 
+def _lattice_on_meta(F=2, M=1, P=40):
+    """``FleetLatticeInputs`` of F problems on the ``meta`` device, level 1."""
+    from commonroad_rp_tpu_torch.ops import grid
+
+    g = grid.make_static_grid(1, 0.4, 2.0, 0.1, -3.0, 3.0, 4)
+    meta = lambda *shape: torch.empty(shape, device="meta")
+    return scoring.FleetLatticeInputs(
+        x0_lon=meta(F, 3), x0_lat=meta(F, 3), bounds=meta(F, 2), grid=g,
+        stopping=False, tables=meta(F, P, 12), obs=meta(F, M, 21, 7),
+        poly=meta(F, 0, 21, 3), scalars=meta(F, 17), n_steps=20,
+        n_poly_verts=1, flags=scoring._flags((True,) * 5, False, True))
+
+
+@pytest.mark.parametrize("fault", ["shape", "dtype", "device_type", "index"])
+def test_lattice_launch_rejects_operands(fault):
+    """Lattice operands the kernels do not take raise in the launch path
+    (``score_prepared``, ``lattice_candidates``), before any library is
+    built or loaded and with nothing counted."""
+    inp = _lattice_on_meta()
+    call = lambda: scoring.score_prepared(inp)
+    if fault == "shape":
+        inp = inp._replace(bounds=torch.empty((2, 1), device="meta"))
+        message = r"score_fleet: bounds has shape \(2, 1\), expected \(2, 2\)"
+    elif fault == "dtype":
+        inp = inp._replace(x0_lon=inp.x0_lon.double())
+        message = "score_fleet: kernel operand x0_lon must be contiguous float32"
+    elif fault == "device_type":
+        message = "score_fleet: unsupported device meta"
+    else:
+        call = lambda: scoring.lattice_candidates(inp, torch.empty(
+            (2, 1), dtype=torch.int32, device="meta"))
+        message = r"lattice_candidates: index must be \[F=2, J\] int64"
+    before = (scoring.score_fleet.launches,
+              scoring.lattice_candidates.launches)
+    with pytest.raises(ValueError, match=message):
+        call()
+    assert (scoring.score_fleet.launches,
+            scoring.lattice_candidates.launches) == before
+
+
+@pytest.mark.parametrize("stopping", [False, True])
+def test_lattice_flags_hold_the_level_sizes(stopping):
+    """The lattice form's level sizes ride in the kernels' flags above the
+    check bits (bit 7 stopping, bits 8-15 n_t, 16-23 n_lon, 24-30 n_d), and
+    a lattice too large for them raises."""
+    from commonroad_rp_tpu_torch.ops import grid
+
+    g = grid.make_static_grid(3, 0.4, 2.0, 0.1, -3.0, 3.0, 4)
+    flags = scoring.lattice_flags(g, stopping)
+    checks = scoring._flags((True,) * 5, True, True)
+    assert checks < 128 and flags & checks == 0
+    assert (flags >> 7 & 1, flags >> 8 & 255, flags >> 16 & 255,
+            flags >> 24) == (int(stopping), len(g.t_values), g.n_lon,
+                             len(g.d_values))
+    with pytest.raises(ValueError, match="larger than the kernels' flags"):
+        scoring.lattice_flags(g._replace(d_values=(0.0,) * 128), stopping)
+
+
 @pytest.mark.parametrize("fleet", [False, True])
 def test_launch_rejects_a_table_past_the_shared_memory_limit(fleet):
     """One table row more than a block's shared memory holds raises by shape
