@@ -4,10 +4,13 @@
   comes out not correct (at a tiny size here on the CPU; at the cells' own
   sizes on the card, ``gpu`` marker);
 * a run with the timed path broken underneath comes out not correct, once
-  for each fault a cell can have (``benchlib/faults.py``): a step that
-  returns its state unchanged, half of the fleet left out, an answer
-  altered where it is produced, a fleet scorer that weighs its cost terms
-  wrongly.
+  for each fault a cell can have: a step that returns its state unchanged,
+  half of the fleet left out, an answer altered where it is produced, a
+  fleet scorer that weighs its cost terms wrongly.
+
+A cell's faults, the params and window of each fault's run, and its tiny
+CPU params live in its traffic kind's ``checks/<kind>.py``
+(``benchlib/faults.py`` loads it); nothing here names a kind.
 
 Run from the repository root: ``python -m pytest benchmark/tests -q``.
 """
@@ -23,7 +26,7 @@ sys.path[:0] = [str(BENCH), str(ROOT)]
 
 import control  # noqa: E402
 from benchlib import core, faults  # noqa: E402
-from test_bench_harness import CELLS, SEED, tiny  # noqa: E402
+from test_bench_harness import CELLS, SEED, cell_of, tiny  # noqa: E402
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -33,24 +36,14 @@ def test_control_is_not_correct(cell):
 
 
 FAULTS = [(cell, kind) for cell in CELLS
-          for kind in faults.KINDS[core.load_json("cells", f"{cell}.json")
-                                   ["traffic"]]]
+          for kind in faults.kinds(cell_of(cell)["traffic"])]
 
 
 @pytest.mark.parametrize("cell,kind", FAULTS)
 def test_a_broken_timed_path_is_not_correct(cell, kind):
-    traffic = core.load_json("cells", f"{cell}.json")["traffic"]
-    params = dict(tiny(cell))
-    seconds = 0.5
-    if traffic == "plan_loop":
-        # judge every call of the window, which holds several calls of
-        # each drive: a stale answer exists from a drive's second call on
-        params.update(check_calls=256)
-        seconds = 4.0
-    if kind == "half":
-        # enough sampled members that half of them exceed the limit on
-        # answers where only one side finds a trajectory
-        params.update(fleet_size=36, check_members=36, cycles=2)
+    traffic = cell_of(cell)["traffic"]
+    extra, seconds = faults.checks(traffic).FAULTS[kind]
+    params = dict(tiny(cell), **extra)
     with faults.planted(traffic, kind) as hook:
         result = core.run_cell(cell, SEED, seconds, False, device="cpu",
                                driver_hook=hook, params=params)

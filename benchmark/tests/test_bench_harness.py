@@ -19,7 +19,7 @@ BENCH = pathlib.Path(__file__).resolve().parent.parent
 ROOT = BENCH.parent
 sys.path[:0] = [str(BENCH), str(ROOT)]
 
-from benchlib import core, judge, trace  # noqa: E402
+from benchlib import core, faults, judge, trace  # noqa: E402
 from benchlib.core import load_module  # noqa: E402
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -27,10 +27,6 @@ UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 SPEC = json.loads((ROOT / "BENCHMARK.json").read_text())
 CELLS = [w["name"] for w in SPEC["workloads"]]
 SEED = 2 ** 31 + 987654321
-TINY = {
-    "plan_loop": {"max_cycles": 3, "check_calls": 4},
-    "fleet_scan": {"fleet_size": 12, "cycles": 3, "check_members": 12},
-}
 CONTRACT_KEYS = ["correct", "attempted", "failed", "metrics", "device",
                  "no_trajectory", "compared"]
 
@@ -40,7 +36,8 @@ def cell_of(name):
 
 
 def tiny(name):
-    return TINY[cell_of(name)["traffic"]]
+    """The cell's tiny CPU params, from its kind's ``checks/<kind>.py``."""
+    return faults.checks(cell_of(name)["traffic"]).TINY
 
 
 def test_files_load_and_names_are_allowed():
