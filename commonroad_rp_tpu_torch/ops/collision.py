@@ -355,7 +355,8 @@ def _corridor_sweep_numpy(points: np.ndarray, normals: np.ndarray,
 def check_corridor(s: torch.Tensor, d: torch.Tensor, theta_cl: torch.Tensor,
                    ref_s: torch.Tensor, corridor: CorridorArrays,
                    half_length, half_width, wb_rear_axle,
-                   active: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   active: Optional[torch.Tensor] = None,
+                   s_last=None) -> torch.Tensor:
     """Road-boundary violation mask [K] from curvilinear rollout states
     [K, T].
 
@@ -363,14 +364,17 @@ def check_corridor(s: torch.Tensor, d: torch.Tensor, theta_cl: torch.Tensor,
     heading) is conservatively boxed in the road frame: lateral half-extent
     |half_width cos(theta_cl)| + |half_length sin(theta_cl)|, probed at the
     front/center/rear longitudinal stations; each probe gathers the band row
-    of its reference segment.
+    of its reference segment.  In the fleet form ``s_last`` [F], each
+    route's end, clamps the probes from above, so that a probe past the end
+    reads the band of the route's last vertex and not the rows a fleet's
+    tables are padded with (``parallel.fleet``).
     """
     from commonroad_rp_tpu_torch.ops.frenet import searchsorted_right
 
     if s.dim() == 3:
         return _check_corridor_fleet(s, d, theta_cl, ref_s, corridor,
                                      half_length, half_width, wb_rear_axle,
-                                     active)
+                                     active, s_last)
     P = ref_s.shape[0]
     # step-major internally (the rollout's storage)
     s_t, d_t, theta_t = s.T, d.T, theta_cl.T
@@ -808,9 +812,10 @@ def _check_collisions_fleet(x, y, theta, obstacles: ObstacleArrays,
 
 def _check_corridor_fleet(s, d, theta_cl, ref_s, corridor: CorridorArrays,
                           half_length, half_width, wb_rear_axle,
-                          active=None) -> torch.Tensor:
+                          active=None, s_last=None) -> torch.Tensor:
     """Road-boundary violation masks [F, K] for rollout states [F, K, T]
-    against per-problem bands [F, P] over arclengths [F, P]."""
+    against per-problem bands [F, P] over arclengths [F, P], each probe
+    clamped to its problem's ``s_last`` [F] where given."""
     from commonroad_rp_tpu_torch.ops.frenet import (searchsorted_right,
                                                     take_rows)
 
@@ -830,6 +835,8 @@ def _check_corridor_fleet(s, d, theta_cl, ref_s, corridor: CorridorArrays,
     violate = torch.zeros(s_t.shape, dtype=torch.bool, device=s.device)
     for offset in (-1.0, 0.0, 1.0):
         s_probe = s_center + offset * lon_ext
+        if s_last is not None:
+            s_probe = torch.minimum(s_probe, _per_problem(s_last, s_probe))
         seg = torch.clamp(searchsorted_right(ref_s, s_probe) - 1, 0, P - 1)
         rows = take_rows(bands, seg, batched=True)                  # [F, T, K, 2]
         lo, hi = rows[..., 0], rows[..., 1]

@@ -167,10 +167,15 @@ def interpolate_angle_at(ref: RefPathTables, s: torch.Tensor,
     return wrap_two_pi((y2 - y1) * (s - x1) / (x2 - x1) + y1)
 
 
-def to_cartesian(ref: RefPathTables, s: torch.Tensor, d: torch.Tensor
+def to_cartesian(ref: RefPathTables, s: torch.Tensor, d: torch.Tensor,
+                 s_last=None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(s, d) -> (x, y, in_domain) over the segment containing s, with the
-    segment index clipped to [0, P-2] (the CLCS linear-segment model)."""
+    segment index clipped to [0, P-2] (the CLCS linear-segment model).
+
+    The domain ends at the table's last row, or at ``s_last`` where given:
+    each problem's route end [F] when a fleet's tables are padded past it
+    (``parallel.fleet.build_fleet_scene``, ``true_path_lengths``)."""
     batched = ref.s.dim() == 2
     P = ref.s.shape[-1]
     seg = torch.clamp(searchsorted_right(ref.s, s) - 1, 0, P - 2)
@@ -180,8 +185,9 @@ def to_cartesian(ref: RefPathTables, s: torch.Tensor, d: torch.Tensor
     ds = s - rows[..., 6]
     x = rows[..., 0] + ds * rows[..., 2] + d * rows[..., 4]
     y = rows[..., 1] + ds * rows[..., 3] + d * rows[..., 5]
+    end = ref.s[..., -1] if s_last is None else s_last
     in_domain = (s >= per_problem(ref.s[..., 0], s)) & \
-        (s <= per_problem(ref.s[..., -1], s))
+        (s <= per_problem(end, s))
     return x, y, in_domain
 
 

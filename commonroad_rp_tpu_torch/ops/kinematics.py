@@ -110,7 +110,8 @@ def rollout(coeffs_lon: torch.Tensor,
             check_acceleration: bool = True,
             check_kappa: bool = True,
             check_kappa_dot: bool = True,
-            check_yaw_rate: bool = True) -> RolloutResult:
+            check_yaw_rate: bool = True,
+            s_last=None) -> RolloutResult:
     """Evaluate, transform, constraint-check, and extend a candidate batch.
 
     coeffs_lon/coeffs_lat [K, 6]; traj_len [K] valid steps; arrays span
@@ -124,6 +125,9 @@ def rollout(coeffs_lon: torch.Tensor,
     [F, K], reference tables [F, P, ...], vehicle leaves, orientation and
     ``low_vel_mode`` [F] -- each problem rolls out against its own tables
     and vehicle (``jax.vmap`` of the JAX function); results are [F, K, T].
+    ``s_last`` [F], each problem's route end, then bounds the projection
+    domain in place of the tables' padded last row
+    (``frenet_ops.to_cartesian``).
     """
     dtype = coeffs_lon.dtype
     device = coeffs_lon.device
@@ -272,7 +276,8 @@ def rollout(coeffs_lon: torch.Tensor,
 
     # Frenet -> Cartesian + lateral projection-domain limits (:908-917)
     x, y_pos, in_domain = (to_q(arr) for arr in
-                           frenet_ops.to_cartesian(ref, to_q(s), to_q(d)))
+                           frenet_ops.to_cartesian(ref, to_q(s), to_q(d),
+                                                   s_last))
     x = pad(x)
     y_pos = pad(y_pos)
     in_domain = in_domain & (one_krd > 0.0) & \

@@ -172,6 +172,16 @@ class ScanProgram:
     cycle's type (a NamedTuple such as ``parallel.fleet.CycleMetrics``, or
     a tuple).  ``keep`` holds tensors a cycle reads that nothing else keeps
     alive for the graph's life (the grids' cached constants).
+
+    ``observe``, where a call gives it, is called after every cycle with
+    the carry that cycle wrote: the static buffers themselves, which the
+    next cycle overwrites, so an observer copies what it keeps.  That is
+    the public per-cycle read of a scan's carry; the replays are the same.
+
+    Traced (``utils.profiling``): the span ``scan_program.stage`` holds the
+    carry's load and ``prepare`` (the XLA rollout's scene copy), the span
+    ``scan_program.replays`` the host loop of the cycles' launches, and the
+    counter ``scan_program.cycles`` adds ``n_cycles`` once per call.
     """
 
     def __init__(self, cycle, n_cycles: int, device, graph: bool = True,
@@ -223,17 +233,22 @@ class ScanProgram:
             static.copy_(new)
         self._counter.add_(1)
 
-    def __call__(self, carry, *args):
-        self._load(carry)
-        if self._prepare is not None:
-            self._prepare(*args)
+    def __call__(self, carry, *args, observe=None):
+        with profiling.span("scan_program.stage"):
+            self._load(carry)
+            if self._prepare is not None:
+                self._prepare(*args)
         final = lambda: type(carry)(*(x.clone() for x in self._carry.value))
         if self.n_cycles == 0:
             return final(), ()
         if self._program.capture():
             # the warm-up cycle advanced the carry and the counter
             self._load(carry)
-        for _ in range(self.n_cycles):
-            self._program()
+        with profiling.span("scan_program.replays"):
+            for _ in range(self.n_cycles):
+                self._program()
+                if observe is not None:
+                    observe(self._carry.value)
+        profiling.count("scan_program.cycles", self.n_cycles)
         return final(), self._metrics_type(out.clone()
                                            for out in self._outputs)

@@ -110,6 +110,17 @@ def _window(table: torch.Tensor, time_step: torch.Tensor, T: int):
     return torch.gather(table, 2, index), ((ts + ar) < n)[:, None, :]
 
 
+def true_path_lengths(ref_s: torch.Tensor) -> torch.Tensor:
+    """Each problem's route end [F] from the fleet's arclength tables
+    [F, P]: the largest arclength below the sentinel band that
+    ``build_fleet_scene`` pads the shorter routes with (1e6 apart).  The
+    XLA fleet cycle and the fused fleet scan end every route there, as
+    ``plan()`` does."""
+    return torch.max(torch.where(
+        ref_s < ref_s[:, :1] + 5e5, ref_s, torch.full_like(ref_s, -np.inf)),
+        dim=1).values
+
+
 def _single_problem_cycle(carry_lon, carry_lat, orientation, velocity,
                           time_step, alive,
                           ref: frenet_ops.RefPathTables,
@@ -132,8 +143,10 @@ def _single_problem_cycle(carry_lon, carry_lat, orientation, velocity,
     638-653) engages on device: at v ~ 0 with no feasible candidate (or a
     winner still slow at the lookahead step) the member freezes its pose at
     v = 0 / cost 0 and stays alive.  Without them failure deadens the
-    member.  Returns (carry fields, (found, best cost, x, y, orientation,
-    velocity)), each [F]."""
+    member.  Every route ends at its true length (``true_path_lengths``):
+    the projection domain and the corridor's probes stop there, not in the
+    padding past it.  Returns (carry fields, (found, best cost, x, y,
+    orientation, velocity)), each [F]."""
     dtype = carry_lon.dtype
     F = carry_lon.shape[0]
 
@@ -144,8 +157,10 @@ def _single_problem_cycle(carry_lon, carry_lat, orientation, velocity,
 
     coeffs_lon, coeffs_lat, traj_len = grid_ops.velocity_keeping_candidates(
         carry_lon, carry_lat, v_min, v_max, low_vel, static_grid)
+    s_last = true_path_lengths(ref.s)
     rollout = kin_ops.rollout(coeffs_lon, coeffs_lat, traj_len, ref, veh,
-                              orientation, dt, n_steps, low_vel)
+                              orientation, dt, n_steps, low_vel,
+                              s_last=s_last)
     costs = cost_ops.default_cost(rollout, w_a=5.0, desired_d=0.0,
                                   desired_speed=desired_speed)     # [F, K]
 
@@ -169,7 +184,7 @@ def _single_problem_cycle(carry_lon, carry_lat, orientation, velocity,
     corridor = collision_ops.CorridorArrays(d_lo=corridor_lo, d_hi=corridor_hi)
     collides = collides | collision_ops.check_corridor(
         rollout.s, rollout.d, rollout.theta_cl, ref.s, corridor,
-        veh.half_length, veh.half_width, veh.wb_rear_axle)
+        veh.half_length, veh.half_width, veh.wb_rear_axle, s_last=s_last)
 
     ok = rollout.feasible & ~collides
     inf = torch.full((), np.inf, dtype=dtype, device=costs.device)

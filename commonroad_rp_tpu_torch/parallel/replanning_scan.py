@@ -76,7 +76,8 @@ from commonroad_rp_tpu_torch.ops.collision import (BoundaryArrays,
 from commonroad_rp_tpu_torch.ops.cycle import (CANDIDATE_FIELDS,
                                                refine_cheapest)
 from commonroad_rp_tpu_torch.ops.program import ScanProgram
-from commonroad_rp_tpu_torch.parallel.fleet import FleetCarry, FleetScene
+from commonroad_rp_tpu_torch.parallel.fleet import (FleetCarry, FleetScene,
+                                                    true_path_lengths)
 from commonroad_rp_tpu_torch.parallel.mesh import fleet_all_reduce
 from commonroad_rp_tpu_torch.utils import profiling
 
@@ -351,12 +352,7 @@ def make_fleet_scan(scene: FleetScene, static_grid: grid_ops.StaticGrid,
     packed = scoring.pack_ref_tables(
         ref32, CorridorArrays(scene.corridor_lo.to(_F32),
                               scene.corridor_hi.to(_F32)))
-    # FleetScene pads refs with arclength sentinels stepping by 1e6
-    # (fleet.build_fleet_scene); the true per-problem path length is the
-    # largest arclength below the sentinel band
-    s = ref32.s
-    ref_s_last = torch.max(torch.where(
-        s < s[:, :1] + 5e5, s, torch.full_like(s, -np.inf)), dim=1).values
+    ref_s_last = true_path_lengths(ref32.s)
     veh32 = _f32_tensors(scene.veh)
     veh_stack = scoring.pack_veh_stack(veh32)
 

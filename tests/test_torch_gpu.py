@@ -461,6 +461,40 @@ def test_fleet_collision_kernel_and_xla_fleet_on_card(cuda):
                                atol=2e-3)
 
 
+def test_captured_xla_rollout_at_route_ends_equals_uncaptured(cuda):
+    """The 12-problem fleet with every member on a route shorter than the
+    fleet's longest started 8 m before its route's end: the captured XLA
+    rollout, its carry read after every cycle (``observe``), bit for bit
+    its ``graph=False`` twin; members stop at their route's end, none is
+    carried past it, and the fused fleet scan finds what it finds."""
+    from commonroad_rp_tpu_torch.parallel import fleet
+    from commonroad_rp_tpu_torch.run_fleet import make_xla_rollout
+
+    scene, carry, _, _ = heterogeneous_fleet(12, 6, device=cuda)
+    ends = fleet.true_path_lengths(scene.ref.s)
+    short = ends < ends.max() - 1.0
+    x0_lon = carry.x0_lon.clone()
+    x0_lon[short, 0] = ends[short] - 8.0
+    carry = carry._replace(x0_lon=x0_lon)
+    seen = {}
+    results = {}
+    for graph in (True, False):
+        run, _ = make_xla_rollout(6, 1, cuda, graph=graph)
+        seen[graph] = []
+        results[graph] = run(carry, scene, observe=lambda c, g=graph:
+                             seen[g].append(c.x0_lon.clone()))
+        assert run.graph == graph
+    chip_smoke.assert_bit_identical(torch, "XLA F=12 at route ends",
+                                    results[True], results[False])
+    assert len(seen[True]) == 6
+    assert all(torch.equal(a, b) for a, b in zip(seen[True], seen[False]))
+    final, metrics = results[True]
+    assert not bool(metrics.found[-1][short].all())
+    assert bool(torch.all(final.x0_lon[:, 0] <= ends))
+    _, metrics_f = make_scan(scene, 6)[0](carry)
+    assert torch.equal(metrics.found, metrics_f[0])
+
+
 def test_fleet_programs_capture_under_nccl(cuda):
     """Under a world-size-1 NCCL group both fleet programs of the dry run
     (the XLA rollout and the fused fleet scan) capture their cycle with the

@@ -289,3 +289,23 @@ def test_carry_layout_is_fixed_at_the_first_call():
     with pytest.raises(ValueError, match="carry field velocity"):
         run(carry._replace(velocity=carry.velocity.double()))
     assert isinstance(run, replanning_scan.ScanProgram)
+
+
+@pytest.mark.parametrize("which", PROGRAMS)
+def test_observed_carries_equal_a_chain_of_one_cycle_calls(repo_root, which):
+    """The public per-cycle read of a scan's carry: ``observe`` sees, after
+    each cycle, the carry a chain of one-cycle calls of the same program
+    gives, bit for bit, and observing changes nothing the call returns."""
+    run, carry, args = _program(repo_root, which)
+    seen = []
+    got = run(carry, *args, observe=lambda c: seen.append(
+        type(c)(*(x.clone() for x in c))))
+    assert len(seen) == run.n_cycles
+    _assert_identical(got, run(carry, *args))
+    one = _program(repo_root, which, n_cycles=1)[0]
+    chained = carry
+    for observed in seen:
+        chained, _ = one(chained, *args)
+        for name, a, b in zip(chained._fields, observed, chained):
+            assert a.dtype == b.dtype and torch.equal(a, b), name
+    _assert_identical((seen[-1], ()), (got[0], ()))

@@ -201,3 +201,36 @@ def test_an_eager_step_counts_no_capture(clean):
     assert not step.capture()
     assert torch.equal(step(), x * 2)
     assert profiling.counters() == {}
+
+
+def test_scan_program_spans_and_cycle_counter(repo_root, clean):
+    """A scan program's call: the spans ``scan_program.stage`` (the carry's
+    load and ``prepare``) and ``scan_program.replays`` (the cycles'
+    launches), each the root of its call's request, while a profiler
+    records; the counter ``scan_program.cycles`` adds ``n_cycles`` a call,
+    profiler or not; the benchmark's reader of the stage span takes their
+    median."""
+    from commonroad_rp_tpu_torch.ops.program import ScanProgram
+
+    Carry = collections.namedtuple("Carry", "x")
+    staged = []
+    run = ScanProgram(lambda c: (Carry(c.x + 1.0), (c.x.sum(),)), 3, "cpu",
+                      prepare=staged.append)
+    run(Carry(torch.zeros(4)), "scene")
+    assert profiling.spans() == []
+    assert profiling.counters() == {"scan_program.cycles": 3}
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(2):
+            final, (sums,) = run(Carry(torch.zeros(4)), "scene")
+    assert staged == ["scene"] * 3
+    assert torch.equal(final.x, torch.full((4,), 3.0))
+    assert sums.tolist() == [0.0, 4.0, 8.0]
+    rows = profiling.spans()
+    assert [s.name for s in rows] == ["scan_program.stage",
+                                      "scan_program.replays"] * 2
+    assert all(s.parent == -1 for s in rows)
+    assert len({s.request for s in rows}) == 4
+    assert profiling.counters() == {"scan_program.cycles": 9}
+    stage = [(s.end_ns - s.start_ns) * 1e-9 for s in rows[::2]]
+    read = _reader(repo_root, "fleet_rollout.stage_ms.p50").read
+    assert read({}) == pytest.approx(1e3 * sum(stage) / 2, rel=1e-12)
