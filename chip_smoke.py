@@ -223,6 +223,23 @@ LATTICE_OPS = 58
 # (step, row) pair's skip test (two differences, two squares, their sum) and
 # a pair's full test once it survives the skip
 COLLISION_STEP_OPS, COLLISION_SKIP_OPS, COLLISION_PAIR_OPS = 2, 5, 40
+# the dense XLA cycle's kernel (csrc/dense_rollout.cu walk_candidate), a
+# transcendental as one operation: every step's cost sums, corridor probes
+# and pose centres; an active step's polynomials, table interpolation,
+# Werling transform, the five checks, the position and the domain test; an
+# extension step's constant-acceleration update; each table search counted
+# as one halving (3: the hint brackets most at once)
+DENSE_STEP_OPS, DENSE_ACTIVE_OPS, DENSE_EXT_OPS, DENSE_SEARCH_OPS = \
+    50, 180, 18, 3
+# the dense kernel against its plain version on the card: verdicts that may
+# differ (a feasibility or corridor margin within the last bits; none has),
+# the costs' relative gap (PyTorch's reduction sums in another order: 1.2e-6
+# and 2e-15 measured) and the poses' absolute gap (bit for bit: both sides
+# call the same CUDA functions in the same order); the winner kernel's
+# states must equal the plain bundle's
+DENSE_MAX_FLIPS = 2
+DENSE_TOLERANCE = {"float32": dict(cost=1e-5, pose=0.0),
+                   "float64": dict(cost=1e-12, pose=0.0)}
 # steps to the goal on the JAX package's float64 conformance path (ramp and
 # T-junction pinned in tests/test_planner_e2e.py, the other two recorded
 # from the JAX package on the CPU): the same as its fast path's
@@ -315,10 +332,11 @@ def build_all():
     from concurrent.futures import ThreadPoolExecutor
 
     from commonroad_rp_tpu_torch.ops import collision_kernel, cuda_build
-    from commonroad_rp_tpu_torch.ops import scoring
+    from commonroad_rp_tpu_torch.ops import dense_rollout, scoring
 
     t0 = time.time()
-    sources = (scoring.KERNEL_SOURCE, collision_kernel.KERNEL_SOURCE)
+    sources = (scoring.KERNEL_SOURCE, collision_kernel.KERNEL_SOURCE,
+               dense_rollout.KERNEL_SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         paths = list(pool.map(cuda_build.build, sources))
     for source, path in zip(sources, paths):
@@ -648,6 +666,7 @@ SCORE_KERNEL, FLEET_SCORE_KERNEL = r"(?<!fleet_)score_kernel", \
     r"fleet_score_kernel"
 COLLISION_KERNEL = r"obb_collision_kernel"
 FLEET_COLLISION_KERNEL = r"obb_collision_fleet_kernel"
+DENSE_KERNEL = r"dense_rollout_kernel"
 
 
 def padded_fleet_scene(torch, scene, n_rows):
@@ -1265,6 +1284,13 @@ def main():
               "commonroad_rp_tpu/ops/pallas_kernels.py:33",
               xla["launches"], 0.0, xla["ms"], xla["plain_ms"],
               (xla["bound_ms"], xla["bound_by"]), device_ms=xla["dev_ms"],
+              executions=xla["executions"], executions_of_cycles=3),
+        entry("dense_rollout", "dense_rollout.cu",
+              "none: XLA's fusion of commonroad_rp_tpu/parallel/fleet.py "
+              "_single_problem_cycle", xla["dense"]["launches"],
+              xla["dense"]["readings"]["pose_gap"], xla["dense"]["ms"],
+              xla["dense"]["plain_ms"], xla["dense"]["bound"],
+              device_ms=xla["dense"]["dev_ms"],
               executions=xla["executions"], executions_of_cycles=3),
         entry("trivial_probe", "scoring.cu",
               "scripts/t61_overhead_probe.py:200", probe["launches"],
@@ -2424,22 +2450,150 @@ def compare_fleet_collision(torch, label, ops, chunk=128):
 def reset_launch_counts():
     """Every kernel wrapper's launch count to 0 (before a main-path run)."""
     from commonroad_rp_tpu_torch.ops import collision_kernel as ck
+    from commonroad_rp_tpu_torch.ops import dense_rollout as dr
     from commonroad_rp_tpu_torch.ops import scoring
 
     for wrapper in (scoring.score_candidates, scoring.score_fleet,
                     scoring.lattice_candidates, scoring.trivial_probe,
-                    ck.obb_collision, ck.obb_collision_fleet):
+                    ck.obb_collision, ck.obb_collision_fleet,
+                    dr.dense_rollout, dr.dense_winner):
         wrapper.launches = 0
+
+
+def dense_first_cycle(torch, scene, carry, dtype=None, route_end=False):
+    """The first XLA cycle's ``ops.dense_rollout`` operands of a fleet at
+    ``run_fleet``'s level and horizon, in ``dtype`` (the scene's when None);
+    ``route_end``: every member on a route shorter than the fleet's longest
+    moved 8 m before its route's end."""
+    from commonroad_rp_tpu_torch.ops import grid as grid_ops
+    from commonroad_rp_tpu_torch.parallel import fleet
+    from commonroad_rp_tpu_torch.run_fleet import DT, LEVEL, N_STEPS
+
+    if route_end:
+        ends = fleet.true_path_lengths(scene.ref.s)
+        short = ends < ends.max() - 1.0
+        x0_lon = carry.x0_lon.clone()
+        x0_lon[short, 0] = ends[short] - 8.0
+        carry = carry._replace(x0_lon=x0_lon)
+    if dtype is not None:
+        cast = lambda t: t.to(dtype) if t.is_floating_point() else t
+        scene = type(scene)(*(
+            type(leaf)(*map(cast, leaf)) if isinstance(leaf, tuple)
+            else cast(leaf) for leaf in scene))
+        carry = type(carry)(*map(cast, carry))
+    static_grid = grid_ops.make_static_grid(LEVEL, 0.4, N_STEPS * DT, DT,
+                                            -3.0, 3.0, 4)
+    grid_ops.upload_constants(static_grid, carry.x0_lon.device)
+    return fleet.dense_inputs(
+        carry.x0_lon, carry.x0_lat, carry.orientation, carry.velocity,
+        scene.ref, scene.corridor_lo, scene.corridor_hi,
+        scene.desired_speed, scene.veh, static_grid=static_grid,
+        low_vel_threshold=4.0, horizon=N_STEPS * DT)
+
+
+def _dense_slice(inp, f0, f1):
+    """Problems [f0, f1) of dense-rollout operands."""
+    cut = lambda t: t[f0:f1]
+    return type(inp)(*(type(x)(*map(cut, x)) if isinstance(x, tuple)
+                       else cut(x) for x in inp))
+
+
+def compare_dense_rollout(torch, label, inp, chunk=256):
+    """``dense_rollout_kernel`` against its plain version on ``inp`` (the
+    plain version in chunks of ``chunk`` problems), and
+    ``dense_winner_kernel`` against the plain bundle at the plain version's
+    winners (feasible, in the corridor, cheapest): raises unless at most
+    ``DENSE_MAX_FLIPS`` verdicts differ, costs and poses lie within
+    ``DENSE_TOLERANCE`` and the winner states are the bundle's, bit for
+    bit.  Returns the readings; launches made here are not counted."""
+    from commonroad_rp_tpu_torch.ops import dense_rollout as dr
+    from commonroad_rp_tpu_torch.run_fleet import DT, N_STEPS
+
+    counted = (dr.dense_rollout.launches, dr.dense_winner.launches)
+    dtype_name = str(inp.coeffs_lon.dtype).split(".")[-1]
+    tol = DENSE_TOLERANCE[dtype_name]
+    got = dr.dense_rollout(inp, DT, N_STEPS)
+    F = inp.traj_len.shape[0]
+    flips = nonfinite = 0
+    cost_gap = pose_gap = win_gap = 0.0
+    win_differ = n_ok = 0
+    for f0 in range(0, F, chunk):
+        part = _dense_slice(inp, f0, f0 + chunk)
+        want = dr.dense_rollout_reference(part, DT, N_STEPS)
+        g = lambda t: t[f0:f0 + chunk]
+        flips += int((g(got.feasible) != want.feasible).sum()
+                     + (g(got.corridor) != want.corridor).sum())
+        finite = torch.isfinite(want.cost)
+        nonfinite += int((torch.isfinite(g(got.cost)) != finite).sum())
+        cost_gap = max(cost_gap, float(torch.where(
+            finite, (g(got.cost) - want.cost).abs() / want.cost.abs(),
+            0.0).max()))
+        for a, b in zip(got[:3], want[:3]):
+            pose_gap = max(pose_gap, float((g(a) - b).abs().max()))
+        ok = want.feasible & ~want.corridor
+        n_ok += int(ok.sum())
+        best = torch.argmin(torch.where(
+            ok, want.cost, torch.full_like(want.cost, float("inf"))), dim=1)
+        rows = dr.dense_winner(part, dr.DenseRollout(*map(g, got[:6])),
+                               best, DT, N_STEPS, 1, 10)
+        plain = dr.dense_winner_reference(want, best, 1, 10)
+        win_differ += int((rows != plain).sum())
+        win_gap = max(win_gap, float(((rows - plain).abs() / torch.clamp(
+            plain.abs(), min=1.0)).max()))
+        del want
+    torch.cuda.synchronize()
+    readings = dict(flips=flips, nonfinite=nonfinite, cost_gap=cost_gap,
+                    pose_gap=pose_gap, winner_gap=win_gap,
+                    winner_differ=win_differ, ok=n_ok)
+    log(f"dense rollout {label} {dtype_name}: F={F} K={inp.traj_len.shape[1]}"
+        f" T={N_STEPS + 1}: {n_ok} candidates feasible and in the corridor "
+        f"(plain); flipped verdicts {flips}, costs finite on one side only "
+        f"{nonfinite}, largest relative cost gap "
+        f"{cost_gap:.3e}, largest pose gap {pose_gap:.3e}, winner states: "
+        f"{win_differ} of {F * len(dr.WINNER_FIELDS)} differ, largest "
+        f"relative gap {win_gap:.3e}")
+    check(flips <= DENSE_MAX_FLIPS and nonfinite == 0
+          and cost_gap <= tol["cost"] and pose_gap <= tol["pose"]
+          and win_differ == 0,
+          f"dense rollout {label} {dtype_name}: the kernel and its plain "
+          f"version differ beyond the bars ({readings})")
+    dr.dense_rollout.launches, dr.dense_winner.launches = counted
+    return readings
+
+
+def dense_rollout_bound(torch, inp):
+    """(bound ms, bound_by) of one ``dense_rollout`` launch: its
+    operations (``DENSE_*_OPS`` over this run's active and extension steps)
+    against its bytes (the coefficient rows and valid steps read once, the
+    poses and verdicts written once, each problem's tables once)."""
+    from commonroad_rp_tpu_torch.run_fleet import N_STEPS
+
+    F, K = inp.traj_len.shape
+    T = N_STEPS + 1
+    active = float(torch.clamp(inp.traj_len, max=T).sum())
+    ext = F * K * T - active
+    ops = (F * K * T * DENSE_STEP_OPS + active * (DENSE_ACTIVE_OPS
+                                                   + 4 * DENSE_SEARCH_OPS)
+           + ext * (DENSE_EXT_OPS + 3 * DENSE_SEARCH_OPS))
+    size = inp.coeffs_lon.element_size()
+    P = inp.ref.s.shape[1]
+    nbytes = (F * K * (12 * size + 4) + F * K * T * 3 * size
+              + F * K * (size + 2) + F * P * 13 * size + F * 12 * size)
+    return bound_of(ops, nbytes, str(inp.coeffs_lon.dtype).split(".")[-1])
 
 
 def phase_xla_fleet(torch, fused):
     """11. The XLA fleet path on the card, captured: the bench shape, the
     12-problem fleet and fleet1024 bit for bit their ``graph=False`` twins,
-    one fleet collision-kernel execution per cycle (profiler); the fleet
-    collision kernel against its plain version; the 12-problem fleet
-    against the fused scan; fleet1024 beside the fused scan's goal counts
-    (``fused``: phase 8's outcomes and trace)."""
+    one fleet collision-kernel and one dense-rollout-kernel execution per
+    cycle (profiler); the fleet collision kernel and the dense rollout
+    kernel against their plain versions (the latter on the 12-problem fleet
+    in both dtypes, as it starts and at its routes' ends, and at fleet1024,
+    where it is timed); the 12-problem fleet against the fused scan;
+    fleet1024 beside the fused scan's goal counts (``fused``: phase 8's
+    outcomes and trace)."""
     from commonroad_rp_tpu_torch.ops import collision_kernel as ck
+    from commonroad_rp_tpu_torch.ops import dense_rollout as dr
     from commonroad_rp_tpu_torch.ops import grid as grid_ops
     from commonroad_rp_tpu_torch.parallel import fleet
     from commonroad_rp_tpu_torch.parallel.dryrun import (over_problem,
@@ -2452,16 +2606,26 @@ def phase_xla_fleet(torch, fused):
     def captured_rollout(label, run, twin, carry, scene, cycles):
         """``captured_and_twin`` on a rollout, its wrapper counts (the
         warm-up's launch and the captured one) and the profiler's
-        executions of the fleet collision kernel in a traced warm call."""
+        executions of the fleet collision kernel and the dense rollout
+        kernel in a traced warm call."""
         got, _, _ = captured_and_twin(torch, label, run, twin, carry, scene)
         launches = ck.obb_collision_fleet.launches
         check(launches == 2 + cycles and ck.obb_collision.launches == 0,
               f"{label}: {launches} fleet collision launches for the "
               f"captured program and its {cycles}-cycle twin")
+        dense = dr.dense_rollout.launches
+        check(dense == 2 + cycles, f"{label}: {dense} dense rollout "
+              f"launches for the captured program and its {cycles}-cycle "
+              f"twin")
         executions, names = kernel_executions(
             torch, lambda: run(carry, scene), FLEET_COLLISION_KERNEL, cycles)
         check(executions == cycles, f"{label}: {executions} fleet collision "
               f"kernel executions for {cycles} cycles ({names})")
+        dense_exec = sum(n for name, n in names.items()
+                         if re.search(DENSE_KERNEL, name))
+        check(dense_exec == cycles,
+              f"{label}: {dense_exec} dense rollout kernel executions for "
+              f"{cycles} cycles ({names})")
         log(f"{label}: wrapper counts 2 (warm-up, capture) + {cycles} "
             f"(twin); {executions} obb_collision_fleet_kernel executions in "
             f"a traced call (profiler); graph pool {run.pool_bytes} B "
@@ -2515,6 +2679,11 @@ def phase_xla_fleet(torch, fused):
         make_xla_rollout(10, 1, "cuda", False)[0](carry12b, scene12b))
     log("XLA fleet F=12: the captured program on a second scene (seed 1) "
         "== a fresh uncaptured rollout on it, bit for bit")
+    for dtype in (torch.float32, torch.float64):
+        for route_end in (False, True):
+            compare_dense_rollout(
+                torch, f"F=12{' at route ends' if route_end else ''}",
+                dense_first_cycle(torch, scene12, carry12, dtype, route_end))
     run_f, _ = make_scan(scene12, 10)
     final_f, m_f = run_f(carry12)
     compare_fleet_collision(torch, "F=12 first cycle", captured_fleet_collision(
@@ -2547,8 +2716,9 @@ def phase_xla_fleet(torch, fused):
     M = scene.obs_pose.shape[1]
     log(f"XLA fleet{F}: phase 8's fleet, K={K}, "
         f"T={N_STEPS + 1}, M={M}, Mp={scene.poly_verts.shape[1]}; reckoned "
-        f"peak: about 16 [F, K, T] float32 arrays of {F * K * 21 / 1e6:.1f}M "
-        f"elements, {16 * F * K * 21 * 4 / 1e9:.1f} GB")
+        f"peak: the dense rollout kernel's three [F, T, K] float32 pose "
+        f"arrays of {F * K * 21 / 1e6:.1f}M elements, "
+        f"{3 * F * K * 21 * 4 / 1e9:.2f} GB, beside the grid's [F, K, 6] rows")
     walls, peaks = {}, {}
     results = {}
     for form, make in (("captured", lambda: run),
@@ -2572,6 +2742,7 @@ def phase_xla_fleet(torch, fused):
             check(program.replays == cycles, f"XLA fleet1024: "
                   f"{program.replays} replays for {cycles} cycles")
             pool, main_launches = program.pool_bytes, launches
+            main_dense = dr.dense_rollout.launches
         log(f"XLA fleet1024 {form}: {cycles} cycles, {launches} fleet "
             f"collision wrapper launches, no device read between cycles; "
             f"{walls[form]:.3f} s"
@@ -2659,9 +2830,32 @@ def phase_xla_fleet(torch, fused):
         f"ms by {bound_by} ({steps} evaluated steps, {headings} with their "
         f"heading computed, {pairs} live pairs, {full} full pair tests: the "
         f"skip removes {1 - full / max(pairs, 1):.4f} of the pair tests)")
+
+    # the dense rollout kernel at full width, the first cycle's operands
+    inp = dense_first_cycle(torch, scene, carry)
+    dense_readings = compare_dense_rollout(torch, "fleet1024 first cycle",
+                                           inp)
+    counted = dr.dense_rollout.launches
+    call = lambda: dr.dense_rollout(inp, DT, N_STEPS)
+    dense_ms = cuda_time_ms(torch, call, 50)
+    dense_plain_ms = cuda_time_ms(torch, lambda: [
+        dr.dense_rollout_reference(_dense_slice(inp, f0, f0 + 256), DT,
+                                   N_STEPS) for f0 in range(0, F, 256)], 3)
+    dense_dev_ms = device_kernel_ms(torch, call, "dense_rollout_kernel")
+    check_one_kernel_per_call(torch, "dense_rollout", call,
+                              "dense_rollout_kernel")
+    dense_bound = dense_rollout_bound(torch, inp)
+    dr.dense_rollout.launches = counted
+    log(f"time dense rollout F={F}: kernel {dense_ms:.4f} ms per "
+        f"dense_rollout call (device time {dev_text(dense_dev_ms)}), plain "
+        f"{dense_plain_ms:.4f} ms (4 calls of 256 problems); bound "
+        f"{dense_bound[0]:.6f} ms by {dense_bound[1]}")
     return dict(launches=main_launches, executions=executions, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                dev_ms=dev_ms, walls=walls, pool=pool)
+                dev_ms=dev_ms, walls=walls, pool=pool,
+                dense=dict(launches=main_dense, ms=dense_ms,
+                           plain_ms=dense_plain_ms, dev_ms=dense_dev_ms,
+                           bound=dense_bound, readings=dense_readings))
 
 
 def same_device_ops(torch, label, run, twin, args, attempts=8):

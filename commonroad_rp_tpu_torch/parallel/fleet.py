@@ -9,10 +9,13 @@ path: ``_single_problem_cycle``, ``make_fleet_step`` and
 ``make_fleet_rollout``.
 
 The XLA fleet path evaluates every candidate of every problem densely --
-grid generation, the K-wide rollout, the cost, ``check_collisions`` (one
-launch of the fleet form of the collision kernel per cycle) and
-``check_corridor`` -- and advances ``replan_offset`` steps along each
-problem's optimum.  ``jax.vmap`` over problems becomes one batched program
+grid generation, then ``ops.dense_rollout``: the K-wide rollout, the cost
+and the corridor test (on the card one launch of ``dense_rollout_kernel``,
+elsewhere the plain passes of ``kinematics.rollout``, ``cost.default_cost``
+and ``check_corridor``), then one launch of the fleet form of the collision
+kernel on its poses -- and advances ``replan_offset`` steps along each
+problem's optimum (on the card ``dense_winner_kernel`` gives the optimum's
+states).  ``jax.vmap`` over problems becomes one batched program
 over the leading axis; ``shard_map`` over the fleet mesh becomes one process
 per slice of the fleet (``parallel.mesh.shard_fleet``), whose three per-cycle
 aggregates are summed by ``parallel.mesh.fleet_all_reduce``; the jitted
@@ -31,7 +34,7 @@ import numpy as np
 import torch
 
 from commonroad_rp_tpu_torch.ops import collision as collision_ops
-from commonroad_rp_tpu_torch.ops import cost as cost_ops
+from commonroad_rp_tpu_torch.ops import dense_rollout as dense_ops
 from commonroad_rp_tpu_torch.ops import frenet as frenet_ops
 from commonroad_rp_tpu_torch.ops import grid as grid_ops
 from commonroad_rp_tpu_torch.ops import kinematics as kin_ops
@@ -121,6 +124,28 @@ def true_path_lengths(ref_s: torch.Tensor) -> torch.Tensor:
         dim=1).values
 
 
+def dense_inputs(carry_lon, carry_lat, orientation, velocity,
+                 ref: frenet_ops.RefPathTables, corridor_lo, corridor_hi,
+                 desired_speed, veh: kin_ops.VehicleArrays, *,
+                 static_grid: grid_ops.StaticGrid, low_vel_threshold: float,
+                 horizon: float) -> dense_ops.DenseInputs:
+    """One cycle's candidate pass operands (``ops.dense_rollout``) from the
+    carry and the scene, each with the leading problem axis F: the
+    velocity window (reactive_planner.py:332-334), the velocity-keeping
+    grid around each problem's carried state and each route's true end."""
+    v_min = torch.clamp(velocity - 0.125 * horizon * veh.a_max, min=0.0)
+    v_max = torch.maximum(v_min + 5.0, velocity + 2.0)
+    low_vel = velocity < low_vel_threshold
+    coeffs_lon, coeffs_lat, traj_len = grid_ops.velocity_keeping_candidates(
+        carry_lon, carry_lat, v_min, v_max, low_vel, static_grid)
+    return dense_ops.DenseInputs(
+        coeffs_lon.contiguous(), coeffs_lat.contiguous(),
+        traj_len.contiguous(), ref,
+        kin_ops.VehicleArrays(*(x.contiguous() for x in veh)),
+        orientation.contiguous(), low_vel, true_path_lengths(ref.s),
+        desired_speed.contiguous(), corridor_lo, corridor_hi)
+
+
 def _single_problem_cycle(carry_lon, carry_lat, orientation, velocity,
                           time_step, alive,
                           ref: frenet_ops.RefPathTables,
@@ -149,20 +174,14 @@ def _single_problem_cycle(carry_lon, carry_lat, orientation, velocity,
     orientation, velocity)), each [F]."""
     dtype = carry_lon.dtype
     F = carry_lon.shape[0]
-
-    # velocity window (reactive_planner.py:332-334)
-    v_min = torch.clamp(velocity - 0.125 * horizon * veh.a_max, min=0.0)
-    v_max = torch.maximum(v_min + 5.0, velocity + 2.0)
-    low_vel = velocity < low_vel_threshold
-
-    coeffs_lon, coeffs_lat, traj_len = grid_ops.velocity_keeping_candidates(
-        carry_lon, carry_lat, v_min, v_max, low_vel, static_grid)
-    s_last = true_path_lengths(ref.s)
-    rollout = kin_ops.rollout(coeffs_lon, coeffs_lat, traj_len, ref, veh,
-                              orientation, dt, n_steps, low_vel,
-                              s_last=s_last)
-    costs = cost_ops.default_cost(rollout, w_a=5.0, desired_d=0.0,
-                                  desired_speed=desired_speed)     # [F, K]
+    inputs = dense_inputs(carry_lon, carry_lat, orientation, velocity, ref,
+                          corridor_lo, corridor_hi, desired_speed, veh,
+                          static_grid=static_grid,
+                          low_vel_threshold=low_vel_threshold,
+                          horizon=horizon)
+    # rollout, constraint checks, projection domain, cost and corridor test
+    # of every candidate: one kernel on the card, the plain passes elsewhere
+    dense = dense_ops.dense_rollout(inputs, dt, n_steps)
 
     # obstacle windows starting at each problem's current scenario step;
     # the start clamps as dynamic_slice's does, so windows past the
@@ -170,49 +189,49 @@ def _single_problem_cycle(carry_lon, carry_lat, orientation, velocity,
     T = n_steps + 1
     window_pose, _ = _window(obs_pose, time_step, T)
     window_valid, in_span = _window(obs_valid, time_step, T)
-    poly_w = poly_valid_w = None
+    box = collision_ops.ObstacleArrays(
+        pose=window_pose.contiguous(), half_ext=obs_half.contiguous(),
+        valid=(window_valid & in_span).contiguous(),
+        radius=obs_radius.contiguous())
+    collides = collision_ops.obb_collision_fleet(
+        dense.cx, dense.cy, dense.theta, box,
+        collision_ops.per_problem_vector(veh.half_length, dense.theta),
+        collision_ops.per_problem_vector(veh.half_width, dense.theta))
     if poly_verts.shape[1] > 0:
         poly_w, _ = _window(poly_verts, time_step, T)
         poly_valid_w, in_span_p = _window(poly_valid, time_step, T)
-        poly_valid_w = poly_valid_w & in_span_p
-    obstacles = collision_ops.ObstacleArrays(
-        pose=window_pose, half_ext=obs_half, valid=window_valid & in_span,
-        radius=obs_radius, poly_verts=poly_w, poly_valid=poly_valid_w)
-    collides = collision_ops.check_collisions(
-        rollout.x, rollout.y, rollout.theta_gl, obstacles, None,
-        veh.half_length, veh.half_width, veh.wb_rear_axle)
-    corridor = collision_ops.CorridorArrays(d_lo=corridor_lo, d_hi=corridor_hi)
-    collides = collides | collision_ops.check_corridor(
-        rollout.s, rollout.d, rollout.theta_cl, ref.s, corridor,
-        veh.half_length, veh.half_width, veh.wb_rear_axle, s_last=s_last)
+        collides = collides | collision_ops._poly_obb_overlap_fleet(
+            poly_w.transpose(1, 2), (poly_valid_w & in_span_p).transpose(1, 2),
+            dense.cx, dense.cy, torch.cos(dense.theta),
+            torch.sin(dense.theta),
+            collision_ops._per_problem(veh.half_length, dense.theta),
+            collision_ops._per_problem(veh.half_width, dense.theta))
+    collides = collides | dense.corridor
 
-    ok = rollout.feasible & ~collides
-    inf = torch.full((), np.inf, dtype=dtype, device=costs.device)
-    masked = torch.where(ok, costs, inf)
+    ok = dense.feasible & ~collides
+    inf = torch.full((), np.inf, dtype=dtype, device=dense.cost.device)
+    masked = torch.where(ok, dense.cost, inf)
     best = torch.argmin(masked, dim=1)                             # [F]
     found = torch.any(ok, dim=1)
 
     # advance replan_offset steps along the optimum (run_planner.py:94-107;
-    # curvilinear carry from the trajectory arrays as in run_planner.py:85)
+    # curvilinear carry from the trajectory arrays as in run_planner.py:85):
+    # the optimum's states at that step, and its speed at the standstill
+    # lookahead step
     r = replan_offset
+    lookahead = min(standstill_lookahead, n_steps)
+    states = dense_ops.dense_winner(inputs, dense, best, dt, n_steps, r,
+                                    lookahead)
+    new_lon, new_lat = states[:, 0:3], states[:, 3:6]
+    (new_orientation, new_velocity, new_x, new_y, new_kappa,
+     v_lookahead) = states[:, 6:].unbind(dim=1)
     problem = torch.arange(F, device=best.device)
-    at = lambda arr, step=r: arr[problem, best, step]
-    new_lon = torch.stack([at(rollout.s), at(rollout.s_dot),
-                           at(rollout.s_ddot)], dim=1)
-    new_lat = torch.stack([at(rollout.d), at(rollout.d_dot),
-                           at(rollout.d_ddot)], dim=1)
-    new_orientation = at(rollout.theta_gl)
-    new_velocity = at(rollout.v)
-    new_x = at(rollout.x)
-    new_y = at(rollout.y)
-    new_kappa = at(rollout.kappa_gl)
     best_cost = masked[problem, best]
 
     if kappa is not None:
         # device-side standstill fallback (reactive_planner.py:638-653)
-        lookahead = min(standstill_lookahead, n_steps)
         standstill = ((velocity <= 0.05)
-                      & (~found | (at(rollout.v, lookahead) <= 0.05)))
+                      & (~found | (v_lookahead <= 0.05)))
         new_lon = torch.where(standstill[:, None], carry_lon, new_lon)
         new_lat = torch.where(standstill[:, None], carry_lat, new_lat)
         new_orientation = torch.where(standstill, orientation,

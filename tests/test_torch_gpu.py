@@ -1,5 +1,6 @@
-"""The CUDA kernels (scorers, OBB collision in both forms, the probe kernel)
-against their plain PyTorch versions, the captured replanning scans and
+"""The CUDA kernels (scorers, OBB collision in both forms, the dense XLA
+fleet cycle's rollout and winner kernels, the probe kernel) against their
+plain PyTorch versions, the captured replanning scans and
 level programs against their uncaptured twins, the conformance level
 program, the captured XLA fleet path and the fleet programs captured under
 an NCCL group of one, on the card.  The fleet scorer's lattice form at
@@ -493,6 +494,74 @@ def test_captured_xla_rollout_at_route_ends_equals_uncaptured(cuda):
     assert bool(torch.all(final.x0_lon[:, 0] <= ends))
     _, metrics_f = make_scan(scene, 6)[0](carry)
     assert torch.equal(metrics.found, metrics_f[0])
+
+
+@pytest.fixture(scope="module")
+def fleet12_first():
+    """The 12-problem fleet's scene and carry, built once for the dense
+    rollout kernel's tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is false)")
+    scene, carry, _, _ = heterogeneous_fleet(12, 6, device="cuda")
+    return scene, carry
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "float64"])
+@pytest.mark.parametrize("route_end", [False, True],
+                         ids=["start", "route_end"])
+def test_dense_rollout_kernel_matches_plain_first_cycle(fleet12_first,
+                                                        route_end,
+                                                        dtype_name):
+    """``dense_rollout_kernel`` against its plain version on the 12-problem
+    fleet's first XLA cycle, as it starts and with every member on a route
+    shorter than the longest 8 m before its end (the fleet of
+    ``test_captured_xla_rollout_at_route_ends_equals_uncaptured``):
+    feasibility and corridor verdicts equal but for at most
+    ``chip_smoke.DENSE_MAX_FLIPS`` (a margin within the last bits), costs
+    within ``chip_smoke.DENSE_TOLERANCE`` (PyTorch's reduction sums in
+    another order), poses bit for bit, and ``dense_winner_kernel``'s states
+    the plain bundle's at the plain version's winners, bit for bit."""
+    scene, carry = fleet12_first
+    inp = chip_smoke.dense_first_cycle(
+        torch, scene, carry, getattr(torch, dtype_name), route_end)
+    readings = chip_smoke.compare_dense_rollout(
+        torch, f"F=12 {'route end' if route_end else 'start'}", inp)
+    assert readings["ok"] > 0
+
+
+def test_dense_rollout_counts_and_one_kernel_per_cycle(fleet12_first):
+    """The captured XLA rollout's wrappers count the warm-up's launch and
+    the captured one (``dense_rollout.launches``, ``dense_winner.launches``:
+    2 each), a replay counts nothing, and the profiler sees one
+    ``dense_rollout_kernel`` per replayed cycle; the kernel's operand checks
+    and its shared-memory size are the library's."""
+    from commonroad_rp_tpu_torch.ops import dense_rollout as dr
+    from commonroad_rp_tpu_torch.run_fleet import make_xla_rollout
+
+    scene, carry = fleet12_first
+    run, _ = make_xla_rollout(4, 1, "cuda")
+    before = (dr.dense_rollout.launches, dr.dense_winner.launches)
+    run(carry, scene)
+    assert run.graph and run.replays == 4
+    assert (dr.dense_rollout.launches, dr.dense_winner.launches) == \
+        (before[0] + 2, before[1] + 2)
+    executions, names = chip_smoke.kernel_executions(
+        torch, lambda: run(carry, scene), chip_smoke.DENSE_KERNEL, 4)
+    assert executions == 4, names
+    assert (dr.dense_rollout.launches, dr.dense_winner.launches) == \
+        (before[0] + 2, before[1] + 2)
+    inp = chip_smoke.dense_first_cycle(torch, scene, carry)
+    P = inp.ref.s.shape[1]
+    lib = dr.library()
+    for dtype in (torch.float32, torch.float64):
+        assert lib.crp_dense_shared_bytes(P, dtype.itemsize) == \
+            dr.shared_bytes(P, dtype)
+    assert lib.crp_dense_shared_limit() == dr.SHARED_BLOCK_LIMIT
+    with pytest.raises(ValueError, match="s_last"):
+        dr.dense_rollout(inp._replace(s_last=inp.s_last.double()), 0.1, 20)
+    with pytest.raises(ValueError, match="best"):
+        dr.dense_winner(inp, None, torch.zeros(12, dtype=torch.int32,
+                                               device="cuda"), 0.1, 20, 1, 10)
 
 
 def test_fleet_programs_capture_under_nccl(cuda):
