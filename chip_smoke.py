@@ -2484,11 +2484,9 @@ def dense_first_cycle(torch, scene, carry, dtype=None, route_end=False):
     static_grid = grid_ops.make_static_grid(LEVEL, 0.4, N_STEPS * DT, DT,
                                             -3.0, 3.0, 4)
     grid_ops.upload_constants(static_grid, carry.x0_lon.device)
-    return fleet.dense_inputs(
-        carry.x0_lon, carry.x0_lat, carry.orientation, carry.velocity,
-        scene.ref, scene.corridor_lo, scene.corridor_hi,
-        scene.desired_speed, scene.veh, static_grid=static_grid,
-        low_vel_threshold=4.0, horizon=N_STEPS * DT)
+    return fleet.dense_inputs(carry, scene, scene.veh,
+                              static_grid=static_grid,
+                              low_vel_threshold=4.0, horizon=N_STEPS * DT)
 
 
 def _dense_slice(inp, f0, f1):

@@ -151,7 +151,7 @@ class ReactivePlanner:
     ``plan()`` replays one captured CUDA graph per level program call
     (``ops.level_program``; the LRU ``level_programs`` holds up to
     ``LEVEL_PROGRAMS`` signatures) and ``plan_scan`` one per cycle
-    (``parallel.replanning_scan.ScanProgram``).  ``graph=False`` runs the
+    (``ops.program.ScanProgram``).  ``graph=False`` runs the
     same programs eagerly: the twin the captured forms are held against.
     ``refine_continuations`` counts the fused calls whose exact refinement
     needed more than ``ops.cycle.REFINE_WIDTH`` re-selections and went on
@@ -844,7 +844,7 @@ class ReactivePlanner:
         state and returns (carry, metrics) without reading the device.
         Built scans are cached (LRU of 4) on everything they close over; a
         built scan on the card holds its captured cycle and the graph's
-        memory pool (``parallel.replanning_scan.ScanProgram``), and
+        memory pool (``ops.program.ScanProgram``), and
         ``graph=False`` builds the uncaptured twin (the CPU runs eagerly
         whatever ``graph`` says).  ``scorer`` replaces
         the scan's scoring function (``ops.scoring.score_prepared``), e.g.

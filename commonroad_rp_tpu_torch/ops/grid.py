@@ -137,6 +137,16 @@ def _flat(grid: StaticGrid, c_lon, c_lat, device):
             traj_len.reshape(batch + (-1,)))
 
 
+def velocity_window(velocity: torch.Tensor, a_max, horizon: float,
+                    low_vel_threshold: float):
+    """(v_min, v_max, low_vel) around the carried speed [...]: the
+    velocity-keeping window (set_desired_velocity, reactive_planner.py:
+    332-334) and the low-velocity mode, for every device cycle."""
+    v_min = torch.clamp(velocity - 0.125 * horizon * a_max, min=0.0)
+    v_max = torch.maximum(v_min + 5.0, velocity + 2.0)
+    return v_min, v_max, velocity < low_vel_threshold
+
+
 def velocity_keeping_candidates(x0_lon: torch.Tensor, x0_lat: torch.Tensor,
                                 v_min: torch.Tensor, v_max: torch.Tensor,
                                 low_vel, grid: StaticGrid):

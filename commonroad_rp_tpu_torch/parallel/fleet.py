@@ -4,9 +4,12 @@ Counterpart of ``commonroad_rp_tpu/parallel/fleet.py``: ``FleetScene``
 (per-problem scene tables with a leading fleet axis F), ``FleetCarry``
 (per-problem planner state between cycles), ``pad_fleet``,
 ``build_fleet_scene`` and ``problem_from_planner_setup`` (host-side numpy
-assembly, each leaf uploaded once to the fleet's device), and the XLA fleet
+assembly, each leaf uploaded once to the fleet's device), the XLA fleet
 path: ``_single_problem_cycle``, ``make_fleet_step`` and
-``make_fleet_rollout``.
+``make_fleet_rollout``, and the rules that every device cycle of the port
+takes from here: the obstacle window (``window_rows``), each route's true
+end (``true_path_lengths``), the standstill rule (``standstill``) and,
+for both fleet paths, the advance along the winners (``advance_fleet``).
 
 The XLA fleet path evaluates every candidate of every problem densely --
 grid generation, then ``ops.dense_rollout``: the K-wide rollout, the cost
@@ -62,8 +65,8 @@ class FleetCarry(NamedTuple):
     """Scan carry: per-problem planner state between cycles.
 
     ``kappa``/``px``/``py`` (curvature tan(delta)/L and Cartesian rear-axle
-    position) feed the fleet scan's on-device standstill fallback
-    (reactive_planner.py:638-653)."""
+    position) feed the on-device standstill fallback of both fleet paths
+    (``advance_fleet``, reactive_planner.py:638-653)."""
 
     x0_lon: torch.Tensor                   # [F, 3] (s, s_dot, s_ddot)
     x0_lat: torch.Tensor                   # [F, 3] (d, d_dot, d_ddot)
@@ -99,18 +102,17 @@ def _host(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def _window(table: torch.Tensor, time_step: torch.Tensor, T: int):
-    """``dynamic_slice_in_dim(table, time_step, T, axis=1)`` per problem
-    over [F, M, T_scene, ...] tables (the start clamped to [0, T_scene - T])
-    and the mask [F, 1, T] of window steps inside the span (``time_step + t
-    < T_scene``): one gather, no device read."""
-    F, M, n = table.shape[:3]
-    ts = time_step.to(torch.int64)[:, None]                    # [F, 1]
-    ar = torch.arange(T, device=table.device)
-    rows = torch.clamp(ts, 0, n - T) + ar                      # [F, T]
-    index = rows.reshape((F, 1, T) + (1,) * (table.dim() - 3)).expand(
-        (F, M, T) + tuple(table.shape[3:]))
-    return torch.gather(table, 2, index), ((ts + ar) < n)[:, None, :]
+def window_rows(time_step: torch.Tensor, T: int, n_rows: int,
+                t_full: int):
+    """The obstacle window of every device cycle: the rows [..., T] of a
+    table of ``n_rows`` steps that ``dynamic_slice_in_dim(table, time_step,
+    T)`` reads (the start clamped to [0, n_rows - T]), and the mask [..., T]
+    of the steps inside the prediction span (the unclamped step ``time_step
+    + t`` below ``t_full``).  A clamped window past the span would repeat
+    stale poses: those steps are invalid."""
+    ts = time_step.to(torch.int64)[..., None]
+    ar = torch.arange(T, device=ts.device)
+    return torch.clamp(ts, 0, n_rows - T) + ar, ts + ar < t_full
 
 
 def true_path_lengths(ref_s: torch.Tensor) -> torch.Tensor:
@@ -124,84 +126,116 @@ def true_path_lengths(ref_s: torch.Tensor) -> torch.Tensor:
         dim=1).values
 
 
-def dense_inputs(carry_lon, carry_lat, orientation, velocity,
-                 ref: frenet_ops.RefPathTables, corridor_lo, corridor_hi,
-                 desired_speed, veh: kin_ops.VehicleArrays, *,
+def standstill(velocity, found, v_lookahead):
+    """The device standstill rule (reactive_planner.py:638-653): at v ~ 0
+    with nothing found, or a winner still slow at the lookahead step, the
+    cycle plans the standstill trajectory instead."""
+    return (velocity <= 0.05) & (~found | (v_lookahead <= 0.05))
+
+
+def advance_fleet(carry: FleetCarry, found, best_cost, lon, lat,
+                  orientation, velocity, x, y, kappa, v_lookahead,
+                  replan_offset: int, inf: torch.Tensor):
+    """Advance every member ``replan_offset`` steps along its winner, whose
+    states at that step are ``lon``/``lat`` [F, 3] and ``orientation``,
+    ``velocity``, ``x``, ``y``, ``kappa`` [F], and ``v_lookahead`` [F] its
+    speed at the standstill lookahead step (run_planner.py:94-107).  A
+    member under the :func:`standstill` rule keeps its pose at v = 0 and
+    cost 0 and stays alive; a member that found nothing else dies and
+    keeps its carry.  Returns (the new carry, step_alive [F], (cost [F],
+    ``inf`` (a 0-d +inf) for dead members, so that fleet aggregates count
+    live problems only; x, y, orientation, velocity [F]))."""
+    still = standstill(carry.velocity, found, v_lookahead)
+    sel = lambda cond, a, b: torch.where(
+        cond.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+    lon = sel(still, carry.x0_lon, lon)
+    lat = sel(still, carry.x0_lat, lat)
+    orientation = torch.where(still, carry.orientation, orientation)
+    velocity = torch.where(still, 0.0, velocity)
+    x = torch.where(still, carry.px, x)
+    y = torch.where(still, carry.py, y)
+    kappa = torch.where(still, carry.kappa, kappa)
+    best_cost = torch.where(still, 0.0, best_cost)
+    step_alive = carry.alive & (found | still)
+    keep = lambda new, old: sel(step_alive, new, old)
+    new_carry = FleetCarry(
+        x0_lon=keep(lon, carry.x0_lon), x0_lat=keep(lat, carry.x0_lat),
+        orientation=keep(orientation, carry.orientation),
+        velocity=keep(velocity, carry.velocity),
+        time_step=torch.where(step_alive, carry.time_step + replan_offset,
+                              carry.time_step),
+        alive=step_alive, kappa=keep(kappa, carry.kappa),
+        px=keep(x, carry.px), py=keep(y, carry.py))
+    return new_carry, step_alive, (
+        torch.where(step_alive, best_cost, inf), x, y, orientation,
+        velocity)
+
+
+def dense_inputs(carry: FleetCarry, scene: FleetScene,
+                 veh: kin_ops.VehicleArrays, *,
                  static_grid: grid_ops.StaticGrid, low_vel_threshold: float,
                  horizon: float) -> dense_ops.DenseInputs:
     """One cycle's candidate pass operands (``ops.dense_rollout``) from the
-    carry and the scene, each with the leading problem axis F: the
-    velocity window (reactive_planner.py:332-334), the velocity-keeping
-    grid around each problem's carried state and each route's true end."""
-    v_min = torch.clamp(velocity - 0.125 * horizon * veh.a_max, min=0.0)
-    v_max = torch.maximum(v_min + 5.0, velocity + 2.0)
-    low_vel = velocity < low_vel_threshold
+    carry, the scene and the vehicles ([F] leaves), each with the leading
+    problem axis F: the velocity window, the velocity-keeping grid around
+    each problem's carried state and each route's true end."""
+    v_min, v_max, low_vel = grid_ops.velocity_window(
+        carry.velocity, veh.a_max, horizon, low_vel_threshold)
     coeffs_lon, coeffs_lat, traj_len = grid_ops.velocity_keeping_candidates(
-        carry_lon, carry_lat, v_min, v_max, low_vel, static_grid)
+        carry.x0_lon, carry.x0_lat, v_min, v_max, low_vel, static_grid)
     return dense_ops.DenseInputs(
         coeffs_lon.contiguous(), coeffs_lat.contiguous(),
-        traj_len.contiguous(), ref,
+        traj_len.contiguous(), scene.ref,
         kin_ops.VehicleArrays(*(x.contiguous() for x in veh)),
-        orientation.contiguous(), low_vel, true_path_lengths(ref.s),
-        desired_speed.contiguous(), corridor_lo, corridor_hi)
+        carry.orientation.contiguous(), low_vel,
+        true_path_lengths(scene.ref.s), scene.desired_speed.contiguous(),
+        scene.corridor_lo, scene.corridor_hi)
 
 
-def _single_problem_cycle(carry_lon, carry_lat, orientation, velocity,
-                          time_step, alive,
-                          ref: frenet_ops.RefPathTables,
-                          obs_pose, obs_half, obs_valid, obs_radius,
-                          poly_verts, poly_valid,
-                          corridor_lo, corridor_hi, desired_speed,
-                          veh: kin_ops.VehicleArrays,
-                          kappa=None, px=None, py=None,
-                          *, static_grid: grid_ops.StaticGrid,
-                          dt: float, n_steps: int, replan_offset: int,
-                          low_vel_threshold: float, horizon: float,
-                          standstill_lookahead: int = 10):
+def _single_problem_cycle(carry: FleetCarry, scene: FleetScene,
+                          veh: kin_ops.VehicleArrays, *,
+                          static_grid: grid_ops.StaticGrid, dt: float,
+                          n_steps: int, replan_offset: int,
+                          low_vel_threshold: float, horizon: float):
     """One planning cycle for every problem of the fleet (or of this rank's
     slice) at once: the JAX function under ``jax.vmap``, as one batched
-    program over the leading problem axis F.
+    program over the leading problem axis F of the carry, the scene and
+    the vehicles ``veh`` ([F] leaves).
 
-    Every argument carries that axis (carry [F, 3] / [F], scene tables
-    [F, ...], vehicle leaves [F]).  With ``kappa``/``px``/``py`` given (the
-    FleetCarry pose fields), the standstill fallback (reactive_planner.py:
-    638-653) engages on device: at v ~ 0 with no feasible candidate (or a
-    winner still slow at the lookahead step) the member freezes its pose at
-    v = 0 / cost 0 and stays alive.  Without them failure deadens the
-    member.  Every route ends at its true length (``true_path_lengths``):
-    the projection domain and the corridor's probes stop there, not in the
-    padding past it.  Returns (carry fields, (found, best cost, x, y,
-    orientation, velocity)), each [F]."""
-    dtype = carry_lon.dtype
-    F = carry_lon.shape[0]
-    inputs = dense_inputs(carry_lon, carry_lat, orientation, velocity, ref,
-                          corridor_lo, corridor_hi, desired_speed, veh,
-                          static_grid=static_grid,
+    The standstill fallback (reactive_planner.py:638-653) runs on the
+    device (:func:`advance_fleet`).  Every route ends at its true length
+    (``true_path_lengths``): the projection domain and the corridor's
+    probes stop there, not in the padding past it.  Returns (the new
+    carry, (found, best cost, x, y, orientation, velocity)), each [F]."""
+    inputs = dense_inputs(carry, scene, veh, static_grid=static_grid,
                           low_vel_threshold=low_vel_threshold,
                           horizon=horizon)
     # rollout, constraint checks, projection domain, cost and corridor test
     # of every candidate: one kernel on the card, the plain passes elsewhere
     dense = dense_ops.dense_rollout(inputs, dt, n_steps)
 
-    # obstacle windows starting at each problem's current scenario step;
-    # the start clamps as dynamic_slice's does, so windows past the
-    # prediction span would repeat stale poses -- those steps are invalid
+    # obstacle windows starting at each problem's current scenario step
+    # (the four tables share their span), invalid past the span
+    F, _, n = scene.obs_pose.shape[:3]
     T = n_steps + 1
-    window_pose, _ = _window(obs_pose, time_step, T)
-    window_valid, in_span = _window(obs_valid, time_step, T)
+    rows, in_span = window_rows(carry.time_step, T, n, n)       # [F, T]
+    in_span = in_span[:, None, :]
+    window = lambda table: torch.gather(table, 2, rows.reshape(
+        (F, 1, T) + (1,) * (table.dim() - 3)).expand(
+        (F, table.shape[1], T) + tuple(table.shape[3:])))
     box = collision_ops.ObstacleArrays(
-        pose=window_pose.contiguous(), half_ext=obs_half.contiguous(),
-        valid=(window_valid & in_span).contiguous(),
-        radius=obs_radius.contiguous())
+        pose=window(scene.obs_pose).contiguous(),
+        half_ext=scene.obs_half.contiguous(),
+        valid=(window(scene.obs_valid) & in_span).contiguous(),
+        radius=scene.obs_radius.contiguous())
     collides = collision_ops.obb_collision_fleet(
         dense.cx, dense.cy, dense.theta, box,
         collision_ops.per_problem_vector(veh.half_length, dense.theta),
         collision_ops.per_problem_vector(veh.half_width, dense.theta))
-    if poly_verts.shape[1] > 0:
-        poly_w, _ = _window(poly_verts, time_step, T)
-        poly_valid_w, in_span_p = _window(poly_valid, time_step, T)
+    if scene.poly_verts.shape[1] > 0:
         collides = collides | collision_ops._poly_obb_overlap_fleet(
-            poly_w.transpose(1, 2), (poly_valid_w & in_span_p).transpose(1, 2),
+            window(scene.poly_verts).transpose(1, 2),
+            (window(scene.poly_valid) & in_span).transpose(1, 2),
             dense.cx, dense.cy, torch.cos(dense.theta),
             torch.sin(dense.theta),
             collision_ops._per_problem(veh.half_length, dense.theta),
@@ -209,56 +243,22 @@ def _single_problem_cycle(carry_lon, carry_lat, orientation, velocity,
     collides = collides | dense.corridor
 
     ok = dense.feasible & ~collides
-    inf = torch.full((), np.inf, dtype=dtype, device=dense.cost.device)
+    inf = torch.full((), np.inf, dtype=dense.cost.dtype,
+                     device=dense.cost.device)
     masked = torch.where(ok, dense.cost, inf)
     best = torch.argmin(masked, dim=1)                             # [F]
     found = torch.any(ok, dim=1)
 
-    # advance replan_offset steps along the optimum (run_planner.py:94-107;
-    # curvilinear carry from the trajectory arrays as in run_planner.py:85):
-    # the optimum's states at that step, and its speed at the standstill
-    # lookahead step
-    r = replan_offset
-    lookahead = min(standstill_lookahead, n_steps)
-    states = dense_ops.dense_winner(inputs, dense, best, dt, n_steps, r,
-                                    lookahead)
-    new_lon, new_lat = states[:, 0:3], states[:, 3:6]
-    (new_orientation, new_velocity, new_x, new_y, new_kappa,
-     v_lookahead) = states[:, 6:].unbind(dim=1)
-    problem = torch.arange(F, device=best.device)
-    best_cost = masked[problem, best]
-
-    if kappa is not None:
-        # device-side standstill fallback (reactive_planner.py:638-653)
-        standstill = ((velocity <= 0.05)
-                      & (~found | (v_lookahead <= 0.05)))
-        new_lon = torch.where(standstill[:, None], carry_lon, new_lon)
-        new_lat = torch.where(standstill[:, None], carry_lat, new_lat)
-        new_orientation = torch.where(standstill, orientation,
-                                      new_orientation)
-        new_velocity = torch.where(standstill, 0.0, new_velocity)
-        new_x = torch.where(standstill, px, new_x)
-        new_y = torch.where(standstill, py, new_y)
-        new_kappa = torch.where(standstill, kappa, new_kappa)
-        best_cost = torch.where(standstill, 0.0, best_cost)
-        found = found | standstill
-
-    step_alive = alive & found
-    keep = lambda new, old: torch.where(
-        step_alive.reshape((F,) + (1,) * (new.dim() - 1)), new, old)
-    out_carry = (keep(new_lon, carry_lon), keep(new_lat, carry_lat),
-                 keep(new_orientation, orientation),
-                 keep(new_velocity, velocity),
-                 torch.where(step_alive, time_step + r, time_step),
-                 step_alive,
-                 keep(new_kappa, kappa) if kappa is not None else None,
-                 keep(new_x, px) if px is not None else None,
-                 keep(new_y, py) if py is not None else None)
-    # dead members (incl. pad_fleet padding) report found=False / inf cost so
-    # fleet aggregates count live problems only
-    metrics = (step_alive, torch.where(step_alive, best_cost, inf),
-               new_x, new_y, new_orientation, new_velocity)
-    return out_carry, metrics
+    # the optimum's states at step replan_offset (curvilinear carry from
+    # the trajectory arrays as in run_planner.py:85) and its speed at the
+    # standstill lookahead step (10, reactive_planner.py)
+    states = dense_ops.dense_winner(inputs, dense, best, dt, n_steps,
+                                    replan_offset, min(10, n_steps))
+    new_carry, step_alive, (cost, x, y, theta, v) = advance_fleet(
+        carry, found, masked[torch.arange(F, device=best.device), best],
+        states[:, 0:3], states[:, 3:6], *states[:, 6:].unbind(dim=1),
+        replan_offset, inf)
+    return new_carry, (step_alive, cost, x, y, theta, v)
 
 
 def make_fleet_step(group, veh: Optional[kin_ops.VehicleArrays],
@@ -286,13 +286,8 @@ def make_fleet_step(group, veh: Optional[kin_ops.VehicleArrays],
         veh_f = scene.veh if veh is None else kin_ops.VehicleArrays(*(
             collision_ops.per_problem_vector(x, carry.velocity)
             for x in veh))
-        out_carry, (found, best_cost, x, y, theta, v) = _single_problem_cycle(
-            carry.x0_lon, carry.x0_lat, carry.orientation, carry.velocity,
-            carry.time_step, carry.alive, scene.ref, scene.obs_pose,
-            scene.obs_half, scene.obs_valid, scene.obs_radius,
-            scene.poly_verts, scene.poly_valid, scene.corridor_lo,
-            scene.corridor_hi, scene.desired_speed, veh_f,
-            carry.kappa, carry.px, carry.py, static_grid=static_grid, dt=dt,
+        new_carry, (found, best_cost, x, y, theta, v) = _single_problem_cycle(
+            carry, scene, veh_f, static_grid=static_grid, dt=dt,
             n_steps=n_steps, replan_offset=replan_offset,
             low_vel_threshold=low_vel_threshold, horizon=horizon)
         n_success = torch.sum(found.to(torch.int32))
@@ -309,7 +304,7 @@ def make_fleet_step(group, veh: Optional[kin_ops.VehicleArrays],
                                fleet_success=n_success,
                                fleet_mean_cost=mean_cost, orientation=theta,
                                velocity=v)
-        return FleetCarry(*out_carry), metrics
+        return new_carry, metrics
 
     return step
 

@@ -26,10 +26,13 @@ captures one cycle as a CUDA graph at its first call and replays it
 scan's one dispatch does; ``graph=False`` runs the same cycles eagerly (the
 twin the captured scan is held against), and the CPU always runs them
 eagerly.  The constant operands (packed tables, scalar rows, obstacle
-tables, grid constants) are built once before the first cycle.  The
-obstacle window reproduces ``dynamic_slice``'s clamp: the window starts at
-the carried time step clamped to [0, T_table - T], and a step is valid only
-while the unclamped step is inside the prediction span.
+tables, grid constants) are built once before the first cycle.  Every
+cycle takes the replanning rules it shares with the XLA fleet path from
+one function each: the velocity window (``ops.grid.velocity_window``), the
+obstacle window (``parallel.fleet.window_rows``: ``dynamic_slice``'s clamp,
+and the steps past the prediction span read an appended invalid row), the
+standstill rule (``parallel.fleet.standstill``) and, in the fleet scan,
+the advance along the winners (``parallel.fleet.advance_fleet``).
 
 ``scorer`` is the scoring function on prepared operands (the fleet
 scan's are ``FleetLatticeInputs``): by default
@@ -77,7 +80,9 @@ from commonroad_rp_tpu_torch.ops.cycle import (CANDIDATE_FIELDS,
                                                refine_cheapest)
 from commonroad_rp_tpu_torch.ops.program import ScanProgram
 from commonroad_rp_tpu_torch.parallel.fleet import (FleetCarry, FleetScene,
-                                                    true_path_lengths)
+                                                    advance_fleet, standstill,
+                                                    true_path_lengths,
+                                                    window_rows)
 from commonroad_rp_tpu_torch.parallel.mesh import fleet_all_reduce
 from commonroad_rp_tpu_torch.utils import profiling
 
@@ -138,16 +143,13 @@ def _with_invalid_row(table: torch.Tensor, step_dim: int) -> torch.Tensor:
                      dim=step_dim).contiguous()
 
 
-def window_rows(time_step: torch.Tensor, T: int, n_rows: int,
+def _table_rows(time_step: torch.Tensor, T: int, n_rows: int,
                 t_full: int) -> torch.Tensor:
-    """Table rows [..., T] that ``dynamic_slice_in_dim(table, time_step, T)``
-    reads (start clamped to [0, n_rows - T]), with every step whose unclamped
-    index ``time_step + t`` is at or past ``t_full`` sent to the appended
-    invalid row ``n_rows``."""
-    ts = time_step.to(torch.int64)[..., None]
-    ar = torch.arange(T, device=ts.device)
-    rows = torch.clamp(ts, 0, n_rows - T) + ar
-    return torch.where(ts + ar < t_full, rows, n_rows)
+    """``parallel.fleet.window_rows`` over a table with the appended invalid
+    row (``_with_invalid_row``): every step past the prediction span reads
+    row ``n_rows``."""
+    rows, in_span = window_rows(time_step, T, n_rows, t_full)
+    return torch.where(in_span, rows, n_rows)
 
 
 def _scan_scalar_row(veh32, dt, desired_speed, desired_d, w_a, ref_s_last,
@@ -192,17 +194,12 @@ def _obstacle_window_tables(obstacles_full: ObstacleArrays, T: int, device):
         V, t_full
 
 
-def _window(table, rows):
-    """[M, T, C] window of a [M, n_rows + 1, C] table at rows [T]."""
-    return table[:, rows]
-
-
 def window_obstacle_arrays(obs: torch.Tensor, poly, half_ext: torch.Tensor,
                            radius, n_poly_verts: int) -> ObstacleArrays:
     """One cycle's obstacle window as ObstacleArrays (the continuous pass's
     operand): ``obs`` [M, T, 7] and ``poly`` [Mp, T, 2V + 1] (or None) are
     windows of the tables of ``_obstacle_window_tables`` at
-    ``window_rows``, whose validity column already clears the steps past
+    ``_table_rows``, whose validity column already clears the steps past
     the prediction span (the JAX scan's ``window_valid & in_span``)."""
     T = obs.shape[1]
     poly_verts = poly_valid = None
@@ -251,16 +248,14 @@ def make_replanning_scan(ref: frenet_ops.RefPathTables,
     r = replan_offset
 
     def cycle(carry: ReplanningCarry):
-        v_min = torch.clamp(carry.velocity - 0.125 * horizon * veh32.a_max,
-                            min=0.0)
-        v_max = torch.maximum(v_min + 5.0, carry.velocity + 2.0)
-        low_vel = carry.velocity < low_vel_threshold
+        v_min, v_max, low_vel = grid_ops.velocity_window(
+            carry.velocity, veh32.a_max, horizon, low_vel_threshold)
         cl, ca, tl = grid_ops.velocity_keeping_candidates(
             carry.x0_lon, carry.x0_lat, v_min, v_max, low_vel, static_grid)
-        obs = no_obs if obs_tab is None else _window(
-            obs_tab, window_rows(carry.time_step, T, t_obs, t_full))
-        poly = no_poly if poly_tab is None else _window(
-            poly_tab, window_rows(carry.time_step, T, t_poly, t_full))
+        obs = no_obs if obs_tab is None else obs_tab[
+            :, _table_rows(carry.time_step, T, t_obs, t_full)]
+        poly = no_poly if poly_tab is None else poly_tab[
+            :, _table_rows(carry.time_step, T, t_poly, t_full)]
         scalars = template.index_copy(0, slots, torch.stack(
             [carry.orientation.to(_F32), low_vel.to(_F32)]))
         costs, _, _ = scorer(scoring.ScorerInputs(
@@ -398,22 +393,17 @@ def make_fleet_scan(scene: FleetScene, static_grid: grid_ops.StaticGrid,
     profiling.count("fleet_scan.lattice_scorer")
 
     def cycle(carry: FleetCarry):
-        low_vel = carry.velocity < low_vel_threshold
-        if stopping:
-            bounds = s_win
-        else:
-            v_min = torch.clamp(
-                carry.velocity - 0.125 * horizon * veh32.a_max, min=0.0)
-            v_max = torch.maximum(v_min + 5.0, carry.velocity + 2.0)
-            bounds = torch.stack([v_min, v_max], dim=1)
+        v_min, v_max, low_vel = grid_ops.velocity_window(
+            carry.velocity, veh32.a_max, horizon, low_vel_threshold)
+        bounds = s_win if stopping else torch.stack([v_min, v_max], dim=1)
 
-        rows = window_rows(carry.time_step, T, t_obs, t_obs)       # [F, T]
+        rows = _table_rows(carry.time_step, T, t_obs, t_obs)       # [F, T]
         obs = torch.gather(obs_tab, 2, rows[:, None, :, None].expand(
             F, M, T, scoring._OBS_COLS))
         if poly_tab is None:
             poly = no_poly
         else:
-            rows_p = window_rows(carry.time_step, T, t_poly, t_poly)
+            rows_p = _table_rows(carry.time_step, T, t_poly, t_poly)
             poly = torch.gather(poly_tab, 2, rows_p[:, None, :, None].expand(
                 F, Mp, T, 2 * V + 1))
         scalars = template.index_copy(1, slots, torch.stack(
@@ -441,56 +431,24 @@ def make_fleet_scan(scene: FleetScene, static_grid: grid_ops.StaticGrid,
         ro = kin_ops.rollout(cl, ca, tl, ref32, veh32, carry.orientation, dt,
                              n_steps, low_vel)
         pick = lambda a: a[:, 0, r]
-        new_lon = torch.stack([pick(ro.s), pick(ro.s_dot), pick(ro.s_ddot)],
-                              dim=1)
-        new_lat = torch.stack([pick(ro.d), pick(ro.d_dot), pick(ro.d_ddot)],
-                              dim=1)
-
-        # on-device standstill fallback (reactive_planner.py:638-653): at
-        # v ~ 0 with nothing found (or a winner that stays slow at the
-        # lookahead step) the member plans the standstill trajectory --
-        # pose frozen, v = 0, cost 0 -- and stays alive
-        standstill = ((carry.velocity <= 0.05)
-                      & (~found | (ro.v[:, 0, lookahead] <= 0.05)))
-        sel = lambda cond, a, b: torch.where(
-            cond.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
-        new_lon = sel(standstill, carry.x0_lon, new_lon)
-        new_lat = sel(standstill, carry.x0_lat, new_lat)
-        new_theta = torch.where(standstill, carry.orientation,
-                                pick(ro.theta_gl))
-        new_v = torch.where(standstill, 0.0, pick(ro.v))
-        new_x = torch.where(standstill, carry.px, pick(ro.x))
-        new_y = torch.where(standstill, carry.py, pick(ro.y))
-        best_cost = torch.where(standstill, 0.0, best_cost)
-        found = found | standstill
-
-        step_alive = carry.alive & found
-        keep = lambda new, old: sel(step_alive, new, old)
-        new_carry = FleetCarry(
-            x0_lon=keep(new_lon, carry.x0_lon),
-            x0_lat=keep(new_lat, carry.x0_lat),
-            orientation=keep(new_theta, carry.orientation),
-            velocity=keep(new_v, carry.velocity),
-            time_step=torch.where(step_alive, carry.time_step + r,
-                                  carry.time_step),
-            alive=step_alive,
-            kappa=keep(torch.where(standstill, carry.kappa,
-                                   pick(ro.kappa_gl)), carry.kappa),
-            px=keep(new_x, carry.px),
-            py=keep(new_y, carry.py))
+        new_carry, step_alive, (cost, x, y, theta, v) = advance_fleet(
+            carry, found, best_cost,
+            torch.stack([pick(ro.s), pick(ro.s_dot), pick(ro.s_ddot)], dim=1),
+            torch.stack([pick(ro.d), pick(ro.d_dot), pick(ro.d_ddot)], dim=1),
+            pick(ro.theta_gl), pick(ro.v), pick(ro.x), pick(ro.y),
+            pick(ro.kappa_gl), ro.v[:, 0, lookahead], r, inf)
         # dead members (incl. pad_fleet padding) drop out of the aggregates
         n_success = torch.sum(step_alive.to(torch.int32))
-        cost_sum = torch.sum(torch.where(step_alive, best_cost, 0.0))
+        cost_sum = torch.sum(torch.where(step_alive, cost, 0.0))
         n_found = n_success
         if mesh is not None:
             n_success = fleet_all_reduce(n_success, mesh)
             cost_sum = fleet_all_reduce(cost_sum, mesh)
             n_found = fleet_all_reduce(
                 torch.sum(step_alive.to(torch.int32)), mesh)
-        metrics = (step_alive, torch.where(step_alive, best_cost, inf),
-                   new_x, new_y, n_success,
+        metrics = (step_alive, cost, x, y, n_success,
                    cost_sum / torch.clamp(n_found, min=1),
-                   n_kin_infeasible, n_colliding, new_theta, new_v)
+                   n_kin_infeasible, n_colliding, theta, v)
         return new_carry, metrics
 
     return ScanProgram(cycle, n_cycles, device, graph, keep=held)
@@ -631,10 +589,8 @@ def make_facade_replanning_scan(ref: frenet_ops.RefPathTables,
     cv, ck_v, ck, ckd, cy = constraint_flags
 
     def cycle(carry: FacadeScanCarry):
-        v_min = torch.clamp(carry.velocity - 0.125 * horizon * veh32.a_max,
-                            min=0.0)
-        v_max = torch.maximum(v_min + 5.0, carry.velocity + 2.0)
-        low_vel = carry.velocity < low_vel_threshold
+        v_min, v_max, low_vel = grid_ops.velocity_window(
+            carry.velocity, veh32.a_max, horizon, low_vel_threshold)
 
         cls, cas, tls, gvs = [], [], [], []
         if corridor_grids is not None:
@@ -664,10 +620,10 @@ def make_facade_replanning_scan(ref: frenet_ops.RefPathTables,
         tl = torch.cat(tls)
         gv = torch.cat(gvs)
 
-        obs = no_obs if obs_tab is None else _window(
-            obs_tab, window_rows(carry.time_step, T, t_obs, t_full))
-        poly = no_poly if poly_tab is None else _window(
-            poly_tab, window_rows(carry.time_step, T, t_poly, t_full))
+        obs = no_obs if obs_tab is None else obs_tab[
+            :, _table_rows(carry.time_step, T, t_obs, t_full)]
+        poly = no_poly if poly_tab is None else poly_tab[
+            :, _table_rows(carry.time_step, T, t_poly, t_full)]
         scalars = scalars_run.index_copy(0, slots, torch.stack(
             [carry.orientation.to(_F32), low_vel.to(_F32)]))
         masked, kin, _ = scorer(scoring.ScorerInputs(
@@ -705,9 +661,8 @@ def make_facade_replanning_scan(ref: frenet_ops.RefPathTables,
         # engaged at v ~ 0 when nothing was found OR the winner stays slow
         # at the lookahead step -- replaces the winner with the host's exact
         # standstill arrays (:667-713) at cost 0
-        lookahead_v = ro.v[0, standstill_lookahead]
-        standstill = ((carry.velocity <= 0.05)
-                      & (~found | (lookahead_v <= 0.05)))
+        still = standstill(carry.velocity, found,
+                           ro.v[0, standstill_lookahead])
         fill = lambda v: v.reshape(1).expand(r + 1)
         s0 = carry.x0_lon[0]
         idx0 = frenet_ops.interp_index(ref32, s0[None])
@@ -724,9 +679,9 @@ def make_facade_replanning_scan(ref: frenet_ops.RefPathTables,
             torch.where(offsets == 1, -carry.velocity / dt, zeros),
             fill(carry.kappa),
             zeros])                                       # kappa_dot = 0
-        states = torch.where(standstill, ss_states, states)
-        best_cost = torch.where(standstill, 0.0, best_cost)
-        found = found | standstill
+        states = torch.where(still, ss_states, states)
+        best_cost = torch.where(still, 0.0, best_cost)
+        found = found | still
 
         step_alive = carry.alive & found
         keep = lambda new, old: torch.where(step_alive, new, old)

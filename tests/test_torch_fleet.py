@@ -454,10 +454,14 @@ def test_pad_fleet_and_scope(repo_root):
     torch.testing.assert_close(metrics_g[5], metrics[5], rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("form", ["table_rows", "gather"])
 @pytest.mark.parametrize("time_step", [0, 7, 150, 178, 200])
-def test_obstacle_window_reproduces_dynamic_slice(time_step):
-    """window_rows + the appended invalid row give dynamic_slice's clamped
-    window with steps past the span invalidated."""
+def test_obstacle_window_reproduces_dynamic_slice(time_step, form):
+    """``fleet.window_rows`` gives dynamic_slice's clamped window with the
+    steps past the span invalidated, in both forms the cycles read it: the
+    fused scans' rows into a table with the appended invalid row, and the
+    XLA fleet cycle's gather of the clamped rows, its validity ANDed with
+    the in-span mask (every pose there is dynamic_slice's)."""
     rng = np.random.default_rng(time_step)
     n_rows, T = 181, N_STEPS + 1
     pose = rng.normal(size=(2, n_rows, 3)).astype(np.float32)
@@ -469,13 +473,24 @@ def test_obstacle_window_reproduces_dynamic_slice(time_step):
         wv = np.asarray(jax.lax.dynamic_slice_in_dim(jnp.asarray(valid), ts,
                                                      T, axis=1))
     wv = wv & ((time_step + np.arange(T)) < n_rows)[None]
-    table = replanning_scan._with_invalid_row(
-        torch.as_tensor(np.concatenate([pose, valid[..., None]], -1)), 1)
-    rows = replanning_scan.window_rows(torch.tensor(time_step, dtype=torch.int32),
-                                       T, n_rows, n_rows)
-    got = table[:, rows].numpy()
-    np.testing.assert_array_equal(got[..., 3] > 0.5, wv)
-    np.testing.assert_array_equal(got[..., :3][wv], wp[wv])
+    ts_t = torch.tensor(time_step, dtype=torch.int32)
+    if form == "table_rows":
+        table = replanning_scan._with_invalid_row(
+            torch.as_tensor(np.concatenate([pose, valid[..., None]], -1)), 1)
+        got = table[:, replanning_scan._table_rows(ts_t, T, n_rows,
+                                                   n_rows)].numpy()
+        got_pose, got_valid = got[..., :3], got[..., 3] > 0.5
+        np.testing.assert_array_equal(got_pose[wv], wp[wv])
+    else:
+        rows, in_span = fleet.window_rows(ts_t.reshape(1), T, n_rows, n_rows)
+        index = rows.reshape(1, 1, T)
+        got_pose = torch.gather(torch.as_tensor(pose)[None], 2, index[
+            ..., None].expand(1, 2, T, 3))[0].numpy()
+        got_valid = (torch.gather(torch.as_tensor(valid)[None], 2,
+                                  index.expand(1, 2, T))
+                     & in_span[:, None, :])[0].numpy()
+        np.testing.assert_array_equal(got_pose, wp)
+    np.testing.assert_array_equal(got_valid, wv)
 
 
 @functools.lru_cache(maxsize=None)

@@ -178,11 +178,10 @@ def test_continuous_window_matches_jax(repo_root, time_step):
     full_t = interop.obstacles(full, dtype=torch.float32)
     obs_tab, t_obs, _, _, V, t_full = \
         replanning_scan._obstacle_window_tables(full_t, T, "cpu")
-    rows = replanning_scan.window_rows(
+    rows = replanning_scan._table_rows(
         torch.tensor(time_step, dtype=torch.int32), T, t_obs, t_full)
     got = replanning_scan.window_obstacle_arrays(
-        replanning_scan._window(obs_tab, rows), None, full_t.half_ext,
-        full_t.radius, V)
+        obs_tab[:, rows], None, full_t.half_ext, full_t.radius, V)
     np.testing.assert_array_equal(got.valid.numpy(), want_valid)
     np.testing.assert_array_equal(got.pose.numpy()[want_valid],
                                   want_pose[want_valid])

@@ -32,8 +32,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 import chip_smoke
-from commonroad_rp_tpu_torch.ops import grid
-from commonroad_rp_tpu_torch.parallel import fleet, replanning_scan
+from commonroad_rp_tpu_torch.ops import grid, program
+from commonroad_rp_tpu_torch.parallel import fleet
 from commonroad_rp_tpu_torch.run_fleet import (DT, N_STEPS,
                                                heterogeneous_fleet, make_scan)
 from commonroad_rp_tpu_torch.run_planner import load_config, make_planner
@@ -288,7 +288,7 @@ def test_carry_layout_is_fixed_at_the_first_call():
     run(carry)
     with pytest.raises(ValueError, match="carry field velocity"):
         run(carry._replace(velocity=carry.velocity.double()))
-    assert isinstance(run, replanning_scan.ScanProgram)
+    assert isinstance(run, program.ScanProgram)
 
 
 @pytest.mark.parametrize("which", PROGRAMS)
